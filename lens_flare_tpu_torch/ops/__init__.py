@@ -1,0 +1,1 @@
+"""Counterpart of ``lens_flare_tpu.ops``."""

@@ -1,0 +1,386 @@
+// Ray / triangle / sphere intersection kernels for Hopper (sm_90a).
+//
+// These replace the Pallas TPU kernel family of
+// lens_flare_tpu/ops/intersect_pallas.py, all reached through _launch
+// (intersect_pallas.py:1267) and pl.pallas_call:
+//
+//   A  lf_tree_closest  <- _make_kernel(any_hit=False)        :214, call :1392
+//                          (VMEM mode and the HBM-streaming mode, stream=True)
+//   B  lf_tree_any_hit  <- _make_kernel(any_hit=True)         :214, call :1392
+//   C  lf_brute         <- _make_brute_kernel(any_hit=True)   :877, call :1292
+//                          (closest=1 selects _make_brute_kernel(any_hit=False))
+//   _sphere_pass (:840) runs at the end of A, B and C.
+//
+// Design: one thread per ray.  The TPU walked a 512-2048-lane tile in
+// lockstep and culled whole clusters per tile; here every thread walks the
+// same two-level cluster tree (accel/wide.py: B1 top boxes, B1*B2 child
+// boxes, K triangles per child) on its own, reading it from global memory.
+// The TPU's VMEM residency and its HBM page ring have no counterpart: the
+// tree is 48 bytes per triangle slot plus 32 per box (25 MB of triangle rows
+// and 0.5 MB of boxes for the 524k-triangle terrain), which sits mostly in
+// the 50 MB L2.
+//
+// What bounds it on this card: divergent, dependent global loads (each
+// thread reads different boxes and triangle rows, so loads do not coalesce)
+// served from L2 for scenes that fit it, and the branch divergence of the
+// walk.  A simple design first; packet traversal, shared-memory staging and
+// a wider node layout are later work.
+//
+// Semantics kept from the Pallas kernels (see intersect_cuda.py for the
+// plain PyTorch version of each kernel, held to bit equality on the card):
+// - per-lane primitive-test counter: K per child box hit, the child mask
+//   fixed at the start of each top with t_clip = min(t_hi, best_t)
+//   (closest hit) or 0 once occluded (any hit); s_real per live lane in a
+//   live 1024-lane tile (brute); +n_spheres from the sphere pass;
+// - ties: within one chunk batch the highest slot id (and the highest b1,
+//   b2) among equal t wins; across batches the earliest (strict <);
+// - arithmetic: _box_hits' dead-lane term t_lo <= t_hi, _safe_inv's 1e-12
+//   clamp, closest hit's det == 0 -> 1e-30, any hit's divide-free tests.
+// Build with --fmad=false so products and sums round as the plain version's.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define KINF 3.0e38f
+#define BRUTE_TILE 1024
+#define BRUTE_BLOCK 64
+
+namespace {
+
+struct Ray {
+  float o[3];
+  float d[3];
+  float inv[3];
+  float t_lo;
+  float t_hi;
+  bool finite;  // no NaN among o, d, t_lo, t_hi
+};
+
+__device__ __forceinline__ float safe_inv(float d) {
+  const float eps = 1e-12f;
+  return 1.0f / (d >= 0.0f ? fmaxf(d, eps) : fminf(d, -eps));
+}
+
+// NaN-propagating min, as torch.minimum / jnp.minimum
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? (a + b) : fminf(a, b);
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
+                                        const float* __restrict__ t_lo,
+                                        const float* __restrict__ t_hi, int i) {
+  Ray r;
+  bool ok = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = o[3 * i + a];
+    r.d[a] = d[3 * i + a];
+    r.inv[a] = safe_inv(r.d[a]);
+    ok = ok && !isnan(r.o[a]) && !isnan(r.d[a]);
+  }
+  r.t_lo = t_lo[i];
+  r.t_hi = t_hi[i];
+  r.finite = ok && !isnan(r.t_lo) && !isnan(r.t_hi);
+  return r;
+}
+
+// _box_hits (intersect_pallas.py:142-159) for one box [min.xyz, max.xyz, pad, pad].
+// A NaN anywhere in the ray makes every comparison of the plain version false,
+// so such rays miss every box (checked once per ray in r.finite).
+__device__ __forceinline__ bool box_hit(const float* __restrict__ b, const Ray& r, float t_lo,
+                                        float t_hi) {
+  float t_min = -KINF;
+  float t_max = KINF;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t1 = (b[a] - r.o[a]) * r.inv[a];
+    float t2 = (b[3 + a] - r.o[a]) * r.inv[a];
+    t_min = fmaxf(t_min, fminf(t1, t2));
+    t_max = fminf(t_max, fmaxf(t1, t2));
+  }
+  return (t_min <= t_max) && (t_max >= t_lo) && (t_min <= t_hi) && (t_lo <= t_hi);
+}
+
+// Moller-Trumbore numerators for one triangle row [p0 | e1 | e2].
+struct MT {
+  float det, tt_n, bb1_n, bb2_n;
+};
+
+__device__ __forceinline__ MT mt_terms(const float* __restrict__ tri, const Ray& r) {
+  const float p0x = tri[0], p0y = tri[1], p0z = tri[2];
+  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  const float sx = r.o[0] - p0x, sy = r.o[1] - p0y, sz = r.o[2] - p0z;
+  const float s1x = r.d[1] * e2z - r.d[2] * e2y;
+  const float s1y = r.d[2] * e2x - r.d[0] * e2z;
+  const float s1z = r.d[0] * e2y - r.d[1] * e2x;
+  const float s2x = sy * e1z - sz * e1y;
+  const float s2y = sz * e1x - sx * e1z;
+  const float s2z = sx * e1y - sy * e1x;
+  MT m;
+  m.det = s1x * e1x + s1y * e1y + s1z * e1z;
+  m.tt_n = s2x * e2x + s2y * e2y + s2z * e2z;
+  m.bb1_n = s1x * sx + s1y * sy + s1z * sz;
+  m.bb2_n = s2x * r.d[0] + s2y * r.d[1] + s2z * r.d[2];
+  return m;
+}
+
+// Divide-free occlusion test (intersect_pallas.py:459-484).
+__device__ __forceinline__ bool occludes(const MT& m, float t_lo, float t_hi) {
+  const float sgn = m.det >= 0.0f ? 1.0f : -1.0f;
+  const float adet = m.det * sgn;
+  const float tts = m.tt_n * sgn;
+  const float b1s = m.bb1_n * sgn;
+  const float b2s = m.bb2_n * sgn;
+  return (adet > 0.0f) && (tts >= t_lo * adet) && (tts <= t_hi * adet) && (b1s >= 0.0f) &&
+         (b1s <= adet) && (b2s >= 0.0f) && (b2s <= adet) && (b1s + b2s <= adet);
+}
+
+// Closest-hit chunk-batch state: the batch minimum t and, among slots tied
+// at it, the max slot id and max barycentrics (intersect_pallas.py:505-523).
+struct Batch {
+  float t;
+  int id;
+  float b1, b2;
+  float limit;  // min(t_hi, best_t) at the start of the batch
+};
+
+__device__ __forceinline__ void batch_reset(Batch& bt, float t_hi, float best_t) {
+  bt.t = KINF;
+  bt.id = -1;
+  bt.b1 = -KINF;
+  bt.b2 = -KINF;
+  bt.limit = min_nan(t_hi, best_t);
+}
+
+__device__ __forceinline__ void batch_test(Batch& bt, const MT& m, int id, float t_lo) {
+  const float inv_det = 1.0f / (m.det == 0.0f ? 1e-30f : m.det);
+  const float tt = m.tt_n * inv_det;
+  const float b1 = m.bb1_n * inv_det;
+  const float b2 = m.bb2_n * inv_det;
+  const bool valid = (m.det != 0.0f) && (tt >= t_lo) && (tt <= bt.limit) && (b1 >= 0.0f) &&
+                     (b1 <= 1.0f) && (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
+  if (!valid) return;
+  if (tt < bt.t) {
+    bt.t = tt;
+    bt.id = id;
+    bt.b1 = b1;
+    bt.b2 = b2;
+  } else if (tt == bt.t) {
+    bt.id = max(bt.id, id);
+    bt.b1 = fmaxf(bt.b1, b1);
+    bt.b2 = fmaxf(bt.b2, b2);
+  }
+}
+
+__device__ __forceinline__ void batch_commit(const Batch& bt, float& best_t, int& slot, float& ob1,
+                                             float& ob2) {
+  if (bt.t < best_t) {
+    best_t = bt.t;
+    slot = bt.id;
+    ob1 = bt.b1;
+    ob2 = bt.b2;
+  }
+}
+
+// _sphere_pass (intersect_pallas.py:840-874): brute quadratic per sphere,
+// then +n_spheres tests.
+__device__ __forceinline__ void sphere_pass(const float* __restrict__ sph, int n_spheres,
+                                            int base_slot, const Ray& r, float& best_t, int& slot,
+                                            int& tests) {
+  for (int s = 0; s < n_spheres; ++s) {
+    const float* c = sph + 8 * s;
+    const float ocx = r.o[0] - c[0], ocy = r.o[1] - c[1], ocz = r.o[2] - c[2];
+    const float a = r.d[0] * r.d[0] + r.d[1] * r.d[1] + r.d[2] * r.d[2];
+    const float bq = 2.0f * (ocx * r.d[0] + ocy * r.d[1] + ocz * r.d[2]);
+    const float cq = ocx * ocx + ocy * ocy + ocz * ocz - c[3] * c[3];
+    const float disc = bq * bq - 4.0f * a * cq;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t1 = (-bq - sq) / (2.0f * a);
+    const float t2 = (-bq + sq) / (2.0f * a);
+    const float limit = min_nan(r.t_hi, best_t);
+    const bool t1_ok = (t1 >= r.t_lo) && (t1 <= limit);
+    const bool t2_ok = (t2 >= r.t_lo) && (t2 <= limit);
+    const float ts = t1_ok ? t1 : t2;
+    const bool valid = (disc >= 0.0f) && (t1_ok || t2_ok);
+    if (valid && ts < best_t) {
+      best_t = ts;
+      slot = base_slot + s;
+    }
+  }
+  tests += n_spheres;
+}
+
+// Kernels A (ANY_HIT = false) and B (ANY_HIT = true): the two-level walk.
+template <bool ANY_HIT>
+__global__ void tree_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                            const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                            const float* __restrict__ top, const float* __restrict__ child,
+                            const float* __restrict__ tri, const float* __restrict__ sph, int n,
+                            int b1, int b2, int k, int n_spheres, int chunk_batch,
+                            float* __restrict__ out_t, int* __restrict__ out_slot,
+                            float* __restrict__ out_bary, int* __restrict__ out_tests) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+  bool occluded = false;
+
+  for (int tp = 0; r.finite && tp < b1; ++tp) {
+    // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
+    if (ANY_HIT && occluded && !(t_lo <= 0.0f)) break;
+    const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
+    // child boxes lie inside their top box, so this prunes exactly the
+    // children the tile-level walk would have masked off for this lane
+    if (b1 > 1 && !box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
+    Batch bt;
+    int in_batch = 0;
+    for (int c = 0; c < b2; ++c) {
+      const int node = tp * b2 + c;
+      if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
+      tests += k;  // the chunk mask is fixed for the whole top
+      const float* rows = tri + (size_t)node * k * 12;
+      if (ANY_HIT) {
+        if (occluded) continue;
+        for (int s = 0; s < k; ++s) {
+          if (occludes(mt_terms(rows + 12 * s, r), t_lo, t_hi)) {
+            occluded = true;
+            break;
+          }
+        }
+      } else {
+        if (in_batch == 0) batch_reset(bt, t_hi, best_t);
+        for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
+        if (++in_batch == chunk_batch) {
+          batch_commit(bt, best_t, slot, ob1, ob2);
+          in_batch = 0;
+        }
+      }
+    }
+    if (!ANY_HIT && in_batch > 0) batch_commit(bt, best_t, slot, ob1, ob2);
+  }
+  if (ANY_HIT && occluded) slot = 0;
+
+  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
+
+  out_t[i] = best_t;
+  out_slot[i] = slot;
+  out_bary[2 * i] = ob1;
+  out_bary[2 * i + 1] = ob2;
+  out_tests[i] = tests;
+}
+
+// Kernel C: the tree-free pass over every real triangle of a tiny scene.
+// Rays are grouped in 1024-lane tiles as the TPU kernel's grid was: a tile
+// with no live lane (t_hi > t_lo) does no work at all, sphere tests included.
+template <bool CLOSEST>
+__global__ void brute_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                             const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                             const float* __restrict__ tri, const float* __restrict__ sph, int n,
+                             int s_real, int s_pad, int n_spheres, float* __restrict__ out_t,
+                             int* __restrict__ out_slot, float* __restrict__ out_bary,
+                             int* __restrict__ out_tests) {
+  // blockDim.x divides BRUTE_TILE: each block reads the liveness of its tile
+  const int tile0 = (blockIdx.x * blockDim.x) / BRUTE_TILE * BRUTE_TILE;
+  int any_live = 0;
+  for (int l = tile0 + threadIdx.x; l < tile0 + BRUTE_TILE && l < n; l += blockDim.x)
+    any_live |= (t_hi_in[l] > t_lo_in[l]) ? 1 : 0;
+  const bool tile_live = __syncthreads_or(any_live) != 0;
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+  if (tile_live) {
+    const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+    if (CLOSEST) {
+      // rows in static blocks of 64, as the TPU kernel's sublane blocks
+      for (int c0 = 0; c0 < s_real; c0 += BRUTE_BLOCK) {
+        Batch bt;
+        batch_reset(bt, r.t_hi, best_t);
+        const int c1 = min(c0 + BRUTE_BLOCK, s_real);
+        for (int s = c0; s < c1; ++s) batch_test(bt, mt_terms(tri + 9 * s, r), s, r.t_lo);
+        batch_commit(bt, best_t, slot, ob1, ob2);
+      }
+    } else {
+      for (int s = 0; s < s_real; ++s) {
+        if (occludes(mt_terms(tri + 9 * s, r), r.t_lo, r.t_hi)) {
+          slot = 0;
+          break;
+        }
+      }
+    }
+    tests = (r.t_hi > r.t_lo) ? s_real : 0;
+    sphere_pass(sph, n_spheres, s_pad, r, best_t, slot, tests);
+  }
+  out_t[i] = best_t;
+  out_slot[i] = slot;
+  out_bary[2 * i] = ob1;
+  out_bary[2 * i + 1] = ob2;
+  out_tests[i] = tests;
+}
+
+constexpr int TREE_THREADS = 128;
+constexpr int BRUTE_THREADS = 256;
+static_assert(BRUTE_TILE % BRUTE_THREADS == 0, "a block must lie inside one brute tile");
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  Every pointer is a device pointer;
+// rays are o (N, 3), d (N, 3), t_lo (N,), t_hi (N,); outputs t (N,),
+// slot (N,), bary (N, 2), tests (N,).  Returns cudaGetLastError().
+extern "C" int lf_tree_closest(const float* o, const float* d, const float* t_lo,
+                               const float* t_hi, const float* top, const float* child,
+                               const float* tri, const float* sph, int n, int b1, int b2, int k,
+                               int n_spheres, int chunk_batch, float* out_t, int* out_slot,
+                               float* out_bary, int* out_tests, void* stream) {
+  if (n > 0) {
+    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
+    tree_kernel<false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, chunk_batch, out_t,
+        out_slot, out_bary, out_tests);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo,
+                               const float* t_hi, const float* top, const float* child,
+                               const float* tri, const float* sph, int n, int b1, int b2, int k,
+                               int n_spheres, float* out_t, int* out_slot, float* out_bary,
+                               int* out_tests, void* stream) {
+  if (n > 0) {
+    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
+    tree_kernel<true><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, 1, out_t, out_slot,
+        out_bary, out_tests);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lf_brute(const float* o, const float* d, const float* t_lo, const float* t_hi,
+                        const float* tri, const float* sph, int n, int s_real, int s_pad,
+                        int n_spheres, int closest, float* out_t, int* out_slot, float* out_bary,
+                        int* out_tests, void* stream) {
+  if (n > 0) {
+    const int grid = (n + BRUTE_THREADS - 1) / BRUTE_THREADS;
+    if (closest)
+      brute_kernel<true><<<grid, BRUTE_THREADS, 0, (cudaStream_t)stream>>>(
+          o, d, t_lo, t_hi, tri, sph, n, s_real, s_pad, n_spheres, out_t, out_slot, out_bary,
+          out_tests);
+    else
+      brute_kernel<false><<<grid, BRUTE_THREADS, 0, (cudaStream_t)stream>>>(
+          o, d, t_lo, t_hi, tri, sph, n, s_real, s_pad, n_spheres, out_t, out_slot, out_bary,
+          out_tests);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,466 @@
+"""Ray / scene intersection through the hand-written CUDA kernels.
+
+Counterpart of ``lens_flare_tpu/ops/intersect_pallas.py``.  The scene is the
+same two-level cluster tree (``accel/wide.py:WideBVH``), kept in the layout a
+thread wants to read: per-triangle rows ``tri`` (B1*B2*K, 12) =
+[p0 | e1 | e2 | pad], child boxes (B1*B2, 8) and top boxes (B1, 8).  The
+TPU layouts of ``PallasScene`` (component-major planes, 128-padded boxes,
+HBM pages) were VMEM workarounds and are not carried over.
+
+Three kernels (``csrc/intersect.cu``), each with a plain PyTorch version
+beside it that computes the same function with the same arithmetic:
+
+==  =================  ==========================================  =====================
+id  kernel             replaces (intersect_pallas.py)              plain version
+==  =================  ==========================================  =====================
+A   lf_tree_closest    _make_kernel(any_hit=False) :214, :1392     :func:`tree_plain`
+B   lf_tree_any_hit    _make_kernel(any_hit=True)  :214, :1392     :func:`tree_plain`
+C   lf_brute           _make_brute_kernel :877, :1292              :func:`brute_plain`
+==  =================  ==========================================  =====================
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  Each launch adds one to that
+kernel's count in :data:`KERNELS`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+KINF = 3.0e38  # the kernels' "no hit yet" distance (intersect_pallas.INF)
+# scenes of at most this many real triangles trace shadow rays with the
+# tree-free kernel C (intersect_pallas.py:102)
+BRUTE_MAX_TRIS = 512
+BRUTE_TILE = 1024  # lanes per liveness group of kernel C (_auto_tile, brute)
+BRUTE_BLOCK = 64  # rows per tie-breaking block of kernel C's closest hit
+
+
+@dataclass
+class KernelInfo:
+    name: str
+    symbol: str
+    replaces: str
+    launches: int = 0
+
+
+KERNELS = {
+    "A": KernelInfo(
+        "tree_closest_hit", "lf_tree_closest",
+        "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
+    "B": KernelInfo(
+        "tree_any_hit", "lf_tree_any_hit",
+        "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
+    "C": KernelInfo(
+        "brute_any_hit", "lf_brute",
+        "lens_flare_tpu/ops/intersect_pallas.py:877",
+    ),
+}
+KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+@dataclass
+class CudaScene:
+    """Device-side cluster tree, built from a ``WideBVH`` (``accel/wide.py:31-38``)."""
+
+    top: torch.Tensor  # (B1, 8) f32
+    child: torch.Tensor  # (B1*B2, 8) f32
+    tri: torch.Tensor  # (B1*B2*K, 12) f32 [p0 | e1 | e2 | pad]
+    sph: torch.Tensor  # (max(S, 1), 8) f32 [center | radius | pad]
+    slot_map: torch.Tensor  # (B1*B2*K + max(S, 1),) slot -> primitive id
+    tri_brute: torch.Tensor  # (S_pad, 9) real triangle rows (brute mode)
+    brute_map: torch.Tensor  # (S_pad + max(S, 1),)
+    b1: int
+    b2: int
+    k: int
+    num_tris: int
+    n_spheres: int
+    brute: bool
+    s_pad: int
+    s_real: int
+
+    @classmethod
+    def from_wide_bvh(cls, wb, sph_center, sph_radius, num_tris: int, device):
+        """Pack a WideBVH; the brute-mode choice and the maps follow ``PallasScene``."""
+        dev = torch.device(device)
+        n_sph = len(sph_center)
+        brute = 0 < num_tris <= BRUTE_MAX_TRIS
+        sph_ids = (num_tris + np.arange(max(n_sph, 1))).astype(np.int32)
+        if brute:
+            real = wb.tri_id >= 0
+            rows = np.ascontiguousarray(wb.tri_soa[real][:, :9], np.float32)
+            s_real = rows.shape[0]
+            s_pad = (max(s_real, 1) + 7) // 8 * 8
+            rows = np.pad(rows, ((0, s_pad - s_real), (0, 0)))
+            brute_map = np.concatenate(
+                [np.pad(wb.tri_id[real].astype(np.int32), (0, s_pad - s_real)), sph_ids]
+            )
+        else:
+            rows = np.zeros((8, 9), np.float32)
+            brute_map = np.zeros(9, np.int32)
+            s_pad = s_real = 0
+        sph = np.zeros((max(n_sph, 1), 8), np.float32)
+        if n_sph:
+            sph[:n_sph, 0:3] = sph_center
+            sph[:n_sph, 3] = sph_radius
+        slot_map = np.concatenate([wb.tri_id.astype(np.int32), sph_ids])
+
+        def t(a, dtype=np.float32):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
+
+        return cls(
+            top=t(wb.top_boxes),
+            child=t(wb.child_boxes),
+            tri=t(wb.tri_soa),
+            sph=t(sph),
+            slot_map=t(slot_map, np.int32),
+            tri_brute=t(rows),
+            brute_map=t(brute_map, np.int32),
+            b1=int(wb.b1),
+            b2=int(wb.b2),
+            k=int(wb.k),
+            num_tris=int(num_tris),
+            n_spheres=n_sph,
+            brute=brute,
+            s_pad=int(s_pad),
+            s_real=int(s_real),
+        )
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path; the card's reference)
+# ---------------------------------------------------------------------------
+
+
+def _safe_inv(d):
+    eps = 1e-12
+    return 1.0 / torch.where(d >= 0, torch.clamp_min(d, eps), torch.clamp_max(d, -eps))
+
+
+def _box_hits(boxes, o, inv, t_lo, t_hi):
+    """Slab tests of rays (N,) against boxes (B, 8) -> (N, B) bool."""
+    t_min = t_max = None
+    for a in range(3):
+        t1 = (boxes[None, :, a] - o[:, a, None]) * inv[:, a, None]
+        t2 = (boxes[None, :, 3 + a] - o[:, a, None]) * inv[:, a, None]
+        lo = torch.minimum(t1, t2)
+        hi = torch.maximum(t1, t2)
+        t_min = torch.clamp_min(lo, -KINF) if t_min is None else torch.maximum(t_min, lo)
+        t_max = torch.clamp_max(hi, KINF) if t_max is None else torch.minimum(t_max, hi)
+    t_lo = t_lo[:, None]
+    t_hi = t_hi[:, None]
+    return (t_min <= t_max) & (t_max >= t_lo) & (t_min <= t_hi) & (t_lo <= t_hi)
+
+
+def _mt_terms(tri, o, d):
+    """Möller-Trumbore numerators; tri (..., >=9) broadcast against rays (..., 3)."""
+    p0 = [tri[..., j] for j in range(3)]
+    e1 = [tri[..., 3 + j] for j in range(3)]
+    e2 = [tri[..., 6 + j] for j in range(3)]
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    sx, sy, sz = ox - p0[0], oy - p0[1], oz - p0[2]
+    s1x = dy * e2[2] - dz * e2[1]
+    s1y = dz * e2[0] - dx * e2[2]
+    s1z = dx * e2[1] - dy * e2[0]
+    s2x = sy * e1[2] - sz * e1[1]
+    s2y = sz * e1[0] - sx * e1[2]
+    s2z = sx * e1[1] - sy * e1[0]
+    det = s1x * e1[0] + s1y * e1[1] + s1z * e1[2]
+    tt_n = s2x * e2[0] + s2y * e2[1] + s2z * e2[2]
+    bb1_n = s1x * sx + s1y * sy + s1z * sz
+    bb2_n = s2x * dx + s2y * dy + s2z * dz
+    return det, tt_n, bb1_n, bb2_n
+
+
+def _occludes(det, tt_n, bb1_n, bb2_n, t_lo, t_hi):
+    """Divide-free any-hit conditions (intersect_pallas.py:459-484)."""
+    sgn = torch.where(det >= 0, 1.0, -1.0)
+    adet = det * sgn
+    tts = tt_n * sgn
+    b1s = bb1_n * sgn
+    b2s = bb2_n * sgn
+    return (
+        (adet > 0) & (tts >= t_lo * adet) & (tts <= t_hi * adet)
+        & (b1s >= 0) & (b1s <= adet) & (b2s >= 0) & (b2s <= adet) & (b1s + b2s <= adet)
+    )
+
+
+def _closest_terms(det, tt_n, bb1_n, bb2_n, t_lo, limit):
+    """Closest-hit conditions -> (valid, t, b1, b2) (intersect_pallas.py:486-503)."""
+    inv_det = 1.0 / torch.where(det == 0, 1e-30, det)
+    tt = tt_n * inv_det
+    b1 = bb1_n * inv_det
+    b2 = bb2_n * inv_det
+    valid = (
+        (det != 0) & (tt >= t_lo) & (tt <= limit)
+        & (b1 >= 0) & (b1 <= 1) & (b2 >= 0) & (b2 <= 1) & (b1 + b2 <= 1)
+    )
+    return valid, tt, b1, b2
+
+
+def _sphere_pass(cs: CudaScene, o, d, t_lo, t_hi, best_t, slot, tests, base_slot):
+    """Brute quadratic per sphere, then +n_spheres tests (intersect_pallas.py:840)."""
+    for s in range(cs.n_spheres):
+        c = cs.sph[s]
+        ocx, ocy, ocz = o[:, 0] - c[0], o[:, 1] - c[1], o[:, 2] - c[2]
+        dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+        a = dx * dx + dy * dy + dz * dz
+        bq = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+        cq = ocx * ocx + ocy * ocy + ocz * ocz - c[3] * c[3]
+        disc = bq * bq - 4.0 * a * cq
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        t1 = (-bq - sq) / (2.0 * a)
+        t2 = (-bq + sq) / (2.0 * a)
+        limit = torch.minimum(t_hi, best_t)
+        t1_ok = (t1 >= t_lo) & (t1 <= limit)
+        t2_ok = (t2 >= t_lo) & (t2 <= limit)
+        ts = torch.where(t1_ok, t1, t2)
+        improved = (disc >= 0) & (t1_ok | t2_ok) & (ts < best_t)
+        best_t = torch.where(improved, ts, best_t)
+        slot = torch.where(improved, base_slot + s, slot)
+    if cs.n_spheres:
+        tests = tests + cs.n_spheres
+    return best_t, slot, tests
+
+
+def _init_outputs(n, device):
+    return (
+        torch.full((n,), KINF, dtype=torch.float32, device=device),
+        torch.full((n,), -1, dtype=torch.int32, device=device),
+        torch.zeros((n, 2), dtype=torch.float32, device=device),
+        torch.zeros((n,), dtype=torch.int32, device=device),
+    )
+
+
+def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool):
+    """Plain version of kernels A and B: returns (t, slot, bary (N, 2), tests).
+
+    Lanes walk the tops in ascending order.  Within one top the chunk mask
+    is fixed by the clipped interval at the top's start, and the chunk
+    batches are resolved in one vectorized step: the top's minimum t wins if
+    it beats the running best, from the earliest batch that reaches it, with
+    the max slot id and barycentrics among the slots tied there — what the
+    sequential per-batch update computes.
+    """
+    n = o.shape[0]
+    dev = o.device
+    best_t, slot, bary, tests = _init_outputs(n, dev)
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    b1, b2, k = cs.b1, cs.b2, cs.k
+    cb = 2 if (b1 == 1 and not any_hit) else 1  # _auto_chunk_batch
+    inv = _safe_inv(d)
+    child = cs.child.view(b1, b2, 8)
+    tri = cs.tri.view(b1, b2, k, 12)
+    slot_k = torch.arange(k, dtype=torch.int32, device=dev)
+
+    for tp in range(b1):
+        t_clip = torch.where(occluded, 0.0, t_hi) if any_hit else torch.minimum(t_hi, best_t)
+        if b1 > 1:
+            lanes = _box_hits(cs.top[tp : tp + 1], o, inv, t_lo, t_clip)[:, 0].nonzero()[:, 0]
+            if lanes.numel() == 0:
+                continue
+        else:
+            lanes = torch.arange(n, device=dev)
+        ch = _box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_clip[lanes])  # (L, B2)
+        tests.index_add_(0, lanes, (k * ch.sum(dim=1)).to(torch.int32))
+        if any_hit:
+            ch = ch & ~occluded[lanes, None]
+        pl_, pc = ch.nonzero(as_tuple=True)  # (lane, child) pairs, lane-major
+        if pl_.numel() == 0:
+            continue
+        gl = lanes[pl_]
+        rows = tri[tp, pc]  # (P, K, 12)
+        det, tt_n, bb1_n, bb2_n = _mt_terms(rows, o[gl, None, :], d[gl, None, :])
+        if any_hit:
+            hit = _occludes(det, tt_n, bb1_n, bb2_n, t_lo[gl, None], t_hi[gl, None]).any(dim=1)
+            occluded[gl[hit]] = True
+            continue
+        valid, tt, bb1, bb2 = _closest_terms(det, tt_n, bb1_n, bb2_n, t_lo[gl, None], t_hi[gl, None])
+        tm = torch.where(valid, tt, KINF)
+        pair_min = tm.min(dim=1).values  # (P,)
+        lane_min = torch.full((n,), KINF, device=dev).scatter_reduce(0, gl, pair_min, "amin")
+        if cb == 1:
+            batch = pc
+        else:
+            batch = ((ch.cumsum(dim=1) - 1) // cb)[pl_, pc]
+        cand = pair_min == lane_min[gl]
+        big = torch.iinfo(torch.int64).max
+        key = torch.where(cand, batch, big)
+        lane_batch = torch.full((n,), big, device=dev).scatter_reduce(0, gl, key, "amin")
+        win = cand & (batch == lane_batch[gl])
+        is_best = valid & (tt == lane_min[gl, None]) & win[:, None]
+        ids = ((tp * b2 + pc) * k).to(torch.int32)[:, None] + slot_k
+        pid = torch.where(is_best, ids, -1).max(dim=1).values
+        pb1 = torch.where(is_best, bb1, -KINF).max(dim=1).values
+        pb2 = torch.where(is_best, bb2, -KINF).max(dim=1).values
+        new_slot = torch.full((n,), -1, dtype=torch.int32, device=dev).scatter_reduce(0, gl, pid, "amax")
+        new_b1 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb1, "amax")
+        new_b2 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb2, "amax")
+        improved = lane_min < best_t
+        best_t = torch.where(improved, lane_min, best_t)
+        slot = torch.where(improved, new_slot, slot)
+        bary = torch.where(improved[:, None], torch.stack([new_b1, new_b2], dim=1), bary)
+
+    if any_hit:
+        slot = torch.where(occluded, 0, slot)
+    best_t, slot, tests = _sphere_pass(cs, o, d, t_lo, t_hi, best_t, slot, tests, b1 * b2 * k)
+    return best_t, slot, bary, tests
+
+
+def brute_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
+    """Plain version of kernel C: returns (t, slot, bary (N, 2), tests)."""
+    n = o.shape[0]
+    dev = o.device
+    best_t, slot, bary, tests = _init_outputs(n, dev)
+    live = t_hi > t_lo
+    n_tiles = -(-n // BRUTE_TILE)
+    pad = n_tiles * BRUTE_TILE - n
+    tile_live = torch.nn.functional.pad(live, (0, pad)).view(n_tiles, BRUTE_TILE).any(dim=1)
+    tile_live = tile_live.repeat_interleave(BRUTE_TILE)[:n]
+    rows = cs.tri_brute[: cs.s_real]  # padding rows never hit (det == 0)
+    if any_hit:
+        det, tt_n, bb1_n, bb2_n = _mt_terms(rows[None], o[:, None, :], d[:, None, :])
+        occ = _occludes(det, tt_n, bb1_n, bb2_n, t_lo[:, None], t_hi[:, None]).any(dim=1)
+        slot = torch.where(occ, 0, slot)
+    else:
+        for c0 in range(0, cs.s_real, BRUTE_BLOCK):
+            blk = rows[c0 : c0 + BRUTE_BLOCK]
+            det, tt_n, bb1_n, bb2_n = _mt_terms(blk[None], o[:, None, :], d[:, None, :])
+            limit = torch.minimum(t_hi, best_t)[:, None]
+            valid, tt, bb1, bb2 = _closest_terms(det, tt_n, bb1_n, bb2_n, t_lo[:, None], limit)
+            tm = torch.where(valid, tt, KINF)
+            t_k = tm.min(dim=1).values
+            is_best = valid & (tm == t_k[:, None])
+            ids = torch.arange(c0, c0 + blk.shape[0], dtype=torch.int32, device=dev)
+            improved = t_k < best_t
+            best_t = torch.where(improved, t_k, best_t)
+            slot = torch.where(improved, torch.where(is_best, ids, -1).max(dim=1).values, slot)
+            nb = torch.stack(
+                [torch.where(is_best, bb1, -KINF).max(dim=1).values,
+                 torch.where(is_best, bb2, -KINF).max(dim=1).values], dim=1,
+            )
+            bary = torch.where(improved[:, None], nb, bary)
+    tests = torch.where(live, cs.s_real, 0).to(torch.int32)
+    best_t, slot, tests = _sphere_pass(cs, o, d, t_lo, t_hi, best_t, slot, tests, cs.s_pad)
+    # a tile with no live lane does nothing at all
+    t0, s0, b0, n0 = _init_outputs(n, dev)
+    return (
+        torch.where(tile_live, best_t, t0),
+        torch.where(tile_live, slot, s0),
+        torch.where(tile_live[:, None], bary, b0),
+        torch.where(tile_live, tests, n0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
+    n = o.shape[0]
+    for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_lo", t_lo, (n,)), ("t_hi", t_hi, (n,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: want float32 {shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != o.device:
+            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
+    if cs.tri.device != o.device:
+        raise ValueError(f"scene is on {cs.tri.device}, rays on {o.device}")
+
+
+def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
+    from ._build import load_library
+
+    lib = load_library()
+    n = o.shape[0]
+    o, d, t_lo, t_hi = (x.contiguous() for x in (o, d, t_lo, t_hi))
+    out_t, out_slot, out_bary, out_tests = (
+        torch.empty((n,), dtype=torch.float32, device=o.device),
+        torch.empty((n,), dtype=torch.int32, device=o.device),
+        torch.empty((n, 2), dtype=torch.float32, device=o.device),
+        torch.empty((n,), dtype=torch.int32, device=o.device),
+    )
+    rays = [o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr()]
+    outs = [out_t.data_ptr(), out_slot.data_ptr(), out_bary.data_ptr(), out_tests.data_ptr()]
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    if key == "C":
+        rc = lib.lf_brute(
+            *rays, cs.tri_brute.data_ptr(), cs.sph.data_ptr(),
+            n, cs.s_real, cs.s_pad, cs.n_spheres, int(closest), *outs, stream,
+        )
+    elif key == "A":
+        cb = 2 if cs.b1 == 1 else 1  # _auto_chunk_batch
+        rc = lib.lf_tree_closest(
+            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
+            n, cs.b1, cs.b2, cs.k, cs.n_spheres, cb, *outs, stream,
+        )
+    else:
+        rc = lib.lf_tree_any_hit(
+            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
+            n, cs.b1, cs.b2, cs.k, cs.n_spheres, *outs, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"kernel {KERNELS[key].symbol} failed to launch: cudaError {rc}")
+    KERNELS[key].launches += 1
+    return out_t, out_slot, out_bary, out_tests
+
+
+def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
+    _check_rays(cs, o, d, t_lo, t_hi)
+    if o.device.type == "cpu":
+        return plain()
+    if o.device.type != "cuda":
+        raise ValueError(f"no kernel for device {o.device}")
+    return _launch(key, cs, o, d, t_lo, t_hi, closest)
+
+
+def tree_closest_hit(cs: CudaScene, o, d, t_lo, t_hi):
+    """Kernel A (CUDA tensors) or its plain version (CPU tensors)."""
+    return _dispatch("A", lambda: tree_plain(cs, o, d, t_lo, t_hi, False), cs, o, d, t_lo, t_hi, True)
+
+
+def tree_any_hit(cs: CudaScene, o, d, t_lo, t_hi):
+    """Kernel B (CUDA tensors) or its plain version (CPU tensors)."""
+    return _dispatch("B", lambda: tree_plain(cs, o, d, t_lo, t_hi, True), cs, o, d, t_lo, t_hi, False)
+
+
+def brute_hit(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
+    """Kernel C (CUDA tensors) or its plain version (CPU tensors)."""
+    if not cs.brute:
+        raise ValueError("scene was not packed for brute mode")
+    return _dispatch(
+        "C", lambda: brute_plain(cs, o, d, t_lo, t_hi, any_hit), cs, o, d, t_lo, t_hi, not any_hit
+    )
+
+
+def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None):
+    """Rays (N, 3) -> (t, prim, b1, b2, hit, tests), the ``intersect_pallas`` contract.
+
+    ``brute=None`` takes kernel C for any-hit queries on brute-mode scenes
+    (``intersect_pallas.py:1422-1425``); True/False force it either way.
+    For any-hit queries ``prim`` is -1: only ``hit`` is meaningful.
+    """
+    brute = (cs.brute and any_hit) if brute is None else (bool(brute) and cs.brute)
+    if brute:
+        t, slot, bary, tests = brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
+    elif any_hit:
+        t, slot, bary, tests = tree_any_hit(cs, o, d, t_lo, t_hi)
+    else:
+        t, slot, bary, tests = tree_closest_hit(cs, o, d, t_lo, t_hi)
+    hit = slot >= 0
+    if any_hit:
+        prim = torch.full_like(slot, -1)
+    else:
+        smap = cs.brute_map if brute else cs.slot_map
+        prim = torch.where(hit, smap[torch.clamp_min(slot, 0).long()], -1)
+    return t, prim, bary[:, 0], bary[:, 1], hit, tests

@@ -1,0 +1,206 @@
+"""Kernels A, B and C: plain PyTorch versions against the Pallas kernels.
+
+The JAX side runs ``intersect_pallas(..., interpret=True)``, as the JAX
+package's own tests do on the CPU; the port runs the plain version of each
+CUDA kernel (what its wrappers take for CPU tensors) on the same arrays and
+the same ``WideBVH``.
+
+Tolerances and why:
+- hit masks, prims (where both hit) and per-lane test counts equal on
+  >= 99.9% of lanes, the test-count sum within 0.1%; every mismatch must be
+  a grazing ray (a barycentric within 1e-4 of a triangle edge) or a t tie;
+- t within 1e-5 relative and barycentrics within 1e-5 on >= 99% of lanes
+  where both hit, and within 1e-4 everywhere.  XLA:CPU contracts the
+  Moller-Trumbore dot products into fused multiply-adds (the FMA-contracted
+  float32 evaluation reproduces its values bit for bit), while the port and
+  its kernels round every product, as the TPU did.  That moves t and the
+  barycentrics by a few ulps of the largest product term, which the
+  cancellation of grazing hits amplifies.
+
+The CUDA case compares each kernel with its plain version on the card,
+where both round alike (the kernels are built with --fmad=false): there the
+outputs must be equal.  The card's machine has no JAX, so that case runs
+there without this repository's conftest:
+``python -m pytest --noconftest -m gpu tests/test_torch_intersect.py``.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+
+    from lens_flare_tpu.ops.intersect_pallas import PallasScene, intersect_pallas
+except ImportError:  # the card's machine: only the gpu cases can run
+    jnp = None
+
+from lens_flare_tpu.accel.wide import build_wide_bvh
+from lens_flare_tpu.scene.camera import Camera
+from lens_flare_tpu.scene.procedural import make_terrain_scene
+from lens_flare_tpu_torch.convert import camera_params_from_numpy, cuda_scene_from_wide_bvh
+from lens_flare_tpu_torch.ops import intersect_cuda as ic
+from lens_flare_tpu_torch.scene.camera import generate_rays
+
+
+def _spheres(n, seed=3):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    c[:, 2] = rng.uniform(1, 3, n)
+    return c, rng.uniform(0.5, 2.0, n).astype(np.float32)
+
+
+def _rays(scene, n_cam=1024, n_rand=1024, seed=0):
+    """Camera rays over the frame plus random rays, ~20% dead lanes (t_hi = 0)."""
+    rng = np.random.default_rng(seed)
+    cam = Camera()
+    center = (scene.bbox_min + scene.bbox_max) / 2
+    extent = np.linalg.norm(scene.bbox_max - scene.bbox_min)
+    cam.place(center, math.pi / 3, math.pi / 4, extent, extent / 10, extent * 10)
+    cam.screen_w, cam.screen_h = 64, 48
+    p = camera_params_from_numpy(cam.params())
+    o1, d1 = generate_rays(p, torch.as_tensor(rng.uniform(0, 1, n_cam), dtype=torch.float32),
+                           torch.as_tensor(rng.uniform(0, 1, n_cam), dtype=torch.float32))
+    o2 = rng.uniform(-12, 12, (n_rand, 3)).astype(np.float32)
+    o2[:, 2] = rng.uniform(-1, 8, n_rand)
+    d2 = rng.normal(size=(n_rand, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    o = np.concatenate([o1.numpy(), o2]).astype(np.float32)
+    d = np.concatenate([d1.numpy(), d2]).astype(np.float32)
+    n = len(o)
+    t_lo = np.full(n, 1e-3, np.float32)
+    t_hi = np.full(n, 1e30, np.float32)
+    t_hi[rng.uniform(size=n) < 0.2] = 0.0
+    return o, d, t_lo, t_hi
+
+
+CASES = {
+    # name: (n_quads, n_spheres, PallasScene kwargs)
+    "terrain8": (8, 0, {}),  # single-level tree, brute-mode shadow rays
+    "terrain40_vmem": (40, 0, {"force_stream": False}),  # (16, 32, 32)
+    "terrain40_stream": (40, 0, {"force_stream": True}),  # kernel 2: HBM pages
+    "terrain8_spheres": (8, 5, {}),
+}
+
+
+def _setup(case, device="cpu", pallas=True):
+    """(scene, PallasScene or None, CudaScene) over one WideBVH."""
+    nq, n_sph, kw = CASES[case]
+    scene = make_terrain_scene(nq)
+    sc, sr = _spheres(n_sph) if n_sph else (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    wb = build_wide_bvh(scene.tri_p)
+    if pallas and jnp is None:
+        pytest.skip("needs JAX for the Pallas reference")
+    ps = PallasScene(wb, sc, sr, scene.num_triangles, **kw) if pallas else None
+    cs = cuda_scene_from_wide_bvh(wb, sc, sr, scene.num_triangles, device)
+    return scene, ps, cs
+
+
+def _grazing(b1, b2):
+    return np.minimum(np.minimum(b1, b2), 1.0 - b1 - b2) < 1e-4
+
+
+def _compare(jax_out, port_out, any_hit):
+    jt, jp, jb1, jb2, jh, jtests = [np.asarray(x) for x in jax_out]
+    tt, tp, tb1, tb2, th, ttests = [x.numpy() for x in port_out]
+    assert th.dtype == bool and tp.dtype == np.int32 and ttests.dtype == np.int32
+
+    hit_eq = jh == th
+    assert hit_eq.mean() >= 0.999
+    tests_eq = jtests == ttests
+    assert tests_eq.mean() >= 0.999
+    assert abs(int(ttests.sum()) - int(jtests.sum())) <= 1e-3 * max(int(jtests.sum()), 1)
+    if any_hit:
+        assert (tp == -1).all()
+        return
+    both = jh & th
+    # hit mismatches: the side that hits grazes an edge
+    for i in np.nonzero(~hit_eq)[0]:
+        b1, b2 = (jb1[i], jb2[i]) if jh[i] else (tb1[i], tb2[i])
+        assert _grazing(b1, b2), f"lane {i}: hit mismatch off any edge"
+    prim_eq = (jp == tp) | ~both
+    assert prim_eq.mean() >= 0.999
+    for i in np.nonzero(~prim_eq)[0]:
+        assert abs(jt[i] - tt[i]) <= 1e-5 * abs(jt[i]) or _grazing(jb1[i], jb2[i]), f"lane {i}"
+    sel = both & (jp == tp)
+    if sel.any():
+        rel_t = np.abs(jt[sel] - tt[sel]) / np.abs(jt[sel])
+        d_b = np.maximum(np.abs(jb1[sel] - tb1[sel]), np.abs(jb2[sel] - tb2[sel]))
+        assert (rel_t <= 1e-5).mean() >= 0.99 and rel_t.max() <= 1e-4
+        assert (d_b <= 1e-5).mean() >= 0.99 and d_b.max() <= 1e-4
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_pallas(case, any_hit):
+    scene, ps, cs = _setup(case)
+    o, d, t_lo, t_hi = _rays(scene)
+    jax_out = intersect_pallas(
+        ps, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_lo), jnp.asarray(t_hi),
+        interpret=True, any_hit=any_hit,
+    )
+    port_out = ic.intersect(
+        cs, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_lo),
+        torch.from_numpy(t_hi), any_hit=any_hit,
+    )
+    _compare(jax_out, port_out, any_hit)
+    # the brute-mode choice follows PallasScene: kernel C serves any-hit on tiny scenes
+    assert cs.brute == ps.brute
+
+
+def test_brute_closest_matches_pallas():
+    """Kernel C's closest-hit flag against _make_brute_kernel(any_hit=False)."""
+    scene, ps, cs = _setup("terrain8_spheres")
+    o, d, t_lo, t_hi = _rays(scene, seed=1)
+    jax_out = intersect_pallas(
+        ps, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_lo), jnp.asarray(t_hi),
+        interpret=True, brute=True,
+    )
+    port_out = ic.intersect(
+        cs, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_lo),
+        torch.from_numpy(t_hi), brute=True,
+    )
+    _compare(jax_out, port_out, any_hit=False)
+
+
+def test_wrappers_take_plain_version_on_cpu_only():
+    """CPU tensors run the plain version and launch nothing."""
+    scene, _, cs = _setup("terrain8", pallas=False)
+    o, d, t_lo, t_hi = (torch.from_numpy(x) for x in _rays(scene, 64, 64))
+    ic.reset_launch_counts()
+    ic.intersect(cs, o, d, t_lo, t_hi)
+    ic.intersect(cs, o, d, t_lo, t_hi, any_hit=True)
+    assert all(k.launches == 0 for k in ic.KERNELS.values())
+    with pytest.raises(ValueError):
+        ic.intersect(cs, o.double(), d, t_lo, t_hi)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernels_match_plain_on_card(case, cuda_device):
+    """Each kernel equals its plain version on the card, lane for lane."""
+    scene, _, cs = _setup(case, cuda_device, pallas=False)
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    runs = [
+        ("A", lambda: ic.tree_closest_hit(cs, o, d, t_lo, t_hi), lambda: ic.tree_plain(cs, o, d, t_lo, t_hi, False)),
+        ("B", lambda: ic.tree_any_hit(cs, o, d, t_lo, t_hi), lambda: ic.tree_plain(cs, o, d, t_lo, t_hi, True)),
+    ]
+    if cs.brute:
+        runs.append(("C", lambda: ic.brute_hit(cs, o, d, t_lo, t_hi), lambda: ic.brute_plain(cs, o, d, t_lo, t_hi)))
+    for key, kernel, plain in runs:
+        before = ic.KERNELS[key].launches
+        got = kernel()
+        torch.cuda.synchronize()
+        assert ic.KERNELS[key].launches == before + 1
+        want = plain()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), key
