@@ -9,13 +9,21 @@ raises, so the script exits non-zero and prints no result):
 0. the device: torch's name for it, and name and power limit from nvidia-smi;
 1. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version on the card, on terrain
-   scenes of 128, 3,200 and 524,288 triangles with camera, bounce and
-   shadow rays, plus each one's time beside the plain version's at 64k lanes;
+   scenes of 128, 3,200, 131,072 and 524,288 triangles with camera, bounce
+   and shadow rays, plus each one's time beside the plain version's at 64k
+   lanes; kernel D (closest hit plus shading rows, on the two mid-size
+   scenes) is also held to kernel A's outputs and timed against A plus
+   ``finalize_hit``'s row gather;
 3. the slice: the 1920x1080 frame of the 524,288-triangle terrain at 1 spp,
    depth 4, NEE and RR bounces, then the paraxial flare composite, written
    as a PNG; launch counts show the frame went through kernels A and B;
 4. a 320x240 frame of the 128-triangle terrain, which traces its shadow
-   rays with kernel C, held against the same frame rendered on the CPU.
+   rays with kernel C, held against the same frame rendered on the CPU;
+5. config2_frame: the thin-lens octagon-bokeh adaptive render (ns_aa 16,
+   stages of 4, 4 and 8 samples) of the 131,072-triangle terrain at
+   1920x1080, focused by autofocus; its closest hits go through kernel D;
+6. config2_small: the same settings at 320x240 (ns_aa 8) on the
+   3,200-triangle terrain, held against the same frame rendered on the CPU.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers.  TF32 is off
@@ -146,11 +154,13 @@ def main() -> int:
     from lens_flare_tpu_torch.ops import intersect_cuda as ic
     from lens_flare_tpu_torch.renderer import Renderer
 
+    from lens_flare_tpu_torch.ops.intersect import finalize_hit
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"A": 0.0, "B": 0.0, "C": 0.0}
+    errs = {"A": 0.0, "B": 0.0, "C": 0.0, "D": 0.0}
     times = {}
-    for nq in (8, 40, 512):
+    for nq in (8, 40, 256, 512):
         t0 = time.perf_counter()
         r = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda")
         r.load_flat_scene(make_terrain_scene(nq))
@@ -171,27 +181,65 @@ def main() -> int:
                 ("C", "camera", lambda o, d, a, b: ic.brute_hit(cs, o, d, a, b, any_hit=False),
                  lambda o, d, a, b: ic.brute_plain(cs, o, d, a, b, any_hit=False)),
             ]
+        if cs.shade:
+            runs += [
+                ("D", kind_rays, lambda o, d, a, b: ic.tree_closest_shade(cs, o, d, a, b),
+                 lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, False, shade=True))
+                for kind_rays in ("camera", "bounce")
+            ]
         report = {}
         for key, kind_rays, kernel, plain in runs:
             args = rays[kind_rays]
             got = kernel(*args)
             torch.cuda.synchronize()
             want = plain(*args)
-            err, exact = compare(got, want)
+            err, exact = compare(got[:4], want[:4])
+            if key == "D":
+                # rows equal on triangle hits, and each is the slot's own row
+                tri = (got[1] >= 0) & (got[1] == want[1])
+                assert torch.equal(got[4][tri], want[4][tri]), "D's rows differ from the plain version's"
+                assert torch.equal(got[4][tri], cs.slot_shade[got[1][tri].long()])
+                assert (got[4][got[1] < 0] == 0).all()
+                # the same walk as kernel A at chunk batch 1
+                a_out = ic.tree_closest_hit(cs, *args)
+                assert all(torch.equal(x, y) for x, y in zip(got[:4], a_out)), "D's walk differs from A's"
+                exact = exact and torch.equal(got[4], want[4])
             errs[key] = max(errs[key], err)
             report[f"{key}_{kind_rays}"] = f"err={err:.3g},exact={exact},hits={int((got[1] >= 0).sum())}"
             # the main path's shapes: primary rays at 524k tris for A, shadow
-            # rays at 524k tris for B, shadow rays of the small scene for C
-            if (key, kind_rays, nq) in (("A", "camera", 512), ("B", "shadow", 512), ("C", "shadow", 8)):
+            # rays at 524k tris for B, shadow rays of the small scene for C,
+            # primary rays at 131k tris for D (config2_frame's scene)
+            if (key, kind_rays, nq) in (
+                ("A", "camera", 512), ("B", "shadow", 512), ("C", "shadow", 8), ("D", "camera", 256),
+            ):
                 times[key] = (
                     cuda_time_ms(lambda: kernel(*args), 20),
                     cuda_time_ms(lambda: plain(*args), 3),
                 )
+        if cs.shade and nq == 256:
+            # D with its rows against A plus finalize_hit's row gather, to the Hit
+            o, d, a, b = rays["camera"]
+
+            def a_gather():
+                return finalize_hit(r.bundle.scene, o, d, *ic.intersect(cs, o, d, a, b)[:5])
+
+            def d_rows():
+                t, prim, b1, b2, hit, _, rows = ic.intersect(cs, o, d, a, b, return_shade=True)
+                return finalize_hit(r.bundle.scene, o, d, t, prim, b1, b2, hit, shade_rows=rows)
+
+            hit_a, hit_d = a_gather(), d_rows()
+            assert all(torch.equal(x, y) for x, y in zip(hit_a, hit_d)), "D's Hit differs from A's"
+            times["A+gather"] = (cuda_time_ms(a_gather, 20), cuda_time_ms(d_rows, 20))
         shape = f"{cs.b1}x{cs.b2}x{cs.k}"
         phase("kernels", t0, tris=r.scene.num_triangles, tree=shape, brute=cs.brute,
-              lanes=LANES, **report)
-    for key, (ms, plain_ms) in times.items():
+              shade=cs.shade, lanes=LANES, **report)
+    for key in ("A", "B", "C", "D"):
+        ms, plain_ms = times[key]
         print(f"[timing] kernel={key} lanes={LANES} ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    a_gather_ms, d_rows_ms = times["A+gather"]
+    print(f"[timing] tris=131072 lanes={LANES} camera rays to Hit: "
+          f"A+finalize_hit_gather_ms={a_gather_ms:.4f} D+finalize_hit_rows_ms={d_rows_ms:.4f} "
+          f"D_ms={times['D'][0]:.4f} D_plain_ms={times['D'][1]:.4f}", flush=True)
 
     # -- 3. the slice: the 1080p terrain frame with the flare --------------
     from lens_flare_tpu_torch.lens.aperture import ApertureTexture, polygon_mask
@@ -261,15 +309,90 @@ def main() -> int:
           pixels_within_tol=f"{ok:.5f}", mean_rel_diff=f"{rel:.3g}",
           rays_traced=rs.stats.total_rays, launches=json.dumps(small_launches))
 
-    # -- 5. results --------------------------------------------------------
-    count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"]}
+    # -- 5. config2_frame: thin-lens bokeh adaptive render through kernel D -
+    import numpy as np
+
+    def config2(nq, **kw):
+        """A cuda Renderer with the thin-lens octagon-bokeh settings, focused at the centre."""
+        scene = make_terrain_scene(nq)
+        settings = dict(
+            max_tolerance=0.05, max_ray_depth=4, ns_area_light=1, indirect=True, seed=0,
+            lens_radius=0.01 * float(np.linalg.norm(scene.bbox_max - scene.bbox_min)),
+            bokeh=ApertureTexture.from_array(polygon_mask(500, 8)), **kw,
+        )
+        rr = Renderer(device="cuda", **settings)
+        rr.load_flat_scene(scene)
+        focal = rr.autofocus(rr.width / 2, rr.height / 2)
+        assert 0 < focal < rr.camera.f_clip, f"autofocus missed the scene: {focal}"
+        return rr, settings
+
+    t0 = time.perf_counter()
+    r2, _ = config2(256, width=1920, height=1080, ns_aa=16, samples_per_batch=4)
+    assert r2.bundle.cscene.shade and not r2.bundle.cscene.stream
+    r2.render(progress=False)  # warm-up
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    t_frame = time.perf_counter()
+    hdr2, counts2 = r2.render(progress=False)
+    torch.cuda.synchronize()
+    frame2_s = time.perf_counter() - t_frame
+    c2_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    st2 = r2.stats
+    assert c2_launches["D"] > 0 and c2_launches["A"] == 0 and c2_launches["B"] > 0, c2_launches
+    assert hdr2.shape == (1080, 1920, 3) and torch.isfinite(hdr2).all() and hdr2.sum() > 0
+    assert counts2.min().item() >= 4 and counts2.max().item() <= 16
+    hist2 = {n: int((counts2 == n).sum()) for n in (4, 8, 16)}
+    assert sum(hist2.values()) == 1920 * 1080, hist2
+    png2 = ROOT / "lens_flare_tpu_torch" / "_build" / "config2_1080p.png"
+    img.save_hdr_png(png2, hdr2.cpu().numpy(), flip_y=True)
+    assert png2.stat().st_size > 0
+    phase(
+        "config2_frame", t0, tris=r2.scene.num_triangles, width=1920, height=1080, ns_aa=16,
+        stages="4,4,8", depth=4, lens_radius=f"{r2.lens_radius:.6g}",
+        focal_distance=f"{r2.focal_distance:.6g}", frame_s=f"{frame2_s:.4f}",
+        rays_traced=st2.total_rays, mrays_traced_per_s=f"{st2.total_rays / frame2_s / 1e6:.3f}",
+        isects_per_ray=f"{st2.isects_per_ray:.2f}", zero_rays_skipped=st2.total_zero_skipped,
+        active_after_stage=json.dumps(st2.active_per_stage),
+        mean_spp=f"{counts2.double().mean().item():.4f}", counts_hist=json.dumps(hist2),
+        launches=json.dumps(c2_launches), png=png2.name,
+    )
+
+    # -- 6. config2_small: the same settings, held against the CPU render --
+    t0 = time.perf_counter()
+    rs2, small2 = config2(40, width=320, height=240, ns_aa=8, samples_per_batch=2)
+    ic.reset_launch_counts()
+    got, got_counts = rs2.render(progress=False)
+    torch.cuda.synchronize()
+    s2_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert s2_launches["D"] > 0, f"config2_small skipped kernel D: {s2_launches}"
+    rc2 = Renderer(device="cpu", **small2)
+    rc2.load_flat_scene(make_terrain_scene(40))
+    focal_cpu = rc2.autofocus(160, 120)
+    assert abs(focal_cpu - rs2.focal_distance) <= 1e-6 * rs2.focal_distance, (focal_cpu, rs2.focal_distance)
+    rc2.focal_distance = rc2.camera.focal_distance = rs2.focal_distance  # identical inputs
+    want, want_counts = rc2.render(progress=False)
+    same_counts = (got_counts.cpu() == want_counts).double().mean().item()
+    got = got.cpu().double()
+    want = want.double()
+    ok = ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(dim=-1).double().mean().item()
+    rel = ((got - want).abs().sum() / want.abs().sum()).item()
+    assert torch.isfinite(got).all() and same_counts >= 0.995 and ok >= 0.99 and rel < 1e-3, (
+        same_counts, ok, rel)
+    phase("config2_small", t0, tris=rs2.scene.num_triangles, width=320, height=240, ns_aa=8,
+          counts_equal=f"{same_counts:.5f}", pixels_within_tol=f"{ok:.5f}",
+          mean_rel_diff=f"{rel:.3g}", rays_traced=rs2.stats.total_rays,
+          rays_traced_cpu=rc2.stats.total_rays, launches=json.dumps(s2_launches))
+
+    # -- 7. results --------------------------------------------------------
+    # each kernel's launches from the main path that runs it
+    count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"]}
     kernels = [
         {
             "name": ic.KERNELS[k].name, "route": "cuda", "source": ic.KERNEL_SOURCE,
             "replaces": ic.KERNELS[k].replaces, "launches": count[k],
             "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
         }
-        for k in ("A", "B", "C")
+        for k in ("A", "B", "C", "D")
     ]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .integrator.lights import LightArrays
-from .integrator.path import SceneBundle
+from .integrator.path import BokehMask, SceneBundle
 from .integrator.shading import BSDFArrays
 from .lens.prescription import LensPrescription
 from .ops.intersect import SceneArrays
@@ -30,24 +30,40 @@ def _fields(obj, cls, device):
     return cls(**out)
 
 
-def scene_bundle_from_numpy(scene, bsdfs, lights, cscene: CudaScene, device="cpu") -> SceneBundle:
+def scene_bundle_from_numpy(scene, bsdfs, lights, cscene: CudaScene, device="cpu", bokeh=None) -> SceneBundle:
     """A SceneBundle from the fields of the JAX SceneArrays, BSDFArrays and LightArrays.
 
-    ``cscene`` is the port's cluster tree, e.g. from :func:`cuda_scene_from_wide_bvh`.
+    ``cscene`` is the port's cluster tree, e.g. from :func:`cuda_scene_from_wide_bvh`;
+    ``bokeh`` an optional JAX ``BokehMask`` (see :func:`bokeh_mask_from_numpy`).
     """
     return SceneBundle(
         scene=_fields(scene, SceneArrays, device),
         bsdfs=_fields(bsdfs, BSDFArrays, device),
         lights=_fields(lights, LightArrays, device),
         cscene=cscene,
+        bokeh=None if bokeh is None else bokeh_mask_from_numpy(bokeh, device),
     )
 
 
-def cuda_scene_from_wide_bvh(wb, sph_center, sph_radius, num_tris: int, device="cpu") -> CudaScene:
-    """The port's cluster tree from the WideBVH a JAX ``PallasScene`` is built from."""
+def bokeh_mask_from_numpy(bokeh, device="cpu") -> BokehMask:
+    """The port's BokehMask from a JAX one: its float32 CDF, width and height."""
+    cdf = torch.as_tensor(np.array(bokeh.cdf, np.float32), device=device)
+    return BokehMask(cdf, int(bokeh.width), int(bokeh.height))
+
+
+def cuda_scene_from_wide_bvh(
+    wb, sph_center, sph_radius, num_tris: int, device="cpu",
+    shade_rows=None, force_stream=None, stream_shade=False,
+) -> CudaScene:
+    """The port's cluster tree from the WideBVH a JAX ``PallasScene`` is built from.
+
+    ``shade_rows``, ``force_stream`` and ``stream_shade`` as ``PallasScene`` takes them.
+    """
     return CudaScene.from_wide_bvh(
         wb, np.asarray(sph_center, np.float32).reshape(-1, 3),
         np.asarray(sph_radius, np.float32), num_tris, device,
+        shade_rows=None if shade_rows is None else np.asarray(shade_rows, np.float32),
+        force_stream=force_stream, stream_shade=stream_shade,
     )
 
 

@@ -4,12 +4,16 @@ Counterpart of ``lens_flare_tpu/integrator/path.py``, computing the same
 estimator on the same random numbers (``_rng`` reproduces the threefry
 tape lane for lane):
 
-- camera rays, closest-hit trace and hit finalization;
+- pinhole, thin-lens and bokeh-mask camera rays, the closest-hit trace
+  (kernel D with its shading rows on shade scenes, else kernel A and the row
+  gather) and hit finalization;
 - next-event estimation over the static light-slot plan, one widened
   any-hit shadow wavefront per vertex (``direct_lighting``, ``:430-577``);
 - Russian-roulette indirect bounces (``_indirect``, ``:704-826``), with no
   bounce sorting or compaction (both are off by default in the reference);
-- per-pixel sample batches with the 95% CI stop (``render_wavefront``).
+- per-pixel sample batches with the 95% CI stop (``render_wavefront``), and
+  ``render_batch``, the building block of the Renderer's host-repacked
+  adaptive render.
 
 Ported BSDF families: diffuse and emission.  Ported lights: directional
 and point.  ``make_settings`` refuses anything else.  PyTorch runs eagerly:
@@ -18,8 +22,10 @@ the bounce ``scan`` and the sample loops are Python loops.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lens_flare_tpu.scene.collada import BSDF_DIFFUSE, BSDF_MICROFACET
@@ -27,7 +33,7 @@ from lens_flare_tpu.scene.collada import BSDF_DIFFUSE, BSDF_MICROFACET
 from .. import _rng
 from ..ops.intersect import SceneArrays, finalize_hit
 from ..ops.intersect_cuda import CudaScene, intersect
-from ..scene.camera import CameraParams, generate_rays
+from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
 from .lights import PORTED_LIGHT_TYPES, LightArrays, sample_light_static
 from .shading import (
     PORTED_FAMILIES,
@@ -55,6 +61,7 @@ class RenderSettings(NamedTuple):
     samples_per_batch: int = 64
     max_tolerance: float = 0.05
     indirect: bool = True
+    use_thin_lens: bool = False  # thin-lens camera (bokeh mask when the bundle has one)
     light_slots: tuple = ()  # light row per NEE slot
     light_slot_types: tuple = ()  # LT_* code per NEE slot
     total_light_samples: int = 1
@@ -62,7 +69,7 @@ class RenderSettings(NamedTuple):
 
 def make_settings(
     light_table, ns_aa=1, max_ray_depth=1, ns_area_light=1, bsdf_table=None,
-    direct_hemisphere_sample=False, use_thin_lens=False, **kw,
+    direct_hemisphere_sample=False, **kw,
 ) -> RenderSettings:
     """Settings with the static NEE slot plan from the host light table.
 
@@ -71,8 +78,6 @@ def make_settings(
     """
     if direct_hemisphere_sample:
         raise NotImplementedError("hemisphere direct lighting (-H) is not ported yet (ROADMAP Queue 1, item 5)")
-    if use_thin_lens:
-        raise NotImplementedError("thin-lens / bokeh cameras are not ported yet (ROADMAP Queue 1, item 3)")
     lights = {int(t) for t in light_table.light_type} - set(PORTED_LIGHT_TYPES)
     if lights:
         raise NotImplementedError(
@@ -98,11 +103,55 @@ def make_settings(
     )
 
 
+@dataclass
+class BokehMask:
+    """Aperture mask for thin-lens sampling (``path.py:178-222``, BASELINE config 2).
+
+    Lens points are importance-sampled in proportion to the mask value.
+    """
+
+    cdf: torch.Tensor  # (H*W,) float32 inclusive value CDF
+    width: int = 1
+    height: int = 1
+
+    @staticmethod
+    def from_texture(values, device="cpu") -> "BokehMask":
+        """The CDF is built in float64 and cast to float32, as the reference does."""
+        v = np.asarray(values, np.float64).ravel()
+        cdf = np.cumsum(v)
+        cdf = cdf / cdf[-1]
+        h, w = np.shape(values)
+        return BokehMask(torch.as_tensor(cdf.astype(np.float32), device=device), w, h)
+
+    def sample(self, u, jitter=None):
+        """u (N,) uniforms -> lens points (N, 2) in [-0.5, 0.5]^2.
+
+        x is placed in its texel by ``jitter`` (the texel centre when None),
+        y by the fraction of u inside the chosen texel's CDF span.
+        """
+        n = self.cdf.shape[0]
+        idx = torch.clamp(torch.searchsorted(self.cdf, u.contiguous(), right=True), 0, n - 1)
+        lo = torch.where(idx > 0, self.cdf[torch.clamp_min(idx - 1, 0)], 0.0)
+        span = torch.clamp_min(self.cdf[idx] - lo, 1e-12)
+        jy = torch.clamp((u - lo) / span, 0.0, 1.0)
+        jx = jitter if jitter is not None else 0.5
+        y = idx // self.width
+        x = idx % self.width
+        return torch.stack(
+            [
+                (x.to(torch.float32) + jx) / self.width - 0.5,
+                (y.to(torch.float32) + jy) / self.height - 0.5,
+            ],
+            dim=-1,
+        )
+
+
 class SceneBundle(NamedTuple):
     scene: SceneArrays
     bsdfs: BSDFArrays
     lights: LightArrays
     cscene: CudaScene  # cluster tree for the trace kernels
+    bokeh: BokehMask | None = None  # aperture-shaped depth of field
 
 
 def _offset_origin(p, n, w):
@@ -126,10 +175,22 @@ def _orient_normals(d, hit):
     return hit._replace(n=torch.where(flip[:, None], -hit.n, hit.n))
 
 
-def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi):
-    """Closest hit through kernel A. Returns (Hit, stats)."""
-    t, prim, b1, b2, found, tests = intersect(bundle.cscene, o, d, t_lo, t_hi)
-    hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
+def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
+    """Closest hit, routed as the JAX package's ``trace_closest`` (``path.py:279-302``).
+
+    Shade scenes take kernel D, whose shading rows replace the row gather,
+    except for ``coherent`` (camera) wavefronts on stream scenes with
+    ``stream_shade``, which keep kernel A and the gather, as the reference
+    does.  Every other scene takes kernel A (C's closest hit is forced only
+    by tests).  Returns (Hit, stats).
+    """
+    cs = bundle.cscene
+    if cs.shade and not (coherent and cs.stream):
+        t, prim, b1, b2, found, tests, rows = intersect(cs, o, d, t_lo, t_hi, return_shade=True)
+        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
+    else:
+        t, prim, b1, b2, found, tests = intersect(cs, o, d, t_lo, t_hi)
+        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
     return _orient_normals(d, hit), _trace_stats(t_hi, tests)
 
 
@@ -221,13 +282,20 @@ def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraPa
 
     x = (px.to(torch.float32) + tape[:, 0]) / width
     y = (py.to(torch.float32) + tape[:, 1]) / height
-    o, d = generate_rays(cam, x, y)
+    if settings.use_thin_lens and bundle.bokeh is not None:
+        o, d = generate_rays_bokeh(cam, x, y, bundle.bokeh.sample(tape[:, 2], jitter=tape[:, 3]))
+    elif settings.use_thin_lens:
+        o, d = generate_rays_thin_lens(cam, x, y, tape[:, 2], tape[:, 3])
+    else:
+        o, d = generate_rays(cam, x, y)
 
     t_lo = cam.n_clip.expand(n_lanes)
     t_hi = cam.f_clip.expand(n_lanes)
     if valid is not None:
         t_hi = torch.where(valid, t_hi, 0.0)
-    hit, stats = trace_closest(bundle, o.contiguous(), d, t_lo.contiguous(), t_hi.contiguous())
+    hit, stats = trace_closest(
+        bundle, o.contiguous(), d.contiguous(), t_lo.contiguous(), t_hi.contiguous(), coherent=True
+    )
 
     hit_p = o + d * torch.where(hit.hit, hit.t, 0.0)[:, None]
     L = get_emission(bundle.bsdfs, hit.bsdf)
@@ -314,6 +382,32 @@ def _indirect(bundle: SceneBundle, settings: RenderSettings, tape, o, d, hit, va
 def pixel_keys(key, px, py, width):
     """Per-pixel base keys: fold_in(key, py * width + px) (path.py:881-882)."""
     return _rng.fold_in(key.expand(px.shape[0], 2), (py.to(torch.int64) * width + px) & _rng.MASK32)
+
+
+def render_batch(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, s_offset: int, n_samples: int, valid=None):
+    """Trace samples s_offset .. s_offset + n_samples - 1 for every lane (``path.py:829``).
+
+    The building block of the Renderer's host-repacked adaptive render: the
+    RNG depends only on (pixel id, sample index), so repacking the active
+    pixels between calls changes no sample.  Returns (film sum (N, 3),
+    s1 (N,), s2 (N,), stats [rays, tests, skipped]); the sums are float32.
+    """
+    n_px = px.shape[0]
+    dev = px.device
+    base_keys = pixel_keys(key, px, py, width)
+    film = torch.zeros((n_px, 3), device=dev)
+    s1 = torch.zeros(n_px, device=dev)
+    s2 = torch.zeros(n_px, device=dev)
+    stats = torch.zeros(3, dtype=torch.float64, device=dev)
+    for j in range(n_samples):
+        keys = _rng.fold_in(base_keys, s_offset + j)
+        rad, st = radiance_sample(bundle, settings, cam, keys, px, py, width, height, valid=valid)
+        illum = 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]
+        film = film + rad
+        s1 = s1 + illum
+        s2 = s2 + illum * illum
+        stats = stats + st
+    return film, s1, s2, stats
 
 
 def render_wavefront(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, valid=None):

@@ -35,6 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "lf_tree_closest": [_P] * 8 + [_I] * 6 + [_P] * 5,
     "lf_tree_any_hit": [_P] * 8 + [_I] * 5 + [_P] * 5,
+    "lf_tree_closest_shade": [_P] * 9 + [_I] * 5 + [_P] * 6,
     "lf_brute": [_P] * 6 + [_I] * 5 + [_P] * 5,
 }
 

@@ -7,9 +7,12 @@
 //   A  lf_tree_closest  <- _make_kernel(any_hit=False)        :214, call :1392
 //                          (VMEM mode and the HBM-streaming mode, stream=True)
 //   B  lf_tree_any_hit  <- _make_kernel(any_hit=True)         :214, call :1392
+//   D  lf_tree_closest_shade <- _make_kernel(shade=True)      :214, call :1392
+//                          (VMEM mode and stream_shade): A at chunk batch 1,
+//                          plus the winning triangle slot's shading row
 //   C  lf_brute         <- _make_brute_kernel(any_hit=True)   :877, call :1292
 //                          (closest=1 selects _make_brute_kernel(any_hit=False))
-//   _sphere_pass (:840) runs at the end of A, B and C.
+//   _sphere_pass (:840) runs at the end of A, B, C and D.
 //
 // Design: one thread per ray.  The TPU walked a 512-2048-lane tile in
 // lockstep and culled whole clusters per tile; here every thread walks the
@@ -212,15 +215,24 @@ __device__ __forceinline__ void sphere_pass(const float* __restrict__ sph, int n
   tests += n_spheres;
 }
 
-// Kernels A (ANY_HIT = false) and B (ANY_HIT = true): the two-level walk.
-template <bool ANY_HIT>
+// Kernels A (ANY_HIT = false), B (ANY_HIT = true) and D (SHADE = true, chunk
+// batch 1): the two-level walk.
+//
+// D's shading row.  The TPU kernel (intersect_pallas.py:524-542) selected the
+// winner's row inside the walk with one-hot masked sums over VMEM planes,
+// because a row gather after the kernel cost a scalar-core loop there.  On
+// this card a thread knows its own winning slot at the end of the walk, so D
+// reads one 10-float row of the slot-ordered table (B1*B2*K, 10) from global
+// memory once per lane; what bounds it is the walk itself, as for A.
+template <bool ANY_HIT, bool SHADE>
 __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict__ d,
                             const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
                             const float* __restrict__ top, const float* __restrict__ child,
-                            const float* __restrict__ tri, const float* __restrict__ sph, int n,
-                            int b1, int b2, int k, int n_spheres, int chunk_batch,
-                            float* __restrict__ out_t, int* __restrict__ out_slot,
-                            float* __restrict__ out_bary, int* __restrict__ out_tests) {
+                            const float* __restrict__ tri, const float* __restrict__ shade,
+                            const float* __restrict__ sph, int n, int b1, int b2, int k,
+                            int n_spheres, int chunk_batch, float* __restrict__ out_t,
+                            int* __restrict__ out_slot, float* __restrict__ out_bary,
+                            int* __restrict__ out_tests, float* __restrict__ out_shade) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
@@ -267,6 +279,21 @@ __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict
     if (!ANY_HIT && in_batch > 0) batch_commit(bt, best_t, slot, ob1, ob2);
   }
   if (ANY_HIT && occluded) slot = 0;
+
+  if (SHADE) {
+    // the best triangle's row, taken before the sphere pass: a lane that a
+    // sphere wins keeps it (the invariant of intersect_pallas.py:843-847;
+    // finalize_hit reads rows only where the winner is a triangle)
+    float* row = out_shade + (size_t)10 * i;
+    if (slot >= 0) {
+      const float* src = shade + (size_t)10 * slot;
+#pragma unroll
+      for (int j = 0; j < 10; ++j) row[j] = src[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 10; ++j) row[j] = 0.0f;
+    }
+  }
 
   sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
 
@@ -346,9 +373,27 @@ extern "C" int lf_tree_closest(const float* o, const float* d, const float* t_lo
                                float* out_bary, int* out_tests, void* stream) {
   if (n > 0) {
     const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, chunk_batch, out_t,
-        out_slot, out_bary, out_tests);
+    tree_kernel<false, false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, chunk_batch,
+        out_t, out_slot, out_bary, out_tests, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel D: shade (B1*B2*K, 10) slot-ordered [9 corner-normal components |
+// bsdf id]; out_shade (N, 10).  Chunk batch 1, as the TPU's shade mode forces
+// (intersect_pallas.py:1307-1308).
+extern "C" int lf_tree_closest_shade(const float* o, const float* d, const float* t_lo,
+                                     const float* t_hi, const float* top, const float* child,
+                                     const float* tri, const float* shade, const float* sph,
+                                     int n, int b1, int b2, int k, int n_spheres, float* out_t,
+                                     int* out_slot, float* out_bary, int* out_tests,
+                                     float* out_shade, void* stream) {
+  if (n > 0) {
+    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
+    tree_kernel<false, true><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, 1, out_t,
+        out_slot, out_bary, out_tests, out_shade);
   }
   return (int)cudaGetLastError();
 }
@@ -360,9 +405,9 @@ extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo
                                int* out_tests, void* stream) {
   if (n > 0) {
     const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<true><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, 1, out_t, out_slot,
-        out_bary, out_tests);
+    tree_kernel<true, false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, 1, out_t,
+        out_slot, out_bary, out_tests, nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -3,20 +3,22 @@
 Counterpart of ``lens_flare_tpu/ops/intersect_pallas.py``.  The scene is the
 same two-level cluster tree (``accel/wide.py:WideBVH``), kept in the layout a
 thread wants to read: per-triangle rows ``tri`` (B1*B2*K, 12) =
-[p0 | e1 | e2 | pad], child boxes (B1*B2, 8) and top boxes (B1, 8).  The
-TPU layouts of ``PallasScene`` (component-major planes, 128-padded boxes,
-HBM pages) were VMEM workarounds and are not carried over.
+[p0 | e1 | e2 | pad], child boxes (B1*B2, 8), top boxes (B1, 8) and, for
+shade scenes, slot-ordered shading rows (B1*B2*K, 10).  The TPU layouts of
+``PallasScene`` (component-major planes, 128-padded boxes, HBM pages) were
+VMEM workarounds and are not carried over.
 
-Three kernels (``csrc/intersect.cu``), each with a plain PyTorch version
+Four kernels (``csrc/intersect.cu``), each with a plain PyTorch version
 beside it that computes the same function with the same arithmetic:
 
-==  =================  ==========================================  =====================
-id  kernel             replaces (intersect_pallas.py)              plain version
-==  =================  ==========================================  =====================
-A   lf_tree_closest    _make_kernel(any_hit=False) :214, :1392     :func:`tree_plain`
-B   lf_tree_any_hit    _make_kernel(any_hit=True)  :214, :1392     :func:`tree_plain`
-C   lf_brute           _make_brute_kernel :877, :1292              :func:`brute_plain`
-==  =================  ==========================================  =====================
+==  =====================  ===========================================  ==========================
+id  kernel                 replaces (intersect_pallas.py)               plain version
+==  =====================  ===========================================  ==========================
+A   lf_tree_closest        _make_kernel(any_hit=False) :214, :1392      :func:`tree_plain`
+B   lf_tree_any_hit        _make_kernel(any_hit=True)  :214, :1392      :func:`tree_plain`
+C   lf_brute               _make_brute_kernel :877, :1292               :func:`brute_plain`
+D   lf_tree_closest_shade  _make_kernel(shade=True)    :214, :1392      ``tree_plain(shade=True)``
+==  =====================  ===========================================  ==========================
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
@@ -36,6 +38,12 @@ KINF = 3.0e38  # the kernels' "no hit yet" distance (intersect_pallas.INF)
 BRUTE_MAX_TRIS = 512
 BRUTE_TILE = 1024  # lanes per liveness group of kernel C (_auto_tile, brute)
 BRUTE_BLOCK = 64  # rows per tie-breaking block of kernel C's closest hit
+# The JAX package's routing thresholds (intersect_pallas.py:87, :105).  They
+# sized the TPU's VMEM; here they only decide, as there, which scenes take
+# the shade kernel D: the port keeps the tree in global memory either way,
+# and neither number is a memory limit of the card.
+STREAM_THRESHOLD_BYTES = 10 * 2**20
+SHADE_THRESHOLD_BYTES = 12 * 2**20
 
 
 @dataclass
@@ -59,6 +67,10 @@ KERNELS = {
         "brute_any_hit", "lf_brute",
         "lens_flare_tpu/ops/intersect_pallas.py:877",
     ),
+    "D": KernelInfo(
+        "tree_closest_hit_shade", "lf_tree_closest_shade",
+        "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
 }
 KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
 
@@ -79,6 +91,7 @@ class CudaScene:
     slot_map: torch.Tensor  # (B1*B2*K + max(S, 1),) slot -> primitive id
     tri_brute: torch.Tensor  # (S_pad, 9) real triangle rows (brute mode)
     brute_map: torch.Tensor  # (S_pad + max(S, 1),)
+    slot_shade: torch.Tensor  # (B1*B2*K, 10) shading row per slot (shade), else (1, 10)
     b1: int
     b2: int
     k: int
@@ -87,13 +100,30 @@ class CudaScene:
     brute: bool
     s_pad: int
     s_real: int
+    stream: bool = False  # the JAX package's HBM-streaming choice (routing only)
+    shade: bool = False  # closest hits take kernel D
 
     @classmethod
-    def from_wide_bvh(cls, wb, sph_center, sph_radius, num_tris: int, device):
-        """Pack a WideBVH; the brute-mode choice and the maps follow ``PallasScene``."""
+    def from_wide_bvh(
+        cls, wb, sph_center, sph_radius, num_tris: int, device,
+        shade_rows=None, force_stream=None, stream_shade=False,
+    ):
+        """Pack a WideBVH; every mode choice and map follows ``PallasScene``.
+
+        ``shade_rows``: the (num_tris, 10) [corner normals | bsdf id] table;
+        with it, closest hits on mid-size multi-level scenes go through
+        kernel D by ``PallasScene``'s predicate (``intersect_pallas.py:1112-1130``).
+        ``force_stream`` and ``stream_shade`` only steer that routing.
+        """
         dev = torch.device(device)
         n_sph = len(sph_center)
-        brute = 0 < num_tris <= BRUTE_MAX_TRIS
+        b1, b2, k = int(wb.b1), int(wb.b2), int(wb.k)
+        n_nodes = b1 * b2
+        planes_bytes = 9 * k * n_nodes * 4
+        stream = planes_bytes > STREAM_THRESHOLD_BYTES and b1 > 1
+        if force_stream is not None:
+            stream = bool(force_stream) and b1 > 1
+        brute = (not stream) and 0 < num_tris <= BRUTE_MAX_TRIS
         sph_ids = (num_tris + np.arange(max(n_sph, 1))).astype(np.int32)
         if brute:
             real = wb.tri_id >= 0
@@ -113,6 +143,21 @@ class CudaScene:
             sph[:n_sph, 0:3] = sph_center
             sph[:n_sph, 3] = sph_radius
         slot_map = np.concatenate([wb.tri_id.astype(np.int32), sph_ids])
+        # the JAX package's routing rule, not a limit of this card: single-
+        # level and tiny scenes keep kernel A (or C) plus the row gather
+        shade = bool(
+            shade_rows is not None
+            and b1 > 1
+            and num_tris > BRUTE_MAX_TRIS
+            and (
+                (stream and stream_shade)
+                or (not stream and planes_bytes + 10 * k * n_nodes * 4 <= SHADE_THRESHOLD_BYTES)
+            )
+        )
+        slot_shade = np.zeros((n_nodes * k if shade else 1, 10), np.float32)
+        if shade:
+            real = wb.tri_id >= 0  # padding slots keep zero rows
+            slot_shade[real] = np.asarray(shade_rows, np.float32)[wb.tri_id[real]]
 
         def t(a, dtype=np.float32):
             return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
@@ -125,14 +170,17 @@ class CudaScene:
             slot_map=t(slot_map, np.int32),
             tri_brute=t(rows),
             brute_map=t(brute_map, np.int32),
-            b1=int(wb.b1),
-            b2=int(wb.b2),
-            k=int(wb.k),
+            slot_shade=t(slot_shade),
+            b1=b1,
+            b2=b2,
+            k=k,
             num_tris=int(num_tris),
             n_spheres=n_sph,
             brute=brute,
             s_pad=int(s_pad),
             s_real=int(s_real),
+            stream=bool(stream),
+            shade=shade,
         )
 
 
@@ -242,8 +290,12 @@ def _init_outputs(n, device):
     )
 
 
-def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool):
-    """Plain version of kernels A and B: returns (t, slot, bary (N, 2), tests).
+def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool, shade: bool = False):
+    """Plain version of kernels A, B and D: returns (t, slot, bary (N, 2), tests).
+
+    ``shade`` (kernel D, closest hit on a shade scene): chunk batch 1, and a
+    fifth output, the (N, 10) shading row of the best triangle slot taken
+    before the sphere pass (zeros where no triangle was hit).
 
     Lanes walk the tops in ascending order.  Within one top the chunk mask
     is fixed by the clipped interval at the top's start, and the chunk
@@ -257,7 +309,7 @@ def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool):
     best_t, slot, bary, tests = _init_outputs(n, dev)
     occluded = torch.zeros(n, dtype=torch.bool, device=dev)
     b1, b2, k = cs.b1, cs.b2, cs.k
-    cb = 2 if (b1 == 1 and not any_hit) else 1  # _auto_chunk_batch
+    cb = 2 if (b1 == 1 and not any_hit and not shade) else 1  # _auto_chunk_batch
     inv = _safe_inv(d)
     child = cs.child.view(b1, b2, 8)
     tri = cs.tri.view(b1, b2, k, 12)
@@ -313,7 +365,13 @@ def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool):
 
     if any_hit:
         slot = torch.where(occluded, 0, slot)
+    if shade:
+        rows = torch.where(
+            (slot >= 0)[:, None], cs.slot_shade[torch.clamp_min(slot, 0).long()], 0.0
+        )
     best_t, slot, tests = _sphere_pass(cs, o, d, t_lo, t_hi, best_t, slot, tests, b1 * b2 * k)
+    if shade:
+        return best_t, slot, bary, tests, rows
     return best_t, slot, bary, tests
 
 
@@ -404,6 +462,13 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
             *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
             n, cs.b1, cs.b2, cs.k, cs.n_spheres, cb, *outs, stream,
         )
+    elif key == "D":
+        out_rows = torch.empty((n, 10), dtype=torch.float32, device=o.device)
+        rc = lib.lf_tree_closest_shade(
+            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(),
+            cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
+            n, cs.b1, cs.b2, cs.k, cs.n_spheres, *outs, out_rows.data_ptr(), stream,
+        )
     else:
         rc = lib.lf_tree_any_hit(
             *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
@@ -412,6 +477,8 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
     if rc != 0:
         raise RuntimeError(f"kernel {KERNELS[key].symbol} failed to launch: cudaError {rc}")
     KERNELS[key].launches += 1
+    if key == "D":
+        return out_t, out_slot, out_bary, out_tests, out_rows
     return out_t, out_slot, out_bary, out_tests
 
 
@@ -429,6 +496,18 @@ def tree_closest_hit(cs: CudaScene, o, d, t_lo, t_hi):
     return _dispatch("A", lambda: tree_plain(cs, o, d, t_lo, t_hi, False), cs, o, d, t_lo, t_hi, True)
 
 
+def tree_closest_shade(cs: CudaScene, o, d, t_lo, t_hi):
+    """Kernel D (CUDA tensors) or its plain version (CPU tensors).
+
+    Returns (t, slot, bary, tests, rows (N, 10)).
+    """
+    if not cs.shade:
+        raise ValueError("scene was not packed with shading rows for kernel D")
+    return _dispatch(
+        "D", lambda: tree_plain(cs, o, d, t_lo, t_hi, False, shade=True), cs, o, d, t_lo, t_hi, True
+    )
+
+
 def tree_any_hit(cs: CudaScene, o, d, t_lo, t_hi):
     """Kernel B (CUDA tensors) or its plain version (CPU tensors)."""
     return _dispatch("B", lambda: tree_plain(cs, o, d, t_lo, t_hi, True), cs, o, d, t_lo, t_hi, False)
@@ -443,15 +522,25 @@ def brute_hit(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
     )
 
 
-def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None):
+def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None, return_shade: bool = False):
     """Rays (N, 3) -> (t, prim, b1, b2, hit, tests), the ``intersect_pallas`` contract.
 
     ``brute=None`` takes kernel C for any-hit queries on brute-mode scenes
     (``intersect_pallas.py:1422-1425``); True/False force it either way.
     For any-hit queries ``prim`` is -1: only ``hit`` is meaningful.
+
+    ``return_shade`` (requires ``cs.shade``, closest hit): trace with kernel
+    D and append the winner's shading row, (N, 10) row-major [9 corner-normal
+    components | bsdf id] — the transpose of the JAX package's (10, N)
+    ``shade_cm``.  Where a sphere wins, the row is the best triangle's.
     """
     brute = (cs.brute and any_hit) if brute is None else (bool(brute) and cs.brute)
-    if brute:
+    shade = bool(return_shade) and cs.shade and not any_hit and not brute
+    if return_shade and not shade:
+        raise ValueError("return_shade requires a shade scene and closest hit")
+    if shade:
+        t, slot, bary, tests, rows = tree_closest_shade(cs, o, d, t_lo, t_hi)
+    elif brute:
         t, slot, bary, tests = brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
     elif any_hit:
         t, slot, bary, tests = tree_any_hit(cs, o, d, t_lo, t_hi)
@@ -463,4 +552,5 @@ def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None
     else:
         smap = cs.brute_map if brute else cs.slot_map
         prim = torch.where(hit, smap[torch.clamp_min(slot, 0).long()], -1)
-    return t, prim, bary[:, 0], bary[:, 1], hit, tests
+    out = (t, prim, bary[:, 0], bary[:, 1], hit, tests)
+    return out + (rows,) if shade else out

@@ -4,12 +4,14 @@ Counterpart of ``lens_flare_tpu/scene/camera.py``.  The host-side
 :class:`~lens_flare_tpu.scene.camera.Camera` (orbit placement, FOV fixup,
 world -> screen projection) is NumPy-only and is imported from the JAX
 package as it is; this module holds the device half: ``CameraParams`` as
-tensors and :func:`generate_rays` (``camera.py:242``).  Thin-lens and bokeh
-ray generation are not ported yet (ROADMAP Queue 1, item 3).
+tensors, pinhole, thin-lens and bokeh ray generation (``camera.py:242-306``)
+and :func:`project_world_to_screen` (``:309``).  Matrix products are written
+as explicit sums so that they round as XLA's three-term dot products do.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -42,6 +44,13 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
 
 
+def _to_world(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """v @ c.T for v (N, 3): camera space -> world space."""
+    return torch.stack(
+        [v[:, 0] * c[i, 0] + v[:, 1] * c[i, 1] + v[:, 2] * c[i, 2] for i in range(3)], dim=-1
+    )
+
+
 def generate_rays(params: CameraParams, x: torch.Tensor, y: torch.Tensor):
     """Pinhole rays for normalized sensor coords x, y in [0, 1], shape (N,).
 
@@ -51,10 +60,55 @@ def generate_rays(params: CameraParams, x: torch.Tensor, y: torch.Tensor):
     cy = params.tan_half_v * (2.0 * y - 1.0)
     d_cam = torch.stack([cx, cy, -torch.ones_like(cx)], dim=-1)
     d_cam = d_cam / _norm3(d_cam)[:, None]
-    c = params.c2w
-    d_world = torch.stack(
-        [d_cam[:, 0] * c[i, 0] + d_cam[:, 1] * c[i, 1] + d_cam[:, 2] * c[i, 2] for i in range(3)],
-        dim=-1,
-    )
+    d_world = _to_world(params.c2w, d_cam)
     origins = params.pos.expand(d_world.shape)
     return origins, d_world
+
+
+def _lens_rays(params: CameraParams, x, y, p_lens):
+    """Rays from lens points p_lens (N, 3, camera space) through the focal plane."""
+    cx = params.tan_half_h * (2.0 * x - 1.0)
+    cy = params.tan_half_v * (2.0 * y - 1.0)
+    # the point on the plane of focus along the pinhole direction
+    p_focus = torch.stack([cx, cy, -torch.ones_like(cx)], dim=-1) * params.focal_distance
+    d_cam = p_focus - p_lens
+    d_cam = d_cam / _norm3(d_cam)[:, None]
+    c = params.c2w
+    return params.pos + _to_world(c, p_lens), _to_world(c, d_cam)
+
+
+def generate_rays_thin_lens(params: CameraParams, x, y, rnd_r, rnd_theta):
+    """Thin-lens rays (``camera.py:258``): a lens-disk point of radius
+    ``lens_radius`` from the uniforms rnd_r, rnd_theta, aimed at the focal-plane
+    point of the pinhole ray.  Returns (origins (N, 3), directions (N, 3)).
+    """
+    r = params.lens_radius * torch.sqrt(rnd_r)
+    theta = 2.0 * math.pi * rnd_theta
+    p_lens = torch.stack([r * torch.cos(theta), r * torch.sin(theta), torch.zeros_like(r)], dim=-1)
+    return _lens_rays(params, x, y, p_lens)
+
+
+def generate_rays_bokeh(params: CameraParams, x, y, lens_uv):
+    """Thin-lens rays whose lens point is a bokeh-mask sample (``camera.py:284``).
+
+    ``lens_uv``: (N, 2) points in [-0.5, 0.5]^2 (``BokehMask.sample``), scaled
+    by 2 * lens_radius so that the mask spans the lens diameter.
+    """
+    scale = 2.0 * params.lens_radius
+    p_lens = torch.stack(
+        [lens_uv[:, 0] * scale, lens_uv[:, 1] * scale, torch.zeros_like(lens_uv[:, 0])], dim=-1
+    )
+    return _lens_rays(params, x, y, p_lens)
+
+
+def project_world_to_screen(params: CameraParams, pos_world: torch.Tensor):
+    """World points (N, 3) -> normalized screen coords (ns_x, ns_y) (``camera.py:309``)."""
+    rel = pos_world - params.pos
+    c = params.c2w
+    pos_camera = torch.stack(  # rel @ c2w
+        [rel[:, 0] * c[0, j] + rel[:, 1] * c[1, j] + rel[:, 2] * c[2, j] for j in range(3)], dim=-1
+    )
+    pos_image = pos_camera / torch.abs(pos_camera[:, 2:3])
+    ns_x = ((pos_image[:, 0] / params.tan_half_h) + 1) / 2.0
+    ns_y = ((pos_image[:, 1] / params.tan_half_v) + 1) / 2.0
+    return ns_x, ns_y

@@ -167,7 +167,7 @@ def test_render_matches_jax(pair):
 def test_unported_features_raise():
     scene = make_terrain_scene(8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(device="cpu", lens_radius=0.1, **KW).load_flat_scene(scene)
+        Renderer(device="cpu", direct_hemisphere_sample=True, **KW).load_flat_scene(scene)
     scene.lights.light_type[1] = 3  # LT_AREA
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(device="cpu", **KW).load_flat_scene(scene)

@@ -204,3 +204,29 @@ def test_kernels_match_plain_on_card(case, cuda_device):
         want = plain()
         for g, w in zip(got, want):
             assert torch.equal(g, w), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,n_sph", [(40, 0), (40, 5)], ids=["terrain40", "terrain40_spheres"])
+def test_shade_kernel_matches_plain_on_card(nq, n_sph, cuda_device):
+    """Kernel D equals its plain version on the card, and its walk equals kernel A's."""
+    scene = make_terrain_scene(nq)
+    sc, sr = _spheres(n_sph) if n_sph else (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    rows = np.concatenate(
+        [np.asarray(scene.tri_n, np.float32).reshape(-1, 9),
+         np.asarray(scene.tri_bsdf, np.float32).reshape(-1, 1)], axis=1,
+    )
+    cs = cuda_scene_from_wide_bvh(
+        build_wide_bvh(scene.tri_p), sc, sr, scene.num_triangles, cuda_device, shade_rows=rows
+    )
+    assert cs.shade
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    before = ic.KERNELS["D"].launches
+    got = ic.tree_closest_shade(cs, o, d, t_lo, t_hi)
+    torch.cuda.synchronize()
+    assert ic.KERNELS["D"].launches == before + 1
+    want = ic.tree_plain(cs, o, d, t_lo, t_hi, False, shade=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, a in zip(got, ic.tree_closest_hit(cs, o, d, t_lo, t_hi)):
+        assert torch.equal(g, a)
