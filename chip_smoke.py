@@ -13,7 +13,12 @@ raises, so the script exits non-zero and prints no result):
    and shadow rays, plus each one's time beside the plain version's at 64k
    lanes; kernel D (closest hit plus shading rows, on the two mid-size
    scenes) is also held to kernel A's outputs and timed against A plus
-   ``finalize_hit``'s row gather;
+   ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2 and
+   4, closest hit, any hit and shade) on the two mid-size scenes, exactly
+   against its plain version and against A, B and D; kernel E (the
+   coefficient walk) on the exact-fit trees of 8,192 and 32,768 triangles,
+   exactly against its plain version and against A (hits and slots equal
+   on all but at most 1 lane in 10,000, t within 1e-3 relative);
 3. the slice: the 1920x1080 frame of the 524,288-triangle terrain at 1 spp,
    depth 4, NEE and RR bounces, then the paraxial flare composite, written
    as a PNG; launch counts show the frame went through kernels A and B;
@@ -23,50 +28,61 @@ raises, so the script exits non-zero and prints no result):
    stages of 4, 4 and 8 samples) of the 131,072-triangle terrain at
    1920x1080, focused by autofocus; its closest hits go through kernel D;
 6. config2_small: the same settings at 320x240 (ns_aa 8) on the
-   3,200-triangle terrain, held against the same frame rendered on the CPU.
+   3,200-triangle terrain, held against the same frame rendered on the CPU;
+7. kernel_bench: ``python -m lens_flare_tpu_torch.bench_kernels`` at full
+   width (262,144-lane wavefronts), the path that runs kernels E and F; its
+   rows and launch counts, then every E and F call it timed (E on both
+   exact-fit trees with primary and bounce rays; F at top_batch 2 and 4 on
+   the bounce and shadow wavefronts) held exactly against its plain
+   version, tests included, on the bench's own scenes and rays, with the
+   bench's time beside the plain version's.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
-nvidia-smi line and a JSON line with every kernel's numbers.  TF32 is off
-for matrix products and convolutions: the ghost products are float32.
+nvidia-smi line and a JSON line with every kernel's numbers: launches on
+its path, the largest error against its plain version, its time, the
+plain version's, and its bound (the larger of the FLOPs the function needs
+over 67 TFLOP/s, the H100's float32 peak without tensor cores, and the least
+bytes it must move over 3.35 TB/s; see :func:`bound`).  TF32 is off for
+matrix products and convolutions: the ghost products are float32.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 LANES = 1 << 16  # wavefront width of the main path (Renderer.tile_pixels)
+BENCH_LANES = 1 << 18  # wavefront width of the kernel bench (E's and F's path)
+PEAK_FLOPS = 67e12  # H100 SXM float32 without tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# FLOP per slot test, counted from intersect.cu: mt_terms (3 sub, 18 mul,
+# 12 add/sub = 41 with the dots) plus batch_test (1 div, 3 mul, 1 add) for
+# closest hit, plus occludes (6 mul, 1 add) for any hit; E's four 10-term
+# dot products (76) plus batch_test.  Comparisons are not counted.
+FLOP_PER_TEST = {"closest": 46, "any": 48, "mxu": 81}
+LANE_BYTES = 32 + 20  # o, d, t_lo, t_hi in; t, slot, bary, tests out
+# the least bytes a walk reads of the tree: a box's lo and hi (24 of its 32
+# bytes), a triangle slot's p0, e1 and e2 (36 of 48), E's four 10-term rows
+# of a slot's (4, 16) coefficients (160 of 256), a top's centre (E), and a
+# hit slot's shading row (D and F's shade instance)
+BOX_BYTES = 24
+TRI_ROW_BYTES = 36
+MXU_ROW_BYTES = 160
+CENTER_BYTES = 12
+SHADE_ROW_BYTES = 40
+# (kernel, rays, terrain n_quads) of phase 2 that are timed -> their label
+TIMED = {
+    ("A", "camera", 512): "A", ("B", "shadow", 512): "B", ("C", "shadow", 8): "C",
+    ("D", "camera", 256): "D", ("A", "camera", 256): "A_vmem", ("C", "camera", 8): "C_closest",
+}
 
 
 def phase(title, t0, **numbers):
     fields = " ".join(f"{k}={v}" for k, v in numbers.items())
     print(f"[{title}] {fields} seconds={time.perf_counter() - t0:.3f}", flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, repeats):
-    """Mean device time of fn() over ``repeats`` calls, after one warm-up call."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats
 
 
 def make_rays(r, n, gen):
@@ -100,6 +116,68 @@ def make_rays(r, n, gen):
     return {"camera": cam_rays, "bounce": bounce, "shadow": shadow}
 
 
+def chunks_hit(cs, o, d, t_lo, t_hi) -> tuple[int, int]:
+    """(tops, chunks) whose boxes at least one ray enters within [t_lo, t_hi]."""
+    from lens_flare_tpu_torch.ops import intersect_cuda as ic
+
+    inv = ic._safe_inv(d)
+    if cs.b1 > 1:
+        top_hits = ic._box_hits(cs.top, o, inv, t_lo, t_hi)
+        tops = top_hits.any(dim=0).nonzero()[:, 0].tolist()
+    else:
+        top_hits, tops = None, [0]
+    child = cs.child.view(cs.b1, cs.b2, 8)
+    n_chunks = 0
+    for tp in tops:
+        lanes = top_hits[:, tp].nonzero()[:, 0] if top_hits is not None else slice(None)
+        ch = ic._box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_hi[lanes])
+        n_chunks += int(ch.any(dim=0).sum())
+    return len(tops), n_chunks
+
+
+def bound(cs, key, any_hit, rays, out, tests=None):
+    """(bound_ms, bound_by) of one kernel call: max(FLOPs / peak, bytes / bandwidth).
+
+    FLOPs: the summed ``tests`` times the FLOP per slot test.  ``tests``
+    defaults to the call's own; F passes those of the default walk (A or B)
+    on the same rays, which computes the same function with the clip fixed
+    per top, so F's extra tests from the clip fixed per group are not work
+    the function needs.  Bytes: every lane's rays and outputs once (D and
+    F's shade instance: +40 for the rows), the top boxes, and the child boxes
+    and slot rows of the chunks that the hits found require (a box a
+    closest-hit ray enters before its hit, or an unoccluded shadow ray
+    enters at all), each once, at the least size a walk reads (BOX_BYTES and
+    the rest above), plus the shading rows of the slots hit.
+    """
+    import torch
+
+    o, d, t_lo, t_hi = rays
+    t, slot = out[0], out[1]
+    tests = out[3] if tests is None else tests
+    n = o.shape[0]
+    shade = len(out) > 4
+    kind = "mxu" if key == "E" else ("any" if any_hit else "closest")
+    flops = float(tests.sum(dtype=torch.float64)) * FLOP_PER_TEST[kind]
+    nbytes = n * (LANE_BYTES + (SHADE_ROW_BYTES if shade else 0))
+    if key.startswith("C"):
+        nbytes += cs.s_real * TRI_ROW_BYTES  # every real triangle row
+    else:
+        if kind == "any":
+            live, clip = slot < 0, t_hi
+        else:
+            live, clip = torch.ones_like(slot, dtype=torch.bool), torch.minimum(t_hi, t)
+        n_tops, n_chunks = chunks_hit(cs, o[live], d[live], t_lo[live], clip[live])
+        row = MXU_ROW_BYTES if key == "E" else TRI_ROW_BYTES
+        nbytes += BOX_BYTES * cs.b1 + BOX_BYTES * cs.b2 * n_tops + row * cs.k * n_chunks
+        if key == "E":
+            nbytes += CENTER_BYTES * n_tops
+        if shade:
+            tri_slot = slot[(slot >= 0) & (slot < cs.b1 * cs.b2 * cs.k)]
+            nbytes += SHADE_ROW_BYTES * int(torch.unique(tri_slot).numel())
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 def compare(got, want):
     """CPU-test tolerances (tests/test_torch_intersect.py); returns (max_abs_err, exact)."""
     import torch
@@ -124,6 +202,7 @@ def compare(got, want):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     t0 = time.perf_counter()
@@ -133,9 +212,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT))
     import lens_flare_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from lens_flare_tpu_torch import bench_kernels as bk
 
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
+    smi = bk.nvidia_smi()
+    assert smi, "nvidia-smi gave no name, power.limit line"
     phase("device", t0, name=json.dumps(kind), nvidia_smi=json.dumps(smi),
           torch=torch.__version__, cuda=torch.version.cuda, tf32="off")
 
@@ -150,16 +231,16 @@ def main() -> int:
           nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(regs))
 
     # -- 2. kernels against their plain versions ---------------------------
-    from lens_flare_tpu.scene.procedural import make_terrain_scene
     from lens_flare_tpu_torch.ops import intersect_cuda as ic
-    from lens_flare_tpu_torch.renderer import Renderer
-
     from lens_flare_tpu_torch.ops.intersect import finalize_hit
+    from lens_flare_tpu_torch.renderer import Renderer
+    from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"A": 0.0, "B": 0.0, "C": 0.0, "D": 0.0}
+    errs = {key: 0.0 for key in "ABCDEF"}
     times = {}
+    bounds = {}
     for nq in (8, 40, 256, 512):
         t0 = time.perf_counter()
         r = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda")
@@ -206,16 +287,19 @@ def main() -> int:
                 exact = exact and torch.equal(got[4], want[4])
             errs[key] = max(errs[key], err)
             report[f"{key}_{kind_rays}"] = f"err={err:.3g},exact={exact},hits={int((got[1] >= 0).sum())}"
-            # the main path's shapes: primary rays at 524k tris for A, shadow
-            # rays at 524k tris for B, shadow rays of the small scene for C,
-            # primary rays at 131k tris for D (config2_frame's scene)
-            if (key, kind_rays, nq) in (
-                ("A", "camera", 512), ("B", "shadow", 512), ("C", "shadow", 8), ("D", "camera", 256),
-            ):
-                times[key] = (
-                    cuda_time_ms(lambda: kernel(*args), 20),
-                    cuda_time_ms(lambda: plain(*args), 3),
+            # the main path's shapes: primary rays at 524k tris for A (the
+            # JAX package's stream mode, PERF.md row 2), shadow rays at 524k
+            # tris for B, shadow rays of the small scene for C, primary rays
+            # at 131k tris for D (config2_frame's scene); and two rows no path
+            # runs by default: A on the 131k VMEM-mode tree (row 1) and C's
+            # closest-hit flag (row 5)
+            label = TIMED.get((key, kind_rays, nq))
+            if label:
+                times[label] = (
+                    bk.cuda_ms(lambda: kernel(*args), 20),
+                    bk.cuda_ms(lambda: plain(*args), 3),
                 )
+                bounds[label] = bound(cs, key, kind_rays == "shadow", args, got)
         if cs.shade and nq == 256:
             # D with its rows against A plus finalize_hit's row gather, to the Hit
             o, d, a, b = rays["camera"]
@@ -229,13 +313,69 @@ def main() -> int:
 
             hit_a, hit_d = a_gather(), d_rows()
             assert all(torch.equal(x, y) for x, y in zip(hit_a, hit_d)), "D's Hit differs from A's"
-            times["A+gather"] = (cuda_time_ms(a_gather, 20), cuda_time_ms(d_rows, 20))
+            times["A+gather"] = (bk.cuda_ms(a_gather, 20), bk.cuda_ms(d_rows, 20))
+        if nq in (40, 256):
+            # F, the group walk: exactly its plain version, and A's, B's or
+            # D's t, slot, bary, hit and rows; only the tests differ
+            assert cs.b1 > 1 and not cs.stream and cs.shade
+            for tb in (2, 4):
+                for kind_rays, any_hit, shade in (
+                    ("camera", False, False), ("bounce", False, False), ("shadow", True, False),
+                    ("bounce", False, True),
+                ):
+                    args = rays[kind_rays]
+                    got = ic.tree_group(cs, *args, tb, any_hit=any_hit, shade=shade)
+                    torch.cuda.synchronize()
+                    want = ic.tree_plain(cs, *args, any_hit, shade=shade, top_batch=tb)
+                    err, _ = compare(got[:4], want[:4])
+                    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+                    assert exact, f"F differs from its plain version: {nq} tb={tb} {kind_rays} shade={shade}"
+                    walk = ic.tree_closest_shade if shade else (ic.tree_any_hit if any_hit else ic.tree_closest_hit)
+                    ref = walk(cs, *args)
+                    assert all(torch.equal(g, w) for j, (g, w) in enumerate(zip(got, ref)) if j != 3), (
+                        f"F's hits differ from the default walk's: {nq} tb={tb} {kind_rays} shade={shade}")
+                    errs["F"] = max(errs["F"], err)
+                    tag = f"F{tb}_{kind_rays}" + ("_shade" if shade else "")
+                    report[tag] = f"exact={exact},tests={int(got[3].sum())}/{int(ref[3].sum())}"
         shape = f"{cs.b1}x{cs.b2}x{cs.k}"
         phase("kernels", t0, tris=r.scene.num_triangles, tree=shape, brute=cs.brute,
               shade=cs.shade, lanes=LANES, **report)
-    for key in ("A", "B", "C", "D"):
-        ms, plain_ms = times[key]
-        print(f"[timing] kernel={key} lanes={LANES} ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    # E, the coefficient walk, on the exact-fit trees of tools/ab_mxu_mt.py
+    from lens_flare_tpu_torch.accel.wide import build_wide_bvh
+
+    none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    for nq, shape in bk.MXU_SCENES:
+        t0 = time.perf_counter()
+        scene = make_terrain_scene(nq)
+        cs = ic.CudaScene.from_wide_bvh(build_wide_bvh(scene.tri_p, *shape), *none, scene.num_triangles,
+                                        "cuda", mxu=True)
+        report = {}
+        for kind_rays, args in bk.mxu_rays(scene, LANES, "cuda").items():
+            got = ic.tree_closest_mxu(cs, *args)
+            torch.cuda.synchronize()
+            want = ic.tree_plain(cs, *args, False, mxu=True)
+            err, exact = compare(got, want)
+            assert exact, f"E differs from its plain version: terrain{nq} {kind_rays}"
+            # against A: E's affine forms round otherwise than A's cross
+            # products, so a grazing ray may flip (<= 1 lane in 10,000), and
+            # t agrees to 1e-3 relative (the cancellation the per-top
+            # re-centring bounds), as tests/test_pallas.py holds the two walks
+            a_out = ic.tree_closest_hit(cs, *args)
+            hit, hit_a = got[1] >= 0, a_out[1] >= 0
+            both = hit & hit_a & (got[1] == a_out[1])
+            n_hit_diff = int((hit != hit_a).sum())
+            n_slot_diff = int((hit & hit_a).sum()) - int(both.sum())
+            assert n_hit_diff + n_slot_diff <= 1e-4 * hit.numel(), ("E's hits differ from A's", n_hit_diff, n_slot_diff)
+            t_rel = ((got[0][both] - a_out[0][both]).abs() / a_out[0][both].abs()).max().item() if both.any() else 0.0
+            assert t_rel <= 1e-3, t_rel
+            errs["E"] = max(errs["E"], err)
+            report[f"E_{kind_rays}"] = (f"exact={exact},hits={int(hit.sum())},vs_A_hit_diff={n_hit_diff},"
+                                        f"slot_diff={n_slot_diff},t_maxrel={t_rel:.3g}")
+        phase("kernels_mxu", t0, tris=scene.num_triangles, tree="x".join(map(str, shape)), lanes=LANES, **report)
+    for label in TIMED.values():
+        (ms, plain_ms), (b_ms, b_by) = times[label], bounds[label]
+        print(f"[timing] kernel={label} lanes={LANES} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
     a_gather_ms, d_rows_ms = times["A+gather"]
     print(f"[timing] tris=131072 lanes={LANES} camera rays to Hit: "
           f"A+finalize_hit_gather_ms={a_gather_ms:.4f} D+finalize_hit_rows_ms={d_rows_ms:.4f} "
@@ -269,7 +409,7 @@ def main() -> int:
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t_frame
     launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    comp_ms = cuda_time_ms(lambda: pipeline.composite(hdr), 5)
+    comp_ms = bk.cuda_ms(lambda: pipeline.composite(hdr), 5)
     st = r.stats
     assert out.shape == (1080, 1920, 3) and torch.isfinite(out).all(), "frame is not finite"
     assert (out >= hdr).all(), "the flare darkened a pixel"
@@ -310,8 +450,6 @@ def main() -> int:
           rays_traced=rs.stats.total_rays, launches=json.dumps(small_launches))
 
     # -- 5. config2_frame: thin-lens bokeh adaptive render through kernel D -
-    import numpy as np
-
     def config2(nq, **kw):
         """A cuda Renderer with the thin-lens octagon-bokeh settings, focused at the centre."""
         scene = make_terrain_scene(nq)
@@ -383,18 +521,56 @@ def main() -> int:
           mean_rel_diff=f"{rel:.3g}", rays_traced=rs2.stats.total_rays,
           rays_traced_cpu=rc2.stats.total_rays, launches=json.dumps(s2_launches))
 
-    # -- 7. results --------------------------------------------------------
+    # -- 7. kernel_bench: the path of kernels E and F ----------------------
+    t0 = time.perf_counter()
+    bench_out = ROOT / "lens_flare_tpu_torch" / "_build" / "bench_kernels.json"
+    cases = []
+    ic.reset_launch_counts()
+    art = bk.main(["--n", str(BENCH_LANES), "--out", str(bench_out)], cases=cases)
+    torch.cuda.synchronize()
+    bench_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert bench_launches["E"] > 0 and bench_launches["F"] > 0, f"the bench skipped E or F: {bench_launches}"
+    assert all(row["ok"] for row in art["rows"] if "check" in row)
+    # every E and F call the bench timed, on its own scenes and rays:
+    # exactly the plain version, tests included; the bound counts F's work
+    # from the default walk's tests on the same rays
+    report = {}
+    for c in cases:
+        got = c.kernel()
+        torch.cuda.synchronize()
+        want = c.plain()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{c.key} differs from its plain version: {c.label}"
+        err, _ = compare(got, want)
+        errs[c.key] = max(errs[c.key], err)
+        plain_ms = bk.cuda_ms(c.plain, 2)
+        b_ms, b_by = bound(c.cs, c.key, c.any_hit, c.rays, got, tests=None if c.key == "E" else c.base_tests)
+        # the kernels line takes E on terrain 128's bounce rays and F at
+        # top_batch 2 on terrain 256's bounce wavefront
+        if c.label in ("terrain128_bounce", "terrain256_bounce_tb2"):
+            times[c.key], bounds[c.key] = (c.ms, plain_ms), (b_ms, b_by)
+        report[f"{c.key}_{c.label}"] = f"exact=True,tests={int(got[3].sum())}/{int(c.base_tests.sum())}"
+        print(f"[timing] kernel={c.key} case={c.label} lanes={c.rays[0].shape[0]} ms={c.ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
+    assert "E" in times and "F" in times, sorted(c.label for c in cases)
+    phase("kernel_bench", t0, rows=len(art["rows"]), lanes=BENCH_LANES, cases=len(cases),
+          launches=json.dumps(bench_launches), artifact=bench_out.name, **report)
+
+    # -- 8. results --------------------------------------------------------
     # each kernel's launches from the main path that runs it
-    count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"]}
+    count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],
+             "E": bench_launches["E"], "F": bench_launches["F"]}
     kernels = [
         {
             "name": ic.KERNELS[k].name, "route": "cuda", "source": ic.KERNEL_SOURCE,
             "replaces": ic.KERNELS[k].replaces, "launches": count[k],
             "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+            # no single PyTorch call computes a cluster-tree traversal
+            "library_ms": None,
         }
-        for k in ("A", "B", "C", "D")
+        for k in "ABCDEF"
     ]
-    print(nvidia_smi(), flush=True)
+    print(bk.nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -53,17 +53,17 @@ def bokeh_mask_from_numpy(bokeh, device="cpu") -> BokehMask:
 
 def cuda_scene_from_wide_bvh(
     wb, sph_center, sph_radius, num_tris: int, device="cpu",
-    shade_rows=None, force_stream=None, stream_shade=False,
+    shade_rows=None, force_stream=None, stream_shade=False, mxu=False,
 ) -> CudaScene:
     """The port's cluster tree from the WideBVH a JAX ``PallasScene`` is built from.
 
-    ``shade_rows``, ``force_stream`` and ``stream_shade`` as ``PallasScene`` takes them.
+    ``shade_rows``, ``force_stream``, ``stream_shade`` and ``mxu`` as ``PallasScene`` takes them.
     """
     return CudaScene.from_wide_bvh(
         wb, np.asarray(sph_center, np.float32).reshape(-1, 3),
         np.asarray(sph_radius, np.float32), num_tris, device,
         shade_rows=None if shade_rows is None else np.asarray(shade_rows, np.float32),
-        force_stream=force_stream, stream_shade=stream_shade,
+        force_stream=force_stream, stream_shade=stream_shade, mxu=mxu,
     )
 
 

@@ -15,13 +15,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lens_flare_tpu.scene.build import LT_DIRECTIONAL
-
 from .. import _rng
 from ..lens.aperture import ApertureTexture
 from ..lens.ghosts import splat_ghosts, splat_ghosts_fast
 from ..lens.paraxial import trace_all_ghosts
 from ..lens.prescription import LensPrescription, reference_prescription
+from ..scene.build import LT_DIRECTIONAL
 from .starburst import aperture_fft, irradiance_falloff, starburst_field
 
 

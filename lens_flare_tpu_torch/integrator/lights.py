@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lens_flare_tpu.scene.build import LT_DIRECTIONAL, LT_POINT
+from ..scene.build import LT_DIRECTIONAL, LT_POINT
 
 INF = 1e30
 PORTED_LIGHT_TYPES = (LT_DIRECTIONAL, LT_POINT)

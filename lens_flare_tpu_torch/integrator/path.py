@@ -28,12 +28,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lens_flare_tpu.scene.collada import BSDF_DIFFUSE, BSDF_MICROFACET
-
 from .. import _rng
 from ..ops.intersect import SceneArrays, finalize_hit
 from ..ops.intersect_cuda import CudaScene, intersect
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
+from ..scene.collada import BSDF_DIFFUSE, BSDF_MICROFACET
 from .lights import PORTED_LIGHT_TYPES, LightArrays, sample_light_static
 from .shading import (
     PORTED_FAMILIES,

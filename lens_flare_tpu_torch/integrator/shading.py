@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lens_flare_tpu.scene.collada import BSDF_DIFFUSE, BSDF_EMISSION
+from ..scene.collada import BSDF_DIFFUSE, BSDF_EMISSION
 
 PORTED_FAMILIES = (BSDF_DIFFUSE, BSDF_EMISSION)
 

@@ -37,6 +37,8 @@ SIGNATURES = {
     "lf_tree_any_hit": [_P] * 8 + [_I] * 5 + [_P] * 5,
     "lf_tree_closest_shade": [_P] * 9 + [_I] * 5 + [_P] * 6,
     "lf_brute": [_P] * 6 + [_I] * 5 + [_P] * 5,
+    "lf_tree_closest_mxu": [_P] * 9 + [_I] * 5 + [_P] * 5,
+    "lf_tree_group": [_P] * 9 + [_I] * 9 + [_P] * 6,
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,13 @@
 //                          plus the winning triangle slot's shading row
 //   C  lf_brute         <- _make_brute_kernel(any_hit=True)   :877, call :1292
 //                          (closest=1 selects _make_brute_kernel(any_hit=False))
-//   _sphere_pass (:840) runs at the end of A, B, C and D.
+//   E  lf_tree_closest_mxu <- _make_kernel(mxu=True)          :214, walk :559-629,
+//                          features mxu_fmat :310-332, coefficient planes
+//                          PallasScene.__init__ :1153-1214, call :1392
+//   F  lf_tree_group    <- _make_kernel(top_batch>1)          :214, group_body
+//                          :699-799, any-hit exit :803-816, call :1392
+//                          (closest hit, any hit and shade: three instances)
+//   _sphere_pass (:840) runs at the end of every kernel.
 //
 // Design: one thread per ray.  The TPU walked a 512-2048-lane tile in
 // lockstep and culled whole clusters per tile; here every thread walks the
@@ -357,6 +363,241 @@ __global__ void brute_kernel(const float* __restrict__ o, const float* __restric
   out_tests[i] = tests;
 }
 
+// Kernel E: the coefficient walk (row 7 of PERF.md's kernel table).
+//
+// With the features f = [1 | o-c | d | g = d x (o-c)] of a ray about its
+// top's centre c, the Moller-Trumbore numerators det, t.det, b1.det and
+// b2.det are linear forms per slot, whose coefficients the wrapper packs
+// slot-major (B1*B2*K, 4, 16) (intersect_cuda.mxu_tables).  The TPU kernel
+// evaluated them as one (16,128)^T x (16,TILE) matrix product per chunk on
+// its matrix unit.  Here one thread per ray walks the tree as kernel A does
+// at chunk batch 1, forms f once per walked top, and for each slot of an
+// active chunk takes four dot products over the ten non-zero features in
+// plain float32, features 0 -> 9 (--fmad=false), then A's closest-hit
+// update.  What bounds it on this card: 256 bytes of coefficients per slot
+// (A reads 48) and 76 FLOP per slot for the four dots (A's cross-product
+// chain is 41), both served from L2 in divergent per-thread loads, so it is
+// slower than A by design.  The Hopper counterpart of the TPU's reason for
+// this row -- a block's lanes sharing one chunk's (K x 4, 16) coefficients
+// in shared memory and evaluating them as a tile product on the tensor
+// cores with 3xTF32 mma.sync / wgmma -- is ROADMAP Queue 2's redesign.
+__device__ __forceinline__ float dot10(const float* __restrict__ c, const float* f) {
+  const float4 q0 = reinterpret_cast<const float4*>(c)[0];
+  const float4 q1 = reinterpret_cast<const float4*>(c)[1];
+  const float2 q2 = reinterpret_cast<const float2*>(c)[4];
+  float acc = q0.x * f[0];
+  acc = acc + q0.y * f[1];
+  acc = acc + q0.z * f[2];
+  acc = acc + q0.w * f[3];
+  acc = acc + q1.x * f[4];
+  acc = acc + q1.y * f[5];
+  acc = acc + q1.z * f[6];
+  acc = acc + q1.w * f[7];
+  acc = acc + q2.x * f[8];
+  acc = acc + q2.y * f[9];
+  return acc;
+}
+
+__global__ void mxu_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                           const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                           const float* __restrict__ top, const float* __restrict__ child,
+                           const float* __restrict__ coef, const float* __restrict__ centers,
+                           const float* __restrict__ sph, int n, int b1, int b2, int k,
+                           int n_spheres, float* __restrict__ out_t, int* __restrict__ out_slot,
+                           float* __restrict__ out_bary, int* __restrict__ out_tests) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+
+  for (int tp = 0; r.finite && tp < b1; ++tp) {
+    const float t_clip = min_nan(t_hi, best_t);
+    if (b1 > 1 && !box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
+    // mxu_fmat (intersect_pallas.py:310-332): products rounded, then differences
+    const float* c = centers + 3 * tp;
+    const float ocx = r.o[0] - c[0], ocy = r.o[1] - c[1], ocz = r.o[2] - c[2];
+    const float f[10] = {1.0f, ocx, ocy, ocz, r.d[0], r.d[1], r.d[2],
+                         r.d[1] * ocz - r.d[2] * ocy, r.d[2] * ocx - r.d[0] * ocz,
+                         r.d[0] * ocy - r.d[1] * ocx};
+    for (int ch = 0; ch < b2; ++ch) {
+      const int node = tp * b2 + ch;
+      if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
+      tests += k;
+      Batch bt;
+      batch_reset(bt, t_hi, best_t);
+      const float* cf = coef + (size_t)node * k * 64;
+      for (int s = 0; s < k; ++s) {
+        const float* q = cf + 64 * s;  // [det | t.det | b1.det | b2.det] x 16 features
+        MT m;
+        m.det = dot10(q, f);
+        m.tt_n = dot10(q + 16, f);
+        m.bb1_n = dot10(q + 32, f);
+        m.bb2_n = dot10(q + 48, f);
+        batch_test(bt, m, node * k + s, t_lo);
+      }
+      batch_commit(bt, best_t, slot, ob1, ob2);
+    }
+  }
+  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
+  out_t[i] = best_t;
+  out_slot[i] = slot;
+  out_bary[2 * i] = ob1;
+  out_bary[2 * i + 1] = ob2;
+  out_tests[i] = tests;
+}
+
+// Kernel F: the top-batched group walk (row 8), closest hit (ANY_HIT and
+// SHADE false), any hit (ANY_HIT) and closest hit with D's shading rows
+// (SHADE).  Its t, slot, barycentrics, hits and rows equal A's, B's and D's;
+// it differs from them in when the clip interval is fixed, which shows only
+// in the tests counter.  To count as the TPU kernel did, lane for lane, a
+// block is one tile of the TPU grid, of the size the caller passes
+// (intersect_cuda.group_tile: _auto_tile's 512 lanes, or 1024 for any hit),
+// tail padding lanes included (o = d = 0, t_lo = t_hi = 0,
+// intersect_pallas.py:1435-1440):
+// 1. the block ORs its lanes' top-box hits under [t_lo, t_hi] into a shared
+//    flag per top (intersect_pallas.py:342-347), and one warp compacts the
+//    flags into the ascending active-top list;
+// 2. each lane walks that list in groups of TB tops: the clip is fixed at the
+//    group's start (min(t_hi, best_t); [t_lo, 0] once occluded), K tests are
+//    charged per child box hit under it, and the chunks are tested in group
+//    order (tops in list order, children ascending) with the running best as
+//    the limit (group_body, :699-799);
+// 3. any hit: before each group the block stops once every lane is occluded
+//    or dead (t_hi <= t_lo), the while_loop of :803-816.  An occluded lane
+//    with t_lo > 0 hits no box under [t_lo, 0] and idles; one with t_lo <= 0
+//    keeps being charged until its block stops.
+// The children of a top lie inside its box and the slab test is monotone in
+// the box bounds, so a lane that misses a top's box under the clip misses all
+// its children: skipping them changes no count.  What bounds it: the same
+// divergent L2 loads as A and B, plus one __syncthreads_or per group for any
+// hit.  The TPU batched tops to amortise its per-top sequential overhead,
+// which one thread per ray does not have; a warp-cooperative packet walk that
+// shares the group's union of chunks in shared memory is its redesign.
+constexpr int GROUP_MAX_TILE = 1024;  // the largest block, so the largest tile
+
+template <bool ANY_HIT, bool SHADE>
+__global__ void __launch_bounds__(GROUP_MAX_TILE)
+    group_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                 const float* __restrict__ top, const float* __restrict__ child,
+                 const float* __restrict__ tri, const float* __restrict__ shade,
+                 const float* __restrict__ sph, int n, int b1, int b2, int k, int n_spheres,
+                 int tb, float* __restrict__ out_t, int* __restrict__ out_slot,
+                 float* __restrict__ out_bary, int* __restrict__ out_tests,
+                 float* __restrict__ out_shade) {
+  extern __shared__ int smem[];
+  int* flags = smem;       // (b1,) 1 where a lane of the tile hits the top
+  int* tops = smem + b1;   // (b1,) the tile's active tops, ascending
+  __shared__ int n_top_s;
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool real = i < n;
+  Ray r;
+  if (real) {
+    r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  } else {  // a tail padding lane of the tile
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      r.o[a] = 0.0f;
+      r.d[a] = 0.0f;
+      r.inv[a] = safe_inv(0.0f);
+    }
+    r.t_lo = r.t_hi = 0.0f;
+    r.finite = true;
+  }
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+
+  for (int j = threadIdx.x; j < b1; j += blockDim.x) flags[j] = 0;
+  __syncthreads();
+  if (r.finite) {
+    for (int tp = 0; tp < b1; ++tp)
+      if (box_hit(top + 8 * tp, r, t_lo, t_hi)) flags[tp] = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int base = 0; base < b1; base += 32) {
+      const int j = base + lane;
+      const bool f = j < b1 && flags[j] != 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, f);
+      if (f) tops[count + __popc(mask & ((1u << lane) - 1u))] = j;
+      count += __popc(mask);
+    }
+    if (lane == 0) n_top_s = count;
+  }
+  __syncthreads();
+  const int n_top = n_top_s;
+  const int n_groups = (n_top + tb - 1) / tb;
+
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+  bool occluded = false;
+  const bool dead = t_hi <= t_lo;
+  const bool walks = real && r.finite;
+
+  for (int g = 0; g < n_groups; ++g) {
+    // every thread reaches this barrier: n_groups and the exit are block-uniform
+    if (ANY_HIT && __syncthreads_or(!(occluded || dead)) == 0) break;
+    if (!walks || (ANY_HIT && occluded && !(t_lo <= 0.0f))) continue;
+    const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
+    for (int u = 0; u < tb; ++u) {
+      const int si = g * tb + u;
+      if (si >= n_top) break;
+      const int tp = tops[si];
+      if (!box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
+      for (int ch = 0; ch < b2; ++ch) {
+        const int node = tp * b2 + ch;
+        if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
+        tests += k;
+        const float* rows = tri + (size_t)node * k * 12;
+        if (ANY_HIT) {
+          if (occluded) continue;
+          for (int s = 0; s < k; ++s) {
+            if (occludes(mt_terms(rows + 12 * s, r), t_lo, t_hi)) {
+              occluded = true;
+              break;
+            }
+          }
+        } else {
+          Batch bt;
+          batch_reset(bt, t_hi, best_t);
+          for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
+          batch_commit(bt, best_t, slot, ob1, ob2);
+        }
+      }
+    }
+  }
+  if (!real) return;
+  if (ANY_HIT && occluded) slot = 0;
+  if (SHADE) {  // as kernel D: the best triangle's row, before the spheres
+    float* row = out_shade + (size_t)10 * i;
+    if (slot >= 0) {
+      const float* src = shade + (size_t)10 * slot;
+#pragma unroll
+      for (int j = 0; j < 10; ++j) row[j] = src[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 10; ++j) row[j] = 0.0f;
+    }
+  }
+  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
+  out_t[i] = best_t;
+  out_slot[i] = slot;
+  out_bary[2 * i] = ob1;
+  out_bary[2 * i + 1] = ob2;
+  out_tests[i] = tests;
+}
+
 constexpr int TREE_THREADS = 128;
 constexpr int BRUTE_THREADS = 256;
 static_assert(BRUTE_TILE % BRUTE_THREADS == 0, "a block must lie inside one brute tile");
@@ -426,6 +667,52 @@ extern "C" int lf_brute(const float* o, const float* d, const float* t_lo, const
       brute_kernel<false><<<grid, BRUTE_THREADS, 0, (cudaStream_t)stream>>>(
           o, d, t_lo, t_hi, tri, sph, n, s_real, s_pad, n_spheres, out_t, out_slot, out_bary,
           out_tests);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel E: coef (B1*B2*K, 4, 16) slot-major coefficients, centers (B1, 3).
+extern "C" int lf_tree_closest_mxu(const float* o, const float* d, const float* t_lo,
+                                   const float* t_hi, const float* top, const float* child,
+                                   const float* coef, const float* centers, const float* sph,
+                                   int n, int b1, int b2, int k, int n_spheres, float* out_t,
+                                   int* out_slot, float* out_bary, int* out_tests, void* stream) {
+  if (n > 0) {
+    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
+    mxu_kernel<<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, coef, centers, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
+        out_bary, out_tests);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel F: tb tops per group (2 <= tb <= b1, multi-level trees), one block
+// per tile of tile lanes (32 <= tile <= 1024, a multiple of 32); any_hit
+// selects the any-hit instance, shade_rows the shade one (shade and
+// out_shade as for kernel D).
+extern "C" int lf_tree_group(const float* o, const float* d, const float* t_lo,
+                             const float* t_hi, const float* top, const float* child,
+                             const float* tri, const float* shade, const float* sph, int n,
+                             int b1, int b2, int k, int n_spheres, int tb, int tile,
+                             int any_hit, int shade_rows, float* out_t, int* out_slot,
+                             float* out_bary, int* out_tests, float* out_shade, void* stream) {
+  if (tile < 32 || tile > GROUP_MAX_TILE || tile % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int grid = (n + tile - 1) / tile;
+    const size_t smem = 2 * sizeof(int) * (size_t)b1;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (any_hit)
+      group_kernel<true, false><<<grid, tile, smem, st>>>(
+          o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, out_t,
+          out_slot, out_bary, out_tests, nullptr);
+    else if (shade_rows)
+      group_kernel<false, true><<<grid, tile, smem, st>>>(
+          o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, tb, out_t,
+          out_slot, out_bary, out_tests, out_shade);
+    else
+      group_kernel<false, false><<<grid, tile, smem, st>>>(
+          o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, out_t,
+          out_slot, out_bary, out_tests, nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,7 @@ def shade_rows(flat_scene) -> np.ndarray:
 
 
 def scene_to_device(flat_scene, device) -> SceneArrays:
-    """Upload a host ``FlatScene`` (``lens_flare_tpu.scene.build``)."""
+    """Upload a host ``FlatScene`` (:mod:`lens_flare_tpu_torch.scene.build`)."""
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)

@@ -3,12 +3,14 @@
 Counterpart of ``lens_flare_tpu/ops/intersect_pallas.py``.  The scene is the
 same two-level cluster tree (``accel/wide.py:WideBVH``), kept in the layout a
 thread wants to read: per-triangle rows ``tri`` (B1*B2*K, 12) =
-[p0 | e1 | e2 | pad], child boxes (B1*B2, 8), top boxes (B1, 8) and, for
-shade scenes, slot-ordered shading rows (B1*B2*K, 10).  The TPU layouts of
-``PallasScene`` (component-major planes, 128-padded boxes, HBM pages) were
-VMEM workarounds and are not carried over.
+[p0 | e1 | e2 | pad], child boxes (B1*B2, 8), top boxes (B1, 8), for
+shade scenes slot-ordered shading rows (B1*B2*K, 10) and, for mxu scenes,
+slot-major Möller-Trumbore coefficients (B1*B2*K, 4, 16) with the top
+centres (B1, 3).  The TPU layouts of ``PallasScene`` (component-major
+planes, 128-padded boxes, HBM pages, (16, B_nodes*128) coefficient lanes)
+were VMEM workarounds and are not carried over.
 
-Four kernels (``csrc/intersect.cu``), each with a plain PyTorch version
+Six kernels (``csrc/intersect.cu``), each with a plain PyTorch version
 beside it that computes the same function with the same arithmetic:
 
 ==  =====================  ===========================================  ==========================
@@ -18,7 +20,15 @@ A   lf_tree_closest        _make_kernel(any_hit=False) :214, :1392      :func:`t
 B   lf_tree_any_hit        _make_kernel(any_hit=True)  :214, :1392      :func:`tree_plain`
 C   lf_brute               _make_brute_kernel :877, :1292               :func:`brute_plain`
 D   lf_tree_closest_shade  _make_kernel(shade=True)    :214, :1392      ``tree_plain(shade=True)``
+E   lf_tree_closest_mxu    _make_kernel(mxu=True)      :214, :559       ``tree_plain(mxu=True)``
+F   lf_tree_group          _make_kernel(top_batch>1)   :214, :699       ``tree_plain(top_batch=tb)``
 ==  =====================  ===========================================  ==========================
+
+E (the coefficient walk) and F (the top-batched group walk, closest hit,
+any hit and shade) are reached only when a caller asks for them
+(``intersect(mxu=True)``, ``intersect(top_batch=tb)``), as in the JAX
+package, whose defaults are ``mxu=False`` and ``TOP_BATCH = 1``: the kernel
+bench (:mod:`lens_flare_tpu_torch.bench_kernels`) is their path.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
@@ -38,6 +48,13 @@ KINF = 3.0e38  # the kernels' "no hit yet" distance (intersect_pallas.INF)
 BRUTE_MAX_TRIS = 512
 BRUTE_TILE = 1024  # lanes per liveness group of kernel C (_auto_tile, brute)
 BRUTE_BLOCK = 64  # rows per tie-breaking block of kernel C's closest hit
+# lanes per tile of the group walk (F): the tile the TPU kernel saw, from
+# _auto_tile on multi-level VMEM trees (intersect_pallas.py:67-83); the tile
+# fixes the active-top list and, for any hit, when the walk stops.  Kernel F
+# takes it as an argument, one block per tile (:func:`group_tile`).
+GROUP_TILE = 512
+GROUP_TILE_ANY_HIT = 1024
+MXU_FEATURES = 10  # [1 | o-c | d | d x (o-c)]; the table pads to 16
 # The JAX package's routing thresholds (intersect_pallas.py:87, :105).  They
 # sized the TPU's VMEM; here they only decide, as there, which scenes take
 # the shade kernel D: the port keeps the tree in global memory either way,
@@ -71,8 +88,21 @@ KERNELS = {
         "tree_closest_hit_shade", "lf_tree_closest_shade",
         "lens_flare_tpu/ops/intersect_pallas.py:214",
     ),
+    "E": KernelInfo(
+        "tree_closest_hit_mxu", "lf_tree_closest_mxu",
+        "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
+    "F": KernelInfo(
+        "tree_group_walk", "lf_tree_group",
+        "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
 }
 KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
+
+
+def group_tile(any_hit: bool) -> int:
+    """Lanes per tile of the group walk: kernel F's block and its plain version's tile."""
+    return GROUP_TILE_ANY_HIT if any_hit else GROUP_TILE
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +122,8 @@ class CudaScene:
     tri_brute: torch.Tensor  # (S_pad, 9) real triangle rows (brute mode)
     brute_map: torch.Tensor  # (S_pad + max(S, 1),)
     slot_shade: torch.Tensor  # (B1*B2*K, 10) shading row per slot (shade), else (1, 10)
+    mxu_coef: torch.Tensor  # (B1*B2*K, 4, 16) [det | t.det | b1.det | b2.det] x features (mxu), else (1, 4, 16)
+    mxu_centers: torch.Tensor  # (B1, 3) per-top centre the features are taken about (mxu), else (1, 3)
     b1: int
     b2: int
     k: int
@@ -102,11 +134,12 @@ class CudaScene:
     s_real: int
     stream: bool = False  # the JAX package's HBM-streaming choice (routing only)
     shade: bool = False  # closest hits take kernel D
+    mxu: bool = False  # packed for the coefficient walk, kernel E
 
     @classmethod
     def from_wide_bvh(
         cls, wb, sph_center, sph_radius, num_tris: int, device,
-        shade_rows=None, force_stream=None, stream_shade=False,
+        shade_rows=None, force_stream=None, stream_shade=False, mxu=False,
     ):
         """Pack a WideBVH; every mode choice and map follows ``PallasScene``.
 
@@ -114,6 +147,8 @@ class CudaScene:
         with it, closest hits on mid-size multi-level scenes go through
         kernel D by ``PallasScene``'s predicate (``intersect_pallas.py:1112-1130``).
         ``force_stream`` and ``stream_shade`` only steer that routing.
+        ``mxu``: also pack the coefficient table of kernel E (VMEM-mode,
+        non-brute scenes with K = 32, as ``PallasScene(mxu=True)``).
         """
         dev = torch.device(device)
         n_sph = len(sph_center)
@@ -158,6 +193,14 @@ class CudaScene:
         if shade:
             real = wb.tri_id >= 0  # padding slots keep zero rows
             slot_shade[real] = np.asarray(shade_rows, np.float32)[wb.tri_id[real]]
+        mxu = bool(mxu) and not stream and not brute
+        if mxu:
+            if k != 32:
+                raise ValueError(f"the coefficient walk assumes K = 32, got {k}")
+            mxu_centers, mxu_coef = mxu_tables(wb)
+        else:
+            mxu_centers = np.zeros((1, 3), np.float32)
+            mxu_coef = np.zeros((1, 4, 16), np.float32)
 
         def t(a, dtype=np.float32):
             return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
@@ -171,6 +214,8 @@ class CudaScene:
             tri_brute=t(rows),
             brute_map=t(brute_map, np.int32),
             slot_shade=t(slot_shade),
+            mxu_coef=t(mxu_coef),
+            mxu_centers=t(mxu_centers),
             b1=b1,
             b2=b2,
             k=k,
@@ -181,7 +226,46 @@ class CudaScene:
             s_real=int(s_real),
             stream=bool(stream),
             shade=shade,
+            mxu=mxu,
         )
+
+
+def mxu_tables(wb):
+    """(centres (B1, 3), coefficients (B1*B2*K, 4, 16)) of the coefficient walk.
+
+    With the features f = [1 | o-c | d | g = d x (o-c)] of a ray about its
+    top's centre c, every Möller-Trumbore quantity is linear per slot:
+    det = d.(e2 x e1), t.det = (o-c).n - p0.n with n = e1 x e2,
+    b1.det = -g.e2 - d.(e2 x p0) and b2.det = g.e1 - d.(p0 x e1), with p0
+    re-centred on c.  Built in float64 exactly as ``PallasScene``
+    (``intersect_pallas.py:1175-1210``), then cast; rows are slot-major, so
+    one thread reads one slot's 256 bytes.
+    """
+    b1, b2, k = int(wb.b1), int(wb.b2), int(wb.k)
+    n_nodes = b1 * b2
+    soa = wb.tri_soa.reshape(n_nodes, k, 12)
+    if b1 > 1:
+        tb = np.asarray(wb.top_boxes, np.float64)
+        centers = (tb[:, 0:3] + tb[:, 3:6]) / 2.0
+    else:
+        cbx = np.asarray(wb.child_boxes, np.float64)
+        ok = cbx[:, 0] <= cbx[:, 3]
+        centers = (
+            (cbx[ok, 0:3].min(axis=0) + cbx[ok, 3:6].max(axis=0)) / 2.0 if ok.any() else np.zeros(3)
+        )[None]
+    p0 = soa[:, :, 0:3].astype(np.float64) - np.repeat(centers, b2, axis=0)[:, None, :]
+    e1 = soa[:, :, 3:6].astype(np.float64)
+    e2 = soa[:, :, 6:9].astype(np.float64)
+    n_vec = np.cross(e1, e2)
+    c = np.zeros((n_nodes, k, 4, 16), np.float64)
+    c[:, :, 0, 4:7] = np.cross(e2, e1)  # det <- d
+    c[:, :, 1, 0] = -np.einsum("nkc,nkc->nk", p0, n_vec)  # t.det constant
+    c[:, :, 1, 1:4] = n_vec  # t.det <- o - c
+    c[:, :, 2, 4:7] = -np.cross(e2, p0)  # b1.det <- d
+    c[:, :, 2, 7:10] = -e2  # b1.det <- g
+    c[:, :, 3, 4:7] = -np.cross(p0, e1)  # b2.det <- d
+    c[:, :, 3, 7:10] = e1  # b2.det <- g
+    return centers.astype(np.float32), c.reshape(n_nodes * k, 4, 16).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +279,12 @@ def _safe_inv(d):
 
 
 def _box_hits(boxes, o, inv, t_lo, t_hi):
-    """Slab tests of rays (N,) against boxes (B, 8) -> (N, B) bool."""
+    """Slab tests of rays (N,) against boxes (B, 8), or per-ray boxes (N, B, 8) -> (N, B) bool."""
+    bx = boxes if boxes.dim() == 3 else boxes[None]
     t_min = t_max = None
     for a in range(3):
-        t1 = (boxes[None, :, a] - o[:, a, None]) * inv[:, a, None]
-        t2 = (boxes[None, :, 3 + a] - o[:, a, None]) * inv[:, a, None]
+        t1 = (bx[..., a] - o[:, a, None]) * inv[:, a, None]
+        t2 = (bx[..., 3 + a] - o[:, a, None]) * inv[:, a, None]
         lo = torch.minimum(t1, t2)
         hi = torch.maximum(t1, t2)
         t_min = torch.clamp_min(lo, -KINF) if t_min is None else torch.maximum(t_min, lo)
@@ -256,6 +341,37 @@ def _closest_terms(det, tt_n, bb1_n, bb2_n, t_lo, limit):
     return valid, tt, b1, b2
 
 
+def _mxu_features(o, d, c):
+    """Features [1 | o-c | d | g = d x (o-c)] (N, 10) of rays about a top centre c (3,).
+
+    Each component of g is rounded as ``mxu_fmat`` writes it
+    (``intersect_pallas.py:322-326``): two products, then their difference.
+    """
+    oc = o - c
+    g = [
+        d[:, 1] * oc[:, 2] - d[:, 2] * oc[:, 1],
+        d[:, 2] * oc[:, 0] - d[:, 0] * oc[:, 2],
+        d[:, 0] * oc[:, 1] - d[:, 1] * oc[:, 0],
+    ]
+    return torch.stack([torch.ones_like(oc[:, 0]), oc[:, 0], oc[:, 1], oc[:, 2],
+                        d[:, 0], d[:, 1], d[:, 2], *g], dim=1)
+
+
+def _mxu_terms(coef, f):
+    """(det, t.det, b1.det, b2.det) (P, K) from slot coefficients (P, K, 4, 16) and features (P, 10).
+
+    Each is a dot product over the ten features, summed in order 0 -> 9 from
+    the first product, as kernel E sums them.
+    """
+    out = []
+    for j in range(4):
+        acc = coef[..., j, 0] * f[:, None, 0]
+        for q in range(1, MXU_FEATURES):
+            acc = acc + coef[..., j, q] * f[:, None, q]
+        out.append(acc)
+    return out
+
+
 def _sphere_pass(cs: CudaScene, o, d, t_lo, t_hi, best_t, slot, tests, base_slot):
     """Brute quadratic per sphere, then +n_spheres tests (intersect_pallas.py:840)."""
     for s in range(cs.n_spheres):
@@ -290,30 +406,82 @@ def _init_outputs(n, device):
     )
 
 
-def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool, shade: bool = False):
-    """Plain version of kernels A, B and D: returns (t, slot, bary (N, 2), tests).
+def _commit_closest(best_t, slot, bary, gl, batch, node, k, terms, t_lo, t_hi):
+    """Closest-hit update from (lane gl, chunk node) pairs whose batch order is ``batch``.
+
+    The chunk batches of one top (or group) resolved in one vectorized step:
+    the minimum t over the pairs wins if it beats the running best, from the
+    earliest batch that reaches it, with the max slot id and barycentrics
+    among the slots tied there — what the sequential per-batch update with
+    the running limit min(t_hi, best_t) computes.
+    """
+    n = best_t.shape[0]
+    dev = best_t.device
+    valid, tt, bb1, bb2 = _closest_terms(*terms, t_lo[gl, None], t_hi[gl, None])
+    tm = torch.where(valid, tt, KINF)
+    pair_min = tm.min(dim=1).values  # (P,)
+    lane_min = torch.full((n,), KINF, device=dev).scatter_reduce(0, gl, pair_min, "amin")
+    cand = pair_min == lane_min[gl]
+    big = torch.iinfo(torch.int64).max
+    key = torch.where(cand, batch, big)
+    lane_batch = torch.full((n,), big, device=dev).scatter_reduce(0, gl, key, "amin")
+    win = cand & (batch == lane_batch[gl])
+    is_best = valid & (tt == lane_min[gl, None]) & win[:, None]
+    ids = (node * k).to(torch.int32)[:, None] + torch.arange(k, dtype=torch.int32, device=dev)
+    pid = torch.where(is_best, ids, -1).max(dim=1).values
+    pb1 = torch.where(is_best, bb1, -KINF).max(dim=1).values
+    pb2 = torch.where(is_best, bb2, -KINF).max(dim=1).values
+    new_slot = torch.full((n,), -1, dtype=torch.int32, device=dev).scatter_reduce(0, gl, pid, "amax")
+    new_b1 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb1, "amax")
+    new_b2 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb2, "amax")
+    improved = lane_min < best_t
+    best_t = torch.where(improved, lane_min, best_t)
+    slot = torch.where(improved, new_slot, slot)
+    bary = torch.where(improved[:, None], torch.stack([new_b1, new_b2], dim=1), bary)
+    return best_t, slot, bary
+
+
+def _finish(cs: CudaScene, o, d, t_lo, t_hi, best_t, slot, bary, tests, occluded, any_hit, shade):
+    """Any-hit marker, D's shading rows (taken before the spheres), then the sphere pass."""
+    if any_hit:
+        slot = torch.where(occluded, 0, slot)
+    if shade:
+        rows = torch.where(
+            (slot >= 0)[:, None], cs.slot_shade[torch.clamp_min(slot, 0).long()], 0.0
+        )
+    best_t, slot, tests = _sphere_pass(cs, o, d, t_lo, t_hi, best_t, slot, tests, cs.b1 * cs.b2 * cs.k)
+    if shade:
+        return best_t, slot, bary, tests, rows
+    return best_t, slot, bary, tests
+
+
+def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool, shade: bool = False,
+               mxu: bool = False, top_batch: int = 1):
+    """Plain version of kernels A, B, D, E and F: returns (t, slot, bary (N, 2), tests).
 
     ``shade`` (kernel D, closest hit on a shade scene): chunk batch 1, and a
     fifth output, the (N, 10) shading row of the best triangle slot taken
     before the sphere pass (zeros where no triangle was hit).
+    ``mxu`` (kernel E, closest hit on an mxu scene): chunk batch 1, and the
+    Möller-Trumbore numerators come from the slot coefficients and the
+    features about the top's centre.  ``top_batch`` > 1 (kernel F): the
+    group walk of :func:`_group_plain`.
 
     Lanes walk the tops in ascending order.  Within one top the chunk mask
-    is fixed by the clipped interval at the top's start, and the chunk
-    batches are resolved in one vectorized step: the top's minimum t wins if
-    it beats the running best, from the earliest batch that reaches it, with
-    the max slot id and barycentrics among the slots tied there — what the
-    sequential per-batch update computes.
+    is fixed by the clipped interval at the top's start (:func:`_commit_closest`).
     """
+    if top_batch > 1:
+        return _group_plain(cs, o, d, t_lo, t_hi, any_hit, shade, top_batch)
     n = o.shape[0]
     dev = o.device
     best_t, slot, bary, tests = _init_outputs(n, dev)
     occluded = torch.zeros(n, dtype=torch.bool, device=dev)
     b1, b2, k = cs.b1, cs.b2, cs.k
-    cb = 2 if (b1 == 1 and not any_hit and not shade) else 1  # _auto_chunk_batch
+    cb = 2 if (b1 == 1 and not any_hit and not shade and not mxu) else 1  # _auto_chunk_batch
     inv = _safe_inv(d)
     child = cs.child.view(b1, b2, 8)
     tri = cs.tri.view(b1, b2, k, 12)
-    slot_k = torch.arange(k, dtype=torch.int32, device=dev)
+    coef = cs.mxu_coef.view(b1, b2, k, 4, 16) if mxu else None
 
     for tp in range(b1):
         t_clip = torch.where(occluded, 0.0, t_hi) if any_hit else torch.minimum(t_hi, best_t)
@@ -331,48 +499,96 @@ def tree_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool, shade: bool = Fal
         if pl_.numel() == 0:
             continue
         gl = lanes[pl_]
-        rows = tri[tp, pc]  # (P, K, 12)
-        det, tt_n, bb1_n, bb2_n = _mt_terms(rows, o[gl, None, :], d[gl, None, :])
+        if mxu:
+            terms = _mxu_terms(coef[tp, pc], _mxu_features(o[gl], d[gl], cs.mxu_centers[tp]))
+        else:
+            terms = _mt_terms(tri[tp, pc], o[gl, None, :], d[gl, None, :])
         if any_hit:
-            hit = _occludes(det, tt_n, bb1_n, bb2_n, t_lo[gl, None], t_hi[gl, None]).any(dim=1)
+            hit = _occludes(*terms, t_lo[gl, None], t_hi[gl, None]).any(dim=1)
             occluded[gl[hit]] = True
             continue
-        valid, tt, bb1, bb2 = _closest_terms(det, tt_n, bb1_n, bb2_n, t_lo[gl, None], t_hi[gl, None])
-        tm = torch.where(valid, tt, KINF)
-        pair_min = tm.min(dim=1).values  # (P,)
-        lane_min = torch.full((n,), KINF, device=dev).scatter_reduce(0, gl, pair_min, "amin")
-        if cb == 1:
-            batch = pc
-        else:
-            batch = ((ch.cumsum(dim=1) - 1) // cb)[pl_, pc]
-        cand = pair_min == lane_min[gl]
-        big = torch.iinfo(torch.int64).max
-        key = torch.where(cand, batch, big)
-        lane_batch = torch.full((n,), big, device=dev).scatter_reduce(0, gl, key, "amin")
-        win = cand & (batch == lane_batch[gl])
-        is_best = valid & (tt == lane_min[gl, None]) & win[:, None]
-        ids = ((tp * b2 + pc) * k).to(torch.int32)[:, None] + slot_k
-        pid = torch.where(is_best, ids, -1).max(dim=1).values
-        pb1 = torch.where(is_best, bb1, -KINF).max(dim=1).values
-        pb2 = torch.where(is_best, bb2, -KINF).max(dim=1).values
-        new_slot = torch.full((n,), -1, dtype=torch.int32, device=dev).scatter_reduce(0, gl, pid, "amax")
-        new_b1 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb1, "amax")
-        new_b2 = torch.full((n,), -KINF, device=dev).scatter_reduce(0, gl, pb2, "amax")
-        improved = lane_min < best_t
-        best_t = torch.where(improved, lane_min, best_t)
-        slot = torch.where(improved, new_slot, slot)
-        bary = torch.where(improved[:, None], torch.stack([new_b1, new_b2], dim=1), bary)
-
-    if any_hit:
-        slot = torch.where(occluded, 0, slot)
-    if shade:
-        rows = torch.where(
-            (slot >= 0)[:, None], cs.slot_shade[torch.clamp_min(slot, 0).long()], 0.0
+        batch = pc if cb == 1 else ((ch.cumsum(dim=1) - 1) // cb)[pl_, pc]
+        best_t, slot, bary = _commit_closest(
+            best_t, slot, bary, gl, batch, tp * b2 + pc, k, terms, t_lo, t_hi
         )
-    best_t, slot, tests = _sphere_pass(cs, o, d, t_lo, t_hi, best_t, slot, tests, b1 * b2 * k)
-    if shade:
-        return best_t, slot, bary, tests, rows
-    return best_t, slot, bary, tests
+    return _finish(cs, o, d, t_lo, t_hi, best_t, slot, bary, tests, occluded, any_hit, shade)
+
+
+def _group_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool, shade: bool, tb: int):
+    """Plain version of kernel F: the top-batched group walk (``intersect_pallas.py:699-816``).
+
+    Rays go in tiles of :func:`group_tile` lanes, as the TPU kernel's grid
+    saw them.  A tile's active tops are those any of its lanes hits under
+    [t_lo, t_hi], tail padding lanes included (o = d = 0, t_lo = t_hi = 0,
+    ``intersect_pallas.py:1435-1440``), in ascending order.  Each lane walks
+    that list in groups of ``tb`` tops: the clip interval is fixed at the
+    group's start (min(t_hi, best_t), or [t_lo, 0] once occluded), K tests
+    are charged for each of the group's child boxes hit under it, and the
+    group's chunks resolve in group order (tops in list order, children
+    ascending).  Any hit: a tile stops before a group once every lane is
+    occluded or dead (t_hi <= t_lo).
+    """
+    n = o.shape[0]
+    dev = o.device
+    b1, b2, k = cs.b1, cs.b2, cs.k
+    tile = group_tile(any_hit)
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    pad_rows = torch.nn.functional.pad
+    top_hits = _box_hits(
+        cs.top, pad_rows(o, (0, 0, 0, pad)), _safe_inv(pad_rows(d, (0, 0, 0, pad))),
+        pad_rows(t_lo, (0, pad)), pad_rows(t_hi, (0, pad)),
+    )
+    flags = top_hits.view(n_tiles, tile, b1).any(dim=1)  # (T, B1)
+    # each tile's active tops in ascending order, then b1 as "none"
+    tops = torch.where(flags, torch.arange(b1, device=dev), b1).sort(dim=1).values
+    n_groups = (flags.sum(dim=1) + tb - 1) // tb
+    lane_tile = torch.arange(n, device=dev) // tile
+
+    best_t, slot, bary, tests = _init_outputs(n, dev)
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead = t_hi <= t_lo
+    inv = _safe_inv(d)
+    child = cs.child.view(b1, b2, 8)
+    tri = cs.tri.view(b1 * b2, k, 12)
+    walking = torch.ones(n_tiles, dtype=torch.bool, device=dev)
+    for g in range(int(n_groups.max()) if n_tiles else 0):
+        walking = walking & (g < n_groups)
+        if any_hit:  # the while_loop's exit test, before each group
+            done = pad_rows(occluded | dead, (0, pad), value=True).view(n_tiles, tile).all(dim=1)
+            walking = walking & ~done
+        if not bool(walking.any()):
+            break
+        t_clip = torch.where(occluded, 0.0, t_hi) if any_hit else torch.minimum(t_hi, best_t)
+        parts = []
+        for u in range(min(tb, b1 - g * tb)):
+            tl = torch.where(walking, tops[:, g * tb + u], b1)[lane_tile]  # (n,) this lane's top
+            lanes = (tl < b1).nonzero()[:, 0]
+            tp = tl[lanes]
+            # children lie inside their top's box, so a lane that misses the
+            # top box under the clip misses every child: skip it
+            keep = _box_hits(cs.top[tp][:, None, :], o[lanes], inv[lanes], t_lo[lanes], t_clip[lanes])[:, 0]
+            lanes, tp = lanes[keep], tp[keep]
+            if lanes.numel() == 0:
+                continue
+            ch = _box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_clip[lanes])  # (L, B2)
+            tests.index_add_(0, lanes, (k * ch.sum(dim=1)).to(torch.int32))
+            if any_hit:
+                ch = ch & ~occluded[lanes, None]
+            pl_, pc = ch.nonzero(as_tuple=True)
+            parts.append((lanes[pl_], tp[pl_] * b2 + pc, u * b2 + pc))
+        if not parts:
+            continue
+        gl, node, batch = (torch.cat(x) for x in zip(*parts))
+        if gl.numel() == 0:
+            continue
+        terms = _mt_terms(tri[node], o[gl, None, :], d[gl, None, :])
+        if any_hit:
+            hit = _occludes(*terms, t_lo[gl, None], t_hi[gl, None]).any(dim=1)
+            occluded[gl[hit]] = True
+        else:
+            best_t, slot, bary = _commit_closest(best_t, slot, bary, gl, batch, node, k, terms, t_lo, t_hi)
+    return _finish(cs, o, d, t_lo, t_hi, best_t, slot, bary, tests, occluded, any_hit, shade)
 
 
 def brute_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
@@ -436,7 +652,7 @@ def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
         raise ValueError(f"scene is on {cs.tri.device}, rays on {o.device}")
 
 
-def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
+def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 1, shade: bool = False):
     from ._build import load_library
 
     lib = load_library()
@@ -448,8 +664,12 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
         torch.empty((n, 2), dtype=torch.float32, device=o.device),
         torch.empty((n,), dtype=torch.int32, device=o.device),
     )
+    shade = shade or key == "D"
+    out_rows = torch.empty((n, 10), dtype=torch.float32, device=o.device) if shade else None
     rays = [o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr()]
     outs = [out_t.data_ptr(), out_slot.data_ptr(), out_bary.data_ptr(), out_tests.data_ptr()]
+    tree = [cs.top.data_ptr(), cs.child.data_ptr()]
+    shape = [n, cs.b1, cs.b2, cs.k, cs.n_spheres]
     stream = torch.cuda.current_stream(o.device).cuda_stream
     if key == "C":
         rc = lib.lf_brute(
@@ -458,37 +678,40 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
         )
     elif key == "A":
         cb = 2 if cs.b1 == 1 else 1  # _auto_chunk_batch
-        rc = lib.lf_tree_closest(
-            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
-            n, cs.b1, cs.b2, cs.k, cs.n_spheres, cb, *outs, stream,
-        )
+        rc = lib.lf_tree_closest(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, cb, *outs, stream)
     elif key == "D":
-        out_rows = torch.empty((n, 10), dtype=torch.float32, device=o.device)
         rc = lib.lf_tree_closest_shade(
-            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(),
-            cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
-            n, cs.b1, cs.b2, cs.k, cs.n_spheres, *outs, out_rows.data_ptr(), stream,
+            *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
+            *shape, *outs, out_rows.data_ptr(), stream,
+        )
+    elif key == "E":
+        rc = lib.lf_tree_closest_mxu(
+            *rays, *tree, cs.mxu_coef.data_ptr(), cs.mxu_centers.data_ptr(), cs.sph.data_ptr(),
+            *shape, *outs, stream,
+        )
+    elif key == "F":
+        rc = lib.lf_tree_group(
+            *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
+            *shape, tb, group_tile(not closest), int(not closest), int(shade), *outs,
+            out_rows.data_ptr() if shade else None, stream,
         )
     else:
-        rc = lib.lf_tree_any_hit(
-            *rays, cs.top.data_ptr(), cs.child.data_ptr(), cs.tri.data_ptr(), cs.sph.data_ptr(),
-            n, cs.b1, cs.b2, cs.k, cs.n_spheres, *outs, stream,
-        )
+        rc = lib.lf_tree_any_hit(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, *outs, stream)
     if rc != 0:
         raise RuntimeError(f"kernel {KERNELS[key].symbol} failed to launch: cudaError {rc}")
     KERNELS[key].launches += 1
-    if key == "D":
+    if shade:
         return out_t, out_slot, out_bary, out_tests, out_rows
     return out_t, out_slot, out_bary, out_tests
 
 
-def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool):
+def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, **kw):
     _check_rays(cs, o, d, t_lo, t_hi)
     if o.device.type == "cpu":
         return plain()
     if o.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.device}")
-    return _launch(key, cs, o, d, t_lo, t_hi, closest)
+    return _launch(key, cs, o, d, t_lo, t_hi, closest, **kw)
 
 
 def tree_closest_hit(cs: CudaScene, o, d, t_lo, t_hi):
@@ -508,6 +731,32 @@ def tree_closest_shade(cs: CudaScene, o, d, t_lo, t_hi):
     )
 
 
+def tree_closest_mxu(cs: CudaScene, o, d, t_lo, t_hi):
+    """Kernel E, the coefficient walk (CUDA tensors), or its plain version (CPU tensors)."""
+    if not cs.mxu:
+        raise ValueError("scene was not packed with mxu=True for kernel E")
+    return _dispatch(
+        "E", lambda: tree_plain(cs, o, d, t_lo, t_hi, False, mxu=True), cs, o, d, t_lo, t_hi, True
+    )
+
+
+def tree_group(cs: CudaScene, o, d, t_lo, t_hi, top_batch: int, any_hit: bool = False, shade: bool = False):
+    """Kernel F, the group walk of ``top_batch`` tops (CUDA tensors), or its plain version (CPU tensors).
+
+    Multi-level, non-stream scenes only, with 2 <= top_batch <= B1.
+    ``shade`` (closest hit on a shade scene) appends D's (N, 10) rows.
+    """
+    if not (cs.b1 > 1 and not cs.stream and 2 <= top_batch <= cs.b1):
+        raise ValueError(f"the group walk needs a multi-level VMEM-mode tree and 2 <= top_batch <= B1, "
+                         f"got B1={cs.b1}, stream={cs.stream}, top_batch={top_batch}")
+    if shade and (any_hit or not cs.shade):
+        raise ValueError("the shade group walk needs a shade scene and closest hit")
+    return _dispatch(
+        "F", lambda: tree_plain(cs, o, d, t_lo, t_hi, any_hit, shade=shade, top_batch=top_batch),
+        cs, o, d, t_lo, t_hi, not any_hit, tb=top_batch, shade=shade,
+    )
+
+
 def tree_any_hit(cs: CudaScene, o, d, t_lo, t_hi):
     """Kernel B (CUDA tensors) or its plain version (CPU tensors)."""
     return _dispatch("B", lambda: tree_plain(cs, o, d, t_lo, t_hi, True), cs, o, d, t_lo, t_hi, False)
@@ -522,7 +771,8 @@ def brute_hit(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
     )
 
 
-def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None, return_shade: bool = False):
+def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None,
+              return_shade: bool = False, top_batch=None, mxu: bool = False):
     """Rays (N, 3) -> (t, prim, b1, b2, hit, tests), the ``intersect_pallas`` contract.
 
     ``brute=None`` takes kernel C for any-hit queries on brute-mode scenes
@@ -533,17 +783,33 @@ def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None
     D and append the winner's shading row, (N, 10) row-major [9 corner-normal
     components | bsdf id] — the transpose of the JAX package's (10, N)
     ``shade_cm``.  Where a sphere wins, the row is the best triangle's.
+
+    ``mxu`` (requires ``cs.mxu``, plain closest hit): the coefficient walk,
+    kernel E.  ``top_batch``: tops per group of the group walk, kernel F;
+    None means 1 (the JAX package's ``TOP_BATCH``), and it clamps to 1 on
+    single-level and stream scenes (``intersect_pallas.py:1316``) and under
+    ``mxu``, where the call takes A, B or D.
     """
     brute = (cs.brute and any_hit) if brute is None else (bool(brute) and cs.brute)
     shade = bool(return_shade) and cs.shade and not any_hit and not brute
     if return_shade and not shade:
         raise ValueError("return_shade requires a shade scene and closest hit")
-    if shade:
-        t, slot, bary, tests, rows = tree_closest_shade(cs, o, d, t_lo, t_hi)
-    elif brute:
+    if mxu and not (cs.mxu and not any_hit and not brute and not shade):
+        raise ValueError("mxu requires a scene packed with mxu=True and plain closest hit")
+    tb = 1 if (top_batch is None or mxu) else int(top_batch)
+    tb = max(1, min(tb, cs.b1)) if (cs.b1 > 1 and not cs.stream) else 1
+    if brute:
         t, slot, bary, tests = brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
+    elif tb > 1:
+        out = tree_group(cs, o, d, t_lo, t_hi, tb, any_hit=any_hit, shade=shade)
+        t, slot, bary, tests = out[:4]
+        rows = out[4] if shade else None
+    elif shade:
+        t, slot, bary, tests, rows = tree_closest_shade(cs, o, d, t_lo, t_hi)
     elif any_hit:
         t, slot, bary, tests = tree_any_hit(cs, o, d, t_lo, t_hi)
+    elif mxu:
+        t, slot, bary, tests = tree_closest_mxu(cs, o, d, t_lo, t_hi)
     else:
         t, slot, bary, tests = tree_closest_hit(cs, o, d, t_lo, t_hi)
     hit = slot >= 0

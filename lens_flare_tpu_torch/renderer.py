@@ -20,10 +20,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from lens_flare_tpu.accel.wide import build_wide_bvh
-from lens_flare_tpu.scene.build import FlatScene
-
 from . import _rng
+from .accel.wide import build_wide_bvh
 from .integrator.lights import lights_to_device
 from .integrator.path import (
     BokehMask,
@@ -38,6 +36,7 @@ from .integrator.shading import bsdf_to_device
 from .lens.aperture import ApertureTexture
 from .ops.intersect import scene_to_device, shade_rows
 from .ops.intersect_cuda import CudaScene
+from .scene.build import FlatScene
 from .scene.camera import Camera, camera_params, generate_rays
 from .utils import image as img
 

@@ -1,10 +1,9 @@
-"""PNG output without PIL.
+"""Image transforms and PNG output without PIL.
 
-Counterpart of the writers in ``lens_flare_tpu/utils/image.py``, whose
-NumPy transforms (``to_color``: the reference's gamma 2.2 / exposure
-transform, ``sampling_rate_heatmap``) are imported as they are.  PNGs are
-written with ``zlib`` and ``struct`` from the standard library, so the port
-needs no imaging package.
+Counterpart of ``lens_flare_tpu/utils/image.py``: NumPy copies of
+``to_color`` (the reference's gamma 2.2 / exposure transform) and
+``sampling_rate_heatmap``, and PNG writers built on ``zlib`` and ``struct``
+from the standard library, so the port needs no imaging package.
 """
 
 from __future__ import annotations
@@ -14,7 +13,34 @@ import zlib
 
 import numpy as np
 
-from lens_flare_tpu.utils.image import sampling_rate_heatmap, to_color  # noqa: F401
+GAMMA = 2.2
+LEVEL = 1.0
+# exposure = sqrt(2^level), image.h:212-213
+EXPOSURE = float(np.sqrt(2.0 ** LEVEL))
+
+
+def to_color(hdr: np.ndarray) -> np.ndarray:
+    """HDR film -> [0,1] LDR, matching ``HDRImageBuffer::toColor`` (image.h:208-223).
+
+    out = clamp((c * exposure) ** (1/gamma), 0, 1) with gamma=2.2, exposure=sqrt(2).
+    """
+    scaled = np.maximum(hdr * EXPOSURE, 0.0)
+    return np.clip(scaled ** (1.0 / GAMMA), 0.0, 1.0)
+
+
+def sampling_rate_heatmap(sample_counts: np.ndarray, max_samples: int) -> np.ndarray:
+    """Sampling-rate image, matching ``save_sampling_rate`` (raytraced_renderer.cpp:757-788).
+
+    Blue (low) -> green (mid) -> red (high) ramp over rate = count/max.
+    """
+    rate = np.asarray(sample_counts, dtype=np.float32) / float(max_samples)
+    h, w = rate.shape
+    out = np.zeros((h, w, 3), dtype=np.float32)
+    lo = rate <= 0.5
+    out[..., 0] = np.where(lo, 0.0, (rate - 0.5) * 2.0)
+    out[..., 1] = np.where(lo, rate * 2.0, 1.0 - (rate - 0.5) * 2.0)
+    out[..., 2] = np.where(lo, 1.0 - rate * 2.0, 0.0)
+    return np.clip(out, 0.0, 1.0)
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:

@@ -1,4 +1,7 @@
-"""Kernels A, B and C: plain PyTorch versions against the Pallas kernels.
+"""Kernels A-F: plain PyTorch versions against the Pallas kernels, and on the card.
+
+Kernels E and F are held to the Pallas kernels in ``test_torch_mxu.py`` and
+``test_torch_group_walk.py``; here they have their GPU-marked cases.
 
 The JAX side runs ``intersect_pallas(..., interpret=True)``, as the JAX
 package's own tests do on the CPU; the port runs the plain version of each
@@ -19,7 +22,9 @@ Tolerances and why:
 
 The CUDA case compares each kernel with its plain version on the card,
 where both round alike (the kernels are built with --fmad=false): there the
-outputs must be equal.  The card's machine has no JAX, so that case runs
+outputs must be equal.  E's hits are also held to A's (t within rtol 1e-3:
+its affine forms cancel), and F's t, slots, barycentrics, hits and rows to
+A's, B's and D's exactly.  The card's machine has no JAX, so that case runs
 there without this repository's conftest:
 ``python -m pytest --noconftest -m gpu tests/test_torch_intersect.py``.
 """
@@ -230,3 +235,61 @@ def test_shade_kernel_matches_plain_on_card(nq, n_sph, cuda_device):
         assert torch.equal(g, w)
     for g, a in zip(got, ic.tree_closest_hit(cs, o, d, t_lo, t_hi)):
         assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,shape", [(64, (8, 32, 32)), (20, ())], ids=["terrain64_8x32x32", "terrain20"])
+def test_mxu_kernel_matches_plain_on_card(nq, shape, cuda_device):
+    """Kernel E equals its plain version on the card; it finds kernel A's hits."""
+    scene = make_terrain_scene(nq)
+    none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    cs = cuda_scene_from_wide_bvh(
+        build_wide_bvh(scene.tri_p, *shape), *none, scene.num_triangles, cuda_device, mxu=True
+    )
+    assert cs.mxu
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    before = ic.KERNELS["E"].launches
+    got = ic.tree_closest_mxu(cs, o, d, t_lo, t_hi)
+    torch.cuda.synchronize()
+    assert ic.KERNELS["E"].launches == before + 1
+    for g, w in zip(got, ic.tree_plain(cs, o, d, t_lo, t_hi, False, mxu=True)):
+        assert torch.equal(g, w)
+    a = ic.tree_closest_hit(cs, o, d, t_lo, t_hi)
+    hit = got[1] >= 0
+    assert torch.equal(hit, a[1] >= 0) and torch.equal(got[1][hit], a[1][hit])
+    assert torch.allclose(got[0][hit], a[0][hit], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 1500], ids=["whole_tiles", "ragged"])
+@pytest.mark.parametrize("tb", [2, 4])
+def test_group_kernel_matches_plain_on_card(tb, n, cuda_device):
+    """Kernel F (closest, any hit, shade) equals its plain version; its hits equal A's, B's and D's."""
+    scene = make_terrain_scene(40)
+    rows = np.concatenate(
+        [np.asarray(scene.tri_n, np.float32).reshape(-1, 9),
+         np.asarray(scene.tri_bsdf, np.float32).reshape(-1, 1)], axis=1,
+    )
+    sc, sr = _spheres(3)
+    cs = cuda_scene_from_wide_bvh(
+        build_wide_bvh(scene.tri_p), sc, sr, scene.num_triangles, cuda_device, shade_rows=rows
+    )
+    assert cs.shade and cs.b1 > 1 and not cs.stream
+    o, d, t_lo, t_hi = (torch.from_numpy(x[:n]).to(cuda_device) for x in _rays(scene))
+    t_lo = torch.where(torch.arange(n, device=cuda_device) % 5 == 0, 0.0, t_lo)  # occluded lanes stay charged
+    for any_hit, shade, base in (
+        (False, False, ic.tree_closest_hit), (True, False, ic.tree_any_hit), (False, True, ic.tree_closest_shade),
+    ):
+        before = ic.KERNELS["F"].launches
+        got = ic.tree_group(cs, o, d, t_lo, t_hi, tb, any_hit=any_hit, shade=shade)
+        torch.cuda.synchronize()
+        assert ic.KERNELS["F"].launches == before + 1
+        want = ic.tree_plain(cs, o, d, t_lo, t_hi, any_hit, shade=shade, top_batch=tb)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (any_hit, shade)
+        ref = base(cs, o, d, t_lo, t_hi)
+        for j, (g, w) in enumerate(zip(got, ref)):
+            if j != 3:  # tests: the clip is fixed per group
+                assert torch.equal(g, w), (any_hit, shade, j)
+        if not any_hit:  # a clip fixed per group is never tighter than per top
+            assert (got[3] >= ref[3]).all()
