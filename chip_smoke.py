@@ -10,10 +10,14 @@ raises, so the script exits non-zero and prints no result):
 1. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version on the card, on terrain
    scenes of 128, 3,200, 131,072 and 524,288 triangles with camera, bounce
-   and shadow rays, plus each one's time beside the plain version's at 64k
-   lanes; kernel D (closest hit plus shading rows, on the two mid-size
-   scenes) is also held to kernel A's outputs and timed against A plus
-   ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2 and
+   and shadow rays of random pixels, plus each one's time beside the plain
+   version's at 64k lanes; B and D (the warp-per-ray walk) must equal their
+   plain versions bit for bit on every set, and are also timed on the first
+   64k pixels in the renderer's 32x32-block order (D camera and bounce on
+   131,072 triangles, B shadow on 131,072 and 524,288) and B on the
+   131,072-triangle shadow rays; kernel D (closest hit plus shading rows,
+   on the two mid-size scenes) is also held to kernel A's outputs and timed
+   against A plus ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2 and
    4, closest hit, any hit and shade) on the two mid-size scenes, exactly
    against its plain version and against A, B and D; kernel E (the
    coefficient walk) on the exact-fit trees of 8,192 and 32,768 triangles,
@@ -73,47 +77,30 @@ TRI_ROW_BYTES = 36
 MXU_ROW_BYTES = 160
 CENTER_BYTES = 12
 SHADE_ROW_BYTES = 40
-# (kernel, rays, terrain n_quads) of phase 2 that are timed -> their label
+# (kernel, rays, terrain n_quads) of phase 2 that are timed -> their label;
+# "random" rays are LANES random pixels of the 1920x1080 film, "blocked" the
+# first LANES pixels in the renderer's 32x32-block order
 TIMED = {
     ("A", "camera", 512): "A", ("B", "shadow", 512): "B", ("C", "shadow", 8): "C",
     ("D", "camera", 256): "D", ("A", "camera", 256): "A_vmem", ("C", "camera", 8): "C_closest",
+    ("B", "shadow", 256): "B_t256",
+    ("D", "camera_blocked", 256): "D_blocked_camera", ("D", "bounce_blocked", 256): "D_blocked_bounce",
+    ("B", "shadow_blocked", 256): "B_blocked_t256", ("B", "shadow_blocked", 512): "B_blocked",
 }
+# the kernels line: each kernel at its PERF.md table shape, then D's and B's other timed shapes
+LINE_CASES = {
+    "A": "terrain512_camera_random", "B": "terrain512_shadow_random", "C": "terrain8_shadow_random",
+    "D": "terrain256_camera_random", "E": "bench_terrain128_bounce", "F": "bench_terrain256_bounce_tb2",
+    "B_t256": "terrain256_shadow_random", "D_blocked_camera": "terrain256_camera_blocked",
+    "D_blocked_bounce": "terrain256_bounce_blocked", "B_blocked_t256": "terrain256_shadow_blocked",
+    "B_blocked": "terrain512_shadow_blocked",
+}
+BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
 
 
 def phase(title, t0, **numbers):
     fields = " ".join(f"{k}={v}" for k, v in numbers.items())
     print(f"[{title}] {fields} seconds={time.perf_counter() - t0:.3f}", flush=True)
-
-
-def make_rays(r, n, gen):
-    """Camera, bounce and shadow rays (with dead lanes) for a built Renderer."""
-    import torch
-
-    from lens_flare_tpu_torch.integrator.path import EPS_F, _offset_origin, trace_closest
-    from lens_flare_tpu_torch.scene.camera import camera_params, generate_rays
-
-    dev = torch.device(r.device)
-    cam = camera_params(r.camera, dev)
-    x = torch.rand(n, device=dev, generator=gen)
-    y = torch.rand(n, device=dev, generator=gen)
-    o, d = generate_rays(cam, x, y)
-    o = o.contiguous()
-    cam_rays = (o, d, cam.n_clip.expand(n).contiguous(), cam.f_clip.expand(n).contiguous())
-    hit, _ = trace_closest(r.bundle, *cam_rays)
-    p = o + d * torch.where(hit.hit, hit.t, 0.0)[:, None]
-    nrm = torch.where(hit.hit[:, None], hit.n, torch.tensor([0.0, 0.0, 1.0], device=dev))
-    w = torch.nn.functional.normalize(nrm + torch.nn.functional.normalize(
-        torch.randn(n, 3, device=dev, generator=gen), dim=1), dim=1)
-    eps = torch.full((n,), EPS_F, device=dev)
-    bounce = (_offset_origin(p, nrm, w), w, eps, torch.where(hit.hit, 1e30, 0.0))
-    # shadow rays: toward the sun on even lanes, along the bounce direction
-    # on odd ones (so that some are occluded), ~30% dead lanes
-    sun = r.bundle.lights.direction[0].expand(n, 3)
-    odd = (torch.arange(n, device=dev) % 2 == 1)[:, None]
-    s_dir = torch.where(odd, w, sun).contiguous()
-    live = hit.hit & (torch.rand(n, device=dev, generator=gen) > 0.3)
-    shadow = (_offset_origin(p, nrm, s_dir), s_dir, eps, torch.where(live, 1e30, 0.0))
-    return {"camera": cam_rays, "bounce": bounce, "shadow": shadow}
 
 
 def chunks_hit(cs, o, d, t_lo, t_hi) -> tuple[int, int]:
@@ -246,7 +233,7 @@ def main() -> int:
         r = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda")
         r.load_flat_scene(make_terrain_scene(nq))
         cs = r.bundle.cscene
-        rays = make_rays(r, LANES, gen)
+        rays = bk.random_rays(r, LANES, gen)
         runs = [
             ("A", "camera", lambda o, d, a, b: ic.tree_closest_hit(cs, o, d, a, b),
              lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, False)),
@@ -262,11 +249,17 @@ def main() -> int:
                 ("C", "camera", lambda o, d, a, b: ic.brute_hit(cs, o, d, a, b, any_hit=False),
                  lambda o, d, a, b: ic.brute_plain(cs, o, d, a, b, any_hit=False)),
             ]
+        if nq in BLOCKED_SCENES:
+            blocked = bk.wavefronts(r, LANES)
+            rays.update({f"{kind}_blocked": w for kind, w in zip(("camera", "bounce", "shadow"), blocked)})
+            runs.append(("B", "shadow_blocked", lambda o, d, a, b: ic.tree_any_hit(cs, o, d, a, b),
+                         lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, True)))
         if cs.shade:
+            kinds = ("camera", "bounce") + (("camera_blocked", "bounce_blocked") if nq in BLOCKED_SCENES else ())
             runs += [
                 ("D", kind_rays, lambda o, d, a, b: ic.tree_closest_shade(cs, o, d, a, b),
                  lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, False, shade=True))
-                for kind_rays in ("camera", "bounce")
+                for kind_rays in kinds
             ]
         report = {}
         for key, kind_rays, kernel, plain in runs:
@@ -285,21 +278,24 @@ def main() -> int:
                 a_out = ic.tree_closest_hit(cs, *args)
                 assert all(torch.equal(x, y) for x, y in zip(got[:4], a_out)), "D's walk differs from A's"
                 exact = exact and torch.equal(got[4], want[4])
+            if key in ("B", "D"):  # the warp walk gives its plain version's outputs bit for bit
+                assert exact, f"{key} differs from its plain version: terrain{nq} {kind_rays}"
             errs[key] = max(errs[key], err)
             report[f"{key}_{kind_rays}"] = f"err={err:.3g},exact={exact},hits={int((got[1] >= 0).sum())}"
             # the main path's shapes: primary rays at 524k tris for A (the
             # JAX package's stream mode, PERF.md row 2), shadow rays at 524k
             # tris for B, shadow rays of the small scene for C, primary rays
-            # at 131k tris for D (config2_frame's scene); and two rows no path
-            # runs by default: A on the 131k VMEM-mode tree (row 1) and C's
-            # closest-hit flag (row 5)
+            # at 131k tris for D (config2_frame's scene), B's shadow rays
+            # there, and D's and B's blocked-order wavefronts; and two rows
+            # no path runs by default: A on the 131k VMEM-mode tree (row 1)
+            # and C's closest-hit flag (row 5)
             label = TIMED.get((key, kind_rays, nq))
             if label:
                 times[label] = (
                     bk.cuda_ms(lambda: kernel(*args), 20),
                     bk.cuda_ms(lambda: plain(*args), 3),
                 )
-                bounds[label] = bound(cs, key, kind_rays == "shadow", args, got)
+                bounds[label] = bound(cs, key, kind_rays.startswith("shadow"), args, got)
         if cs.shade and nq == 256:
             # D with its rows against A plus finalize_hit's row gather, to the Hit
             o, d, a, b = rays["camera"]
@@ -450,22 +446,10 @@ def main() -> int:
           rays_traced=rs.stats.total_rays, launches=json.dumps(small_launches))
 
     # -- 5. config2_frame: thin-lens bokeh adaptive render through kernel D -
-    def config2(nq, **kw):
-        """A cuda Renderer with the thin-lens octagon-bokeh settings, focused at the centre."""
-        scene = make_terrain_scene(nq)
-        settings = dict(
-            max_tolerance=0.05, max_ray_depth=4, ns_area_light=1, indirect=True, seed=0,
-            lens_radius=0.01 * float(np.linalg.norm(scene.bbox_max - scene.bbox_min)),
-            bokeh=ApertureTexture.from_array(polygon_mask(500, 8)), **kw,
-        )
-        rr = Renderer(device="cuda", **settings)
-        rr.load_flat_scene(scene)
-        focal = rr.autofocus(rr.width / 2, rr.height / 2)
-        assert 0 < focal < rr.camera.f_clip, f"autofocus missed the scene: {focal}"
-        return rr, settings
+    from lens_flare_tpu_torch.ab_walk import config2_renderer
 
     t0 = time.perf_counter()
-    r2, _ = config2(256, width=1920, height=1080, ns_aa=16, samples_per_batch=4)
+    r2, _ = config2_renderer(256, "cuda", width=1920, height=1080, ns_aa=16, samples_per_batch=4)
     assert r2.bundle.cscene.shade and not r2.bundle.cscene.stream
     r2.render(progress=False)  # warm-up
     torch.cuda.synchronize()
@@ -497,7 +481,7 @@ def main() -> int:
 
     # -- 6. config2_small: the same settings, held against the CPU render --
     t0 = time.perf_counter()
-    rs2, small2 = config2(40, width=320, height=240, ns_aa=8, samples_per_batch=2)
+    rs2, small2 = config2_renderer(40, "cuda", width=320, height=240, ns_aa=8, samples_per_batch=2)
     ic.reset_launch_counts()
     got, got_counts = rs2.render(progress=False)
     torch.cuda.synchronize()
@@ -556,19 +540,21 @@ def main() -> int:
           launches=json.dumps(bench_launches), artifact=bench_out.name, **report)
 
     # -- 8. results --------------------------------------------------------
-    # each kernel's launches from the main path that runs it
+    # each kernel's launches from the main path that runs it; B's rows on
+    # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],
              "E": bench_launches["E"], "F": bench_launches["F"]}
+    count.update({label: c2_launches["B"] for label in ("B_t256", "B_blocked_t256")})
     kernels = [
         {
-            "name": ic.KERNELS[k].name, "route": "cuda", "source": ic.KERNEL_SOURCE,
-            "replaces": ic.KERNELS[k].replaces, "launches": count[k],
-            "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
-            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+            "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNEL_SOURCE,
+            "replaces": ic.KERNELS[label[0]].replaces, "launches": count.get(label, count[label[0]]),
+            "max_abs_err": errs[label[0]], "ms": times[label][0], "plain_ms": times[label][1],
+            "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
             # no single PyTorch call computes a cluster-tree traversal
             "library_ms": None,
         }
-        for k in "ABCDEF"
+        for label, case in LINE_CASES.items()
     ]
     print(bk.nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

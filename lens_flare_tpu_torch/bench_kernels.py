@@ -44,7 +44,7 @@ import torch
 
 from . import _rng
 from .accel.wide import build_wide_bvh
-from .integrator.path import trace_closest
+from .integrator.path import EPS_F, _offset_origin, trace_closest
 from .integrator.shading import local_to_world, make_coord_space
 from .ops import intersect_cuda as ic
 from .renderer import Renderer, blocked_order
@@ -57,6 +57,7 @@ FILM = 512  # the tool's 512x512 film
 # table holds no padding nodes
 MXU_SCENES = ((64, (8, 32, 32)), (128, (32, 32, 32)))
 REPEATS = 5  # timed calls per measurement
+QUEUE_CYCLES = 50_000_000  # ~0.03 s of device sleep ahead of the timed calls
 
 
 def nvidia_smi() -> str:
@@ -72,10 +73,19 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, repeats: int = REPEATS):
-    """Mean device milliseconds of fn() over ``repeats`` calls after one warm-up; None off the card."""
+    """Mean device milliseconds of fn() over ``repeats`` calls after one warm-up; None off the card.
+
+    The timed calls are queued behind a device sleep of ``QUEUE_CYCLES``, so
+    that they run back to back: a kernel shorter than its wrapper's host
+    work (checks, output allocations, the launch, ~0.05 ms) would otherwise
+    be timed at the host's pace.  A function that waits on the device itself
+    (the plain versions) is timed as before.
+    """
     if fn()[0].device.type != "cuda":
         return None
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(repeats):
         fn()
@@ -116,20 +126,21 @@ def build_renderer(n_quads: int, device) -> Renderer:
 def wavefronts(r: Renderer, n: int, seed: int = 0):
     """(primary, bounce, shadow) rays (o, d, t_lo, t_hi), as ``tools/bench_kernels._wavefronts``.
 
-    The first n pixels of the 512x512 film in 32x32-block order; cosine
-    bounces from the primary hits with the uniforms of
-    ``fold_in(PRNGKey(seed), pixel id)``; shadow rays from the same origins
-    toward light 0, stopping short of it.
+    The first n pixels of the renderer's film (the bench's is 512x512) in
+    32x32-block order, as ``Renderer.render`` sends them; cosine bounces from
+    the primary hits with the uniforms of ``fold_in(PRNGKey(seed), pixel
+    id)``; shadow rays from the same origins toward light 0, stopping short
+    of it.
     """
     dev = torch.device(r.device)
     cam = camera_params(r.camera, dev)
-    ys, xs = np.mgrid[0:FILM, 0:FILM]
+    ys, xs = np.mgrid[0 : r.height, 0 : r.width]
     xs, ys = xs.ravel(), ys.ravel()
-    order = blocked_order(xs, ys, FILM)
+    order = blocked_order(xs, ys, r.width)
     px = torch.as_tensor(xs[order][:n], device=dev)
     py = torch.as_tensor(ys[order][:n], device=dev)
-    x = (px.to(torch.float32) + 0.5) / FILM
-    y = (py.to(torch.float32) + 0.5) / FILM
+    x = (px.to(torch.float32) + 0.5) / r.width
+    y = (py.to(torch.float32) + 0.5) / r.height
     o, d = generate_rays(cam, x, y)
     o = o.contiguous()
     t_lo = cam.n_clip.expand(n).contiguous()
@@ -141,7 +152,7 @@ def wavefronts(r: Renderer, n: int, seed: int = 0):
 
     # incoherent bounce wavefront: cosine scatter from the hit points
     key = _rng.prng_key(seed, device=dev)
-    keys = _rng.fold_in(key.expand(n, 2), (py.to(torch.int64) * FILM + px) & _rng.MASK32)
+    keys = _rng.fold_in(key.expand(n, 2), (py.to(torch.int64) * r.width + px) & _rng.MASK32)
     u3 = _rng.uniform(keys, (3,))
     z = torch.sqrt(u3[:, 0])
     sin_t = torch.sqrt(torch.clamp_min(1.0 - u3[:, 0], 0.0))
@@ -159,6 +170,36 @@ def wavefronts(r: Renderer, n: int, seed: int = 0):
     wl = wl / torch.clamp_min(dist, 1e-9)
     shadow = (o2, wl.contiguous(), eps, torch.where(hit.hit, dist[:, 0] * 0.999, 0.0))
     return primary, bounce, shadow
+
+
+def random_rays(r: Renderer, n: int, gen: torch.Generator):
+    """Camera, bounce and shadow rays of n random pixels of the renderer's film.
+
+    Bounces leave the camera hits (misses dead), scattered about the normal;
+    shadow rays go toward the sun on even lanes and along the bounce
+    direction on odd ones (so that some are occluded), with about 30% dead
+    lanes.  ``gen`` is a generator on the renderer's device.
+    """
+    dev = torch.device(r.device)
+    cam = camera_params(r.camera, dev)
+    x = torch.rand(n, device=dev, generator=gen)
+    y = torch.rand(n, device=dev, generator=gen)
+    o, d = generate_rays(cam, x, y)
+    o = o.contiguous()
+    cam_rays = (o, d, cam.n_clip.expand(n).contiguous(), cam.f_clip.expand(n).contiguous())
+    hit, _ = trace_closest(r.bundle, *cam_rays)
+    p = o + d * torch.where(hit.hit, hit.t, 0.0)[:, None]
+    nrm = torch.where(hit.hit[:, None], hit.n, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    w = torch.nn.functional.normalize(nrm + torch.nn.functional.normalize(
+        torch.randn(n, 3, device=dev, generator=gen), dim=1), dim=1)
+    eps = torch.full((n,), EPS_F, device=dev)
+    bounce = (_offset_origin(p, nrm, w), w, eps, torch.where(hit.hit, 1e30, 0.0))
+    sun = r.bundle.lights.direction[0].expand(n, 3)
+    odd = (torch.arange(n, device=dev) % 2 == 1)[:, None]
+    s_dir = torch.where(odd, w, sun).contiguous()
+    live = hit.hit & (torch.rand(n, device=dev, generator=gen) > 0.3)
+    shadow = (_offset_origin(p, nrm, s_dir), s_dir, eps, torch.where(live, 1e30, 0.0))
+    return {"camera": cam_rays, "bounce": bounce, "shadow": shadow}
 
 
 def _kernels_run(fn):

@@ -66,7 +66,7 @@ class FlarePipeline:
     falloff_key: int = 0
     # "exact" rasterizer, "fast" canonical-card resample, "auto": fast from 2^18 pixels
     ghost_method: str = "auto"
-    device: str = "cpu"
+    device: str = "cuda"  # as Renderer: the card unless the caller asks for the CPU
     _fft_cache: torch.Tensor | None = None
 
     @classmethod

@@ -58,22 +58,27 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path() -> Path:
+def _library_path(csrc_dir: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
-        h.update((CSRC_DIR / name).read_bytes())
+        h.update((csrc_dir / name).read_bytes())
     return BUILD_DIR / f"liblf_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if no build of the current sources exists."""
+def build(csrc_dir: Path = CSRC_DIR) -> Path:
+    """Compile the kernels if no build of the sources in ``csrc_dir`` exists.
+
+    ``csrc_dir`` other than the package's own serves A/B runs against
+    another version of the sources (``lens_flare_tpu_torch.ab_walk``).
+    """
     global build_log, build_seconds
-    so = _library_path()
+    csrc_dir = Path(csrc_dir)
+    so = _library_path(csrc_dir)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(csrc_dir / s) for s in SOURCES)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
@@ -84,15 +89,20 @@ def build() -> Path:
     return so
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """A built kernel library with the argtypes of every function set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call; argtypes set for every function."""
+    """The kernel library the wrappers launch, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = open_library(build())
         return _lib

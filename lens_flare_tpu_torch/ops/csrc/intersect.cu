@@ -7,9 +7,11 @@
 //   A  lf_tree_closest  <- _make_kernel(any_hit=False)        :214, call :1392
 //                          (VMEM mode and the HBM-streaming mode, stream=True)
 //   B  lf_tree_any_hit  <- _make_kernel(any_hit=True)         :214, call :1392
+//                          (VMEM and stream modes; warp per ray)
 //   D  lf_tree_closest_shade <- _make_kernel(shade=True)      :214, call :1392
-//                          (VMEM mode and stream_shade): A at chunk batch 1,
-//                          plus the winning triangle slot's shading row
+//                          (VMEM mode and stream_shade; warp per ray): A's
+//                          results at chunk batch 1, plus the winning
+//                          triangle slot's shading row
 //   C  lf_brute         <- _make_brute_kernel(any_hit=True)   :877, call :1292
 //                          (closest=1 selects _make_brute_kernel(any_hit=False))
 //   E  lf_tree_closest_mxu <- _make_kernel(mxu=True)          :214, walk :559-629,
@@ -20,20 +22,27 @@
 //                          (closest hit, any hit and shade: three instances)
 //   _sphere_pass (:840) runs at the end of every kernel.
 //
-// Design: one thread per ray.  The TPU walked a 512-2048-lane tile in
-// lockstep and culled whole clusters per tile; here every thread walks the
-// same two-level cluster tree (accel/wide.py: B1 top boxes, B1*B2 child
-// boxes, K triangles per child) on its own, reading it from global memory.
-// The TPU's VMEM residency and its HBM page ring have no counterpart: the
+// Every kernel walks the same two-level cluster tree (accel/wide.py: B1 top
+// boxes, B1*B2 child boxes, K triangles per child) from global memory.  The
+// TPU walked a 512-2048-lane tile in lockstep and culled whole clusters per
+// tile; its VMEM residency and HBM page ring have no counterpart here: the
 // tree is 48 bytes per triangle slot plus 32 per box (25 MB of triangle rows
 // and 0.5 MB of boxes for the 524k-triangle terrain), which sits mostly in
 // the 50 MB L2.
 //
-// What bounds it on this card: divergent, dependent global loads (each
-// thread reads different boxes and triangle rows, so loads do not coalesce)
-// served from L2 for scenes that fit it, and the branch divergence of the
-// walk.  A simple design first; packet traversal, shared-memory staging and
-// a wider node layout are later work.
+// Two designs:
+// - B and D, one warp per ray (warp_walk_kernel).  What bounded them as one
+//   thread per ray was latency, not bytes or operations: a 64k-lane
+//   wavefront gave only 2,048 warps, each thread ran a long chain of
+//   dependent scalar loads from addresses private to it, and a warp ran the
+//   union of its 32 rays' tops and chunks.  A warp now walks one ray: its
+//   lanes test 32 top or child boxes at once (two float4 each) and one
+//   triangle each of a chunk (three float4 of the 48-byte row), so every
+//   load coalesces, a 64k-lane call has 65,536 warps, and no lane waits on
+//   another ray's path.  Ballots pick the boxes hit and warp shuffles
+//   reduce a chunk in the sequential order (see warp_walk_kernel).
+// - A, C, E and F, one thread per ray, carried over from the TPU's
+//   per-lane walk; they keep the costs above.
 //
 // Semantics kept from the Pallas kernels (see intersect_cuda.py for the
 // plain PyTorch version of each kernel, held to bit equality on the card):
@@ -111,6 +120,15 @@ __device__ __forceinline__ bool box_hit(const float* __restrict__ b, const Ray& 
   return (t_min <= t_max) && (t_max >= t_lo) && (t_min <= t_hi) && (t_lo <= t_hi);
 }
 
+// box_hit on a 16-byte aligned box, read as two float4.
+__device__ __forceinline__ bool box_hit4(const float* __restrict__ b, const Ray& r, float t_lo,
+                                         float t_hi) {
+  const float4 p = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 q = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  const float v[6] = {p.x, p.y, p.z, p.w, q.x, q.y};
+  return box_hit(v, r, t_lo, t_hi);
+}
+
 // Moller-Trumbore numerators for one triangle row [p0 | e1 | e2].
 struct MT {
   float det, tt_n, bb1_n, bb2_n;
@@ -133,6 +151,15 @@ __device__ __forceinline__ MT mt_terms(const float* __restrict__ tri, const Ray&
   m.bb1_n = s1x * sx + s1y * sy + s1z * sz;
   m.bb2_n = s2x * r.d[0] + s2y * r.d[1] + s2z * r.d[2];
   return m;
+}
+
+// mt_terms on a 16-byte aligned 12-float row, read as three float4.
+__device__ __forceinline__ MT mt_terms4(const float* __restrict__ tri, const Ray& r) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(tri));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(tri) + 1);
+  const float4 c = __ldg(reinterpret_cast<const float4*>(tri) + 2);
+  const float v[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+  return mt_terms(v, r);
 }
 
 // Divide-free occlusion test (intersect_pallas.py:459-484).
@@ -163,14 +190,21 @@ __device__ __forceinline__ void batch_reset(Batch& bt, float t_hi, float best_t)
   bt.limit = min_nan(t_hi, best_t);
 }
 
-__device__ __forceinline__ void batch_test(Batch& bt, const MT& m, int id, float t_lo) {
+// Closest-hit conditions of one slot (intersect_pallas.py:486-503): whether
+// it is a valid hit in [t_lo, limit], with its t and barycentrics.
+__device__ __forceinline__ bool closest_terms(const MT& m, float t_lo, float limit, float& tt,
+                                              float& b1, float& b2) {
   const float inv_det = 1.0f / (m.det == 0.0f ? 1e-30f : m.det);
-  const float tt = m.tt_n * inv_det;
-  const float b1 = m.bb1_n * inv_det;
-  const float b2 = m.bb2_n * inv_det;
-  const bool valid = (m.det != 0.0f) && (tt >= t_lo) && (tt <= bt.limit) && (b1 >= 0.0f) &&
-                     (b1 <= 1.0f) && (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
-  if (!valid) return;
+  tt = m.tt_n * inv_det;
+  b1 = m.bb1_n * inv_det;
+  b2 = m.bb2_n * inv_det;
+  return (m.det != 0.0f) && (tt >= t_lo) && (tt <= limit) && (b1 >= 0.0f) && (b1 <= 1.0f) &&
+         (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
+}
+
+__device__ __forceinline__ void batch_test(Batch& bt, const MT& m, int id, float t_lo) {
+  float tt, b1, b2;
+  if (!closest_terms(m, t_lo, bt.limit, tt, b1, b2)) return;
   if (tt < bt.t) {
     bt.t = tt;
     bt.id = id;
@@ -221,24 +255,14 @@ __device__ __forceinline__ void sphere_pass(const float* __restrict__ sph, int n
   tests += n_spheres;
 }
 
-// Kernels A (ANY_HIT = false), B (ANY_HIT = true) and D (SHADE = true, chunk
-// batch 1): the two-level walk.
-//
-// D's shading row.  The TPU kernel (intersect_pallas.py:524-542) selected the
-// winner's row inside the walk with one-hot masked sums over VMEM planes,
-// because a row gather after the kernel cost a scalar-core loop there.  On
-// this card a thread knows its own winning slot at the end of the walk, so D
-// reads one 10-float row of the slot-ordered table (B1*B2*K, 10) from global
-// memory once per lane; what bounds it is the walk itself, as for A.
-template <bool ANY_HIT, bool SHADE>
+// Kernel A: the two-level walk, one thread per ray, chunk batch 1 or 2.
 __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict__ d,
                             const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
                             const float* __restrict__ top, const float* __restrict__ child,
-                            const float* __restrict__ tri, const float* __restrict__ shade,
-                            const float* __restrict__ sph, int n, int b1, int b2, int k,
-                            int n_spheres, int chunk_batch, float* __restrict__ out_t,
-                            int* __restrict__ out_slot, float* __restrict__ out_bary,
-                            int* __restrict__ out_tests, float* __restrict__ out_shade) {
+                            const float* __restrict__ tri, const float* __restrict__ sph, int n,
+                            int b1, int b2, int k, int n_spheres, int chunk_batch,
+                            float* __restrict__ out_t, int* __restrict__ out_slot,
+                            float* __restrict__ out_bary, int* __restrict__ out_tests) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
@@ -249,12 +273,9 @@ __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict
   int slot = -1;
   float ob1 = 0.0f, ob2 = 0.0f;
   int tests = 0;
-  bool occluded = false;
 
   for (int tp = 0; r.finite && tp < b1; ++tp) {
-    // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
-    if (ANY_HIT && occluded && !(t_lo <= 0.0f)) break;
-    const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
+    const float t_clip = min_nan(t_hi, best_t);
     // child boxes lie inside their top box, so this prunes exactly the
     // children the tile-level walk would have masked off for this lane
     if (b1 > 1 && !box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
@@ -265,40 +286,14 @@ __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict
       if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
       tests += k;  // the chunk mask is fixed for the whole top
       const float* rows = tri + (size_t)node * k * 12;
-      if (ANY_HIT) {
-        if (occluded) continue;
-        for (int s = 0; s < k; ++s) {
-          if (occludes(mt_terms(rows + 12 * s, r), t_lo, t_hi)) {
-            occluded = true;
-            break;
-          }
-        }
-      } else {
-        if (in_batch == 0) batch_reset(bt, t_hi, best_t);
-        for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
-        if (++in_batch == chunk_batch) {
-          batch_commit(bt, best_t, slot, ob1, ob2);
-          in_batch = 0;
-        }
+      if (in_batch == 0) batch_reset(bt, t_hi, best_t);
+      for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
+      if (++in_batch == chunk_batch) {
+        batch_commit(bt, best_t, slot, ob1, ob2);
+        in_batch = 0;
       }
     }
-    if (!ANY_HIT && in_batch > 0) batch_commit(bt, best_t, slot, ob1, ob2);
-  }
-  if (ANY_HIT && occluded) slot = 0;
-
-  if (SHADE) {
-    // the best triangle's row, taken before the sphere pass: a lane that a
-    // sphere wins keeps it (the invariant of intersect_pallas.py:843-847;
-    // finalize_hit reads rows only where the winner is a triangle)
-    float* row = out_shade + (size_t)10 * i;
-    if (slot >= 0) {
-      const float* src = shade + (size_t)10 * slot;
-#pragma unroll
-      for (int j = 0; j < 10; ++j) row[j] = src[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 10; ++j) row[j] = 0.0f;
-    }
+    if (in_batch > 0) batch_commit(bt, best_t, slot, ob1, ob2);
   }
 
   sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
@@ -308,6 +303,194 @@ __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict
   out_bary[2 * i] = ob1;
   out_bary[2 * i + 1] = ob2;
   out_tests[i] = tests;
+}
+
+// Kernels B (ANY_HIT) and D (closest hit at chunk batch 1 plus shading
+// rows): one warp walks one ray.  The result is the sequential walk's (A's
+// at chunk batch 1, the plain version tree_plain), bit for bit and with
+// the same per-lane tests; only who does which test changes.
+//
+// 1. Tops go in words of 32, one per lane.  A ballot of each lane's top box
+//    under [t_lo, hi_pre], the loosest clip the walk can use (t_hi; for any
+//    hit max(t_hi, 0)), gives the candidates: the slab test is monotone in
+//    the clip, so a top that is missed there is missed under every clip.
+// 2. The candidates go in ascending order.  The clip is fixed at the top's
+//    start (min(t_hi, best_t); for any hit t_hi, or 0 once occluded), and a
+//    candidate is tested again, warp-uniformly, where the clip is tighter.
+// 3. The top's children go in words of 32: a ballot of the child boxes hit
+//    under the clip, K tests charged per set bit, then each set child's chunk
+//    in ascending order, one slot per lane in strides of 32 (K != 32 masks
+//    or loops).
+// 4. Closest hit: a chunk's limit is min(t_hi, best_t) at its start; the
+//    warp's minimum t (fminf butterfly), then a ballot of the slots tied at
+//    it.  Merged stride by stride into the chunk's state exactly as
+//    batch_test's sequential update would: the first tied slot's t (its
+//    sign of zero too), the highest tied slot id, and fmaxf over the tied
+//    barycentrics in ascending slot order.  The chunk commits where its t
+//    beats best_t.  Any hit: __any_sync; once occluded, the top's charged
+//    tests stand, and the walk goes on under [t_lo, 0] only where t_lo <= 0.
+// 5. A ray with a NaN or an empty interval (t_lo > t_hi) hits no box under
+//    any clip: it skips the walk in one uniform branch.
+// 6. D takes the winner's 10-float row before the sphere pass (lanes 0-9
+//    copy one float each, zeros where no triangle won), as the TPU kernel's
+//    one-hot select did (intersect_pallas.py:524-542, :843-847).  Every lane
+//    then runs the sphere pass on the same values; lane 0 writes the outputs.
+//
+// The TPU walked tiles of rays in lockstep because its vector unit is wide
+// and its cost is per tile; a packet of rays per warp would bring back the
+// divergence that this design removes, since the bounce and shadow
+// wavefronts of the main path are incoherent and every ray keeps its own
+// clip per top.  What bounds the walk now is latency: each ray is a chain
+// of dependent L2 round trips (ray, top words, child words, chunks), hidden
+// only by the ~36-40 warps an SM keeps resident at 48-56 registers.  Of 2,
+// 4, 8 and 16 rays per block, 4 measured fastest over the main path's
+// wavefronts; holding the next chunk's rows in registers ahead of time (74
+// registers, fewer warps) measured slower (PERF.md).
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WALK_RAYS = 4;  // rays (warps) per block
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(FULL_MASK, v, off));
+  return v;
+}
+
+// One chunk of closest hit: the sequential batch_reset / batch_test x K /
+// batch_commit, with the slots spread over the warp.
+__device__ __forceinline__ void warp_chunk_closest(const float* __restrict__ tri, int node, int k,
+                                                   int lane, const Ray& r, float& best_t,
+                                                   int& slot, float& ob1, float& ob2) {
+  const float limit = min_nan(r.t_hi, best_t);
+  float bt = KINF;  // batch state, as Batch: t, max id and barycentrics at it
+  int bid = -1;
+  float bb1 = -KINF, bb2 = -KINF;
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    const int s = s0 + lane;
+    float tt = 0.0f, b1 = 0.0f, b2 = 0.0f;
+    bool valid = false;
+    if (s < k)
+      valid = closest_terms(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, limit, tt, b1,
+                            b2);
+    const float mn = warp_min(valid ? tt : KINF);
+    if (mn > bt) continue;  // every valid slot of the stride loses
+    const unsigned tied = __ballot_sync(FULL_MASK, valid && tt == mn);
+    if (tied == 0u) continue;  // no valid slot at all
+    unsigned rest = tied;
+    if (mn < bt) {  // the first tied slot replaces the state
+      const int first = __ffs(tied) - 1;
+      bt = __shfl_sync(FULL_MASK, tt, first);
+      bb1 = __shfl_sync(FULL_MASK, b1, first);
+      bb2 = __shfl_sync(FULL_MASK, b2, first);
+      rest &= rest - 1u;
+    }
+    bid = max(bid, node * k + s0 + 31 - __clz(tied));
+    while (rest != 0u) {  // the others tie with it, in slot order
+      const int l = __ffs(rest) - 1;
+      rest &= rest - 1u;
+      bb1 = fmaxf(bb1, __shfl_sync(FULL_MASK, b1, l));
+      bb2 = fmaxf(bb2, __shfl_sync(FULL_MASK, b2, l));
+    }
+  }
+  if (bt < best_t) {
+    best_t = bt;
+    slot = bid;
+    ob1 = bb1;
+    ob2 = bb2;
+  }
+}
+
+// One chunk of any hit: whether a slot occludes in [t_lo, t_hi].
+__device__ __forceinline__ bool warp_chunk_occludes(const float* __restrict__ tri, int node, int k,
+                                                    int lane, const Ray& r) {
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    const int s = s0 + lane;
+    const bool occ =
+        s < k && occludes(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, r.t_hi);
+    if (__any_sync(FULL_MASK, occ)) return true;
+  }
+  return false;
+}
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(32 * WALK_RAYS)
+    warp_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                     const float* __restrict__ top, const float* __restrict__ child,
+                     const float* __restrict__ tri, const float* __restrict__ shade,
+                     const float* __restrict__ sph, int n, int b1, int b2, int k, int n_spheres,
+                     float* __restrict__ out_t, int* __restrict__ out_slot,
+                     float* __restrict__ out_bary, int* __restrict__ out_tests,
+                     float* __restrict__ out_shade) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * WALK_RAYS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
+  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+
+  // the walk's state, the same in every lane
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+  bool occluded = false;
+
+  if (r.finite && t_lo <= t_hi) {
+    const float hi_pre = ANY_HIT ? fmaxf(t_hi, 0.0f) : t_hi;
+    bool done = false;
+    for (int tp0 = 0; tp0 < b1 && !done; tp0 += 32) {
+      unsigned cand = 1u;  // a single-level tree has no top box to test
+      if (b1 > 1) {
+        const int tp = tp0 + lane;
+        cand = __ballot_sync(FULL_MASK, tp < b1 && box_hit4(top + 8 * tp, r, t_lo, hi_pre));
+      }
+      while (cand != 0u) {
+        const int tp = tp0 + __ffs(cand) - 1;
+        cand &= cand - 1u;
+        // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
+        if (ANY_HIT && occluded && !(t_lo <= 0.0f)) {
+          done = true;
+          break;
+        }
+        const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
+        if (b1 > 1 && t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
+        for (int c0 = 0; c0 < b2; c0 += 32) {
+          const int c = c0 + lane;
+          const unsigned hits =
+              __ballot_sync(FULL_MASK, c < b2 && box_hit4(child + 8 * (tp * b2 + c), r, t_lo, t_clip));
+          tests += k * __popc(hits);  // the chunk mask is fixed for the whole top
+          unsigned todo = (ANY_HIT && occluded) ? 0u : hits;
+          while (todo != 0u) {
+            const int node = tp * b2 + c0 + __ffs(todo) - 1;
+            todo &= todo - 1u;
+            if (ANY_HIT) {
+              if (warp_chunk_occludes(tri, node, k, lane, r)) {
+                occluded = true;
+                todo = 0u;
+              }
+            } else {
+              warp_chunk_closest(tri, node, k, lane, r, best_t, slot, ob1, ob2);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (ANY_HIT && occluded) slot = 0;
+
+  if (!ANY_HIT && lane < 10) {  // D's row: lane j copies float j
+    out_shade[(size_t)10 * i + lane] = slot >= 0 ? shade[(size_t)10 * slot + lane] : 0.0f;
+  }
+
+  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
+
+  if (lane == 0) {
+    out_t[i] = best_t;
+    out_slot[i] = slot;
+    out_bary[2 * i] = ob1;
+    out_bary[2 * i + 1] = ob2;
+    out_tests[i] = tests;
+  }
 }
 
 // Kernel C: the tree-free pass over every real triangle of a tiny scene.
@@ -475,10 +658,10 @@ __global__ void mxu_kernel(const float* __restrict__ o, const float* __restrict_
 // The children of a top lie inside its box and the slab test is monotone in
 // the box bounds, so a lane that misses a top's box under the clip misses all
 // its children: skipping them changes no count.  What bounds it: the same
-// divergent L2 loads as A and B, plus one __syncthreads_or per group for any
-// hit.  The TPU batched tops to amortise its per-top sequential overhead,
-// which one thread per ray does not have; a warp-cooperative packet walk that
-// shares the group's union of chunks in shared memory is its redesign.
+// divergent L2 loads as A, plus one __syncthreads_or per group for any hit.
+// The TPU batched tops to amortise its per-top sequential overhead, which
+// one thread per ray does not have; B's and D's warp-per-ray walk, with the
+// tile's list and exit kept per block, is its redesign.
 constexpr int GROUP_MAX_TILE = 1024;  // the largest block, so the largest tile
 
 template <bool ANY_HIT, bool SHADE>
@@ -614,13 +797,15 @@ extern "C" int lf_tree_closest(const float* o, const float* d, const float* t_lo
                                float* out_bary, int* out_tests, void* stream) {
   if (n > 0) {
     const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<false, false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, chunk_batch,
-        out_t, out_slot, out_bary, out_tests, nullptr);
+    tree_kernel<<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, chunk_batch, out_t,
+        out_slot, out_bary, out_tests);
   }
   return (int)cudaGetLastError();
 }
 
+// Kernels D and B, one warp per ray: top, child and tri 16-byte aligned
+// (the wrapper checks), any B1, B2, K >= 1.
 // Kernel D: shade (B1*B2*K, 10) slot-ordered [9 corner-normal components |
 // bsdf id]; out_shade (N, 10).  Chunk batch 1, as the TPU's shade mode forces
 // (intersect_pallas.py:1307-1308).
@@ -630,11 +815,12 @@ extern "C" int lf_tree_closest_shade(const float* o, const float* d, const float
                                      int n, int b1, int b2, int k, int n_spheres, float* out_t,
                                      int* out_slot, float* out_bary, int* out_tests,
                                      float* out_shade, void* stream) {
+  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<false, true><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, 1, out_t,
-        out_slot, out_bary, out_tests, out_shade);
+    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
+    warp_walk_kernel<false><<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
+        out_bary, out_tests, out_shade);
   }
   return (int)cudaGetLastError();
 }
@@ -644,11 +830,12 @@ extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo
                                const float* tri, const float* sph, int n, int b1, int b2, int k,
                                int n_spheres, float* out_t, int* out_slot, float* out_bary,
                                int* out_tests, void* stream) {
+  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<true, false><<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, 1, out_t,
-        out_slot, out_bary, out_tests, nullptr);
+    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
+    warp_walk_kernel<true><<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
+        out_bary, out_tests, nullptr);
   }
   return (int)cudaGetLastError();
 }

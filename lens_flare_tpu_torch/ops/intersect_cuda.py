@@ -30,6 +30,10 @@ any hit and shade) are reached only when a caller asks for them
 package, whose defaults are ``mxu=False`` and ``TOP_BATCH = 1``: the kernel
 bench (:mod:`lens_flare_tpu_torch.bench_kernels`) is their path.
 
+B and D walk one ray per warp (32 boxes or one chunk's slots at a time,
+read coalesced); A, C, E and F one ray per thread.  All six give their
+plain version's outputs bit for bit, ``tests`` included.
+
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
 kernel's count in :data:`KERNELS`.
@@ -652,9 +656,23 @@ def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
         raise ValueError(f"scene is on {cs.tri.device}, rays on {o.device}")
 
 
+def _check_warp_walk_tree(cs: CudaScene):
+    """Kernels B and D read boxes and triangle rows as float4: the tree's own shapes, contiguous, 16-byte aligned."""
+    if min(cs.b1, cs.b2, cs.k) < 1:
+        raise ValueError(f"tree shape ({cs.b1}, {cs.b2}, {cs.k}) has an empty level")
+    n_nodes = cs.b1 * cs.b2
+    for name, x, shape in (("top", cs.top, (cs.b1, 8)), ("child", cs.child, (n_nodes, 8)),
+                           ("tri", cs.tri, (n_nodes * cs.k, 12))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: want a contiguous, 16-byte aligned float32 {shape}, "
+                             f"got {x.dtype} {tuple(x.shape)} at offset {x.data_ptr() % 16}")
+
+
 def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 1, shade: bool = False):
     from ._build import load_library
 
+    if key in ("B", "D"):
+        _check_warp_walk_tree(cs)
     lib = load_library()
     n = o.shape[0]
     o, d, t_lo, t_hi = (x.contiguous() for x in (o, d, t_lo, t_hi))

@@ -58,6 +58,43 @@ def test_wavefronts_match_tool():
             assert (np.abs(y - x) <= 1e-3 * np.maximum(np.abs(x), 1.0)).all(), name
 
 
+def test_rays_on_a_wide_film():
+    """The wavefronts of a non-square film (chip_smoke.py's 1920x1080 rows, cut down) and random_rays.
+
+    Block order follows the film's own width: the first 32x32 block's pixels
+    come first, then the block to its right.  random_rays: camera rays at
+    the camera's clip range, bounces live exactly where the camera ray hit,
+    shadow rays live on a subset of those, odd shadow lanes along the bounce.
+    """
+    from lens_flare_tpu_torch.renderer import Renderer
+    from lens_flare_tpu_torch.scene.camera import camera_params, generate_rays
+    from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
+
+    r = Renderer(width=96, height=64, max_ray_depth=4, device="cpu")
+    r.load_flat_scene(make_terrain_scene(8))
+    n = 2048
+    primary, bounce, shadow = bk.wavefronts(r, n)
+    px = np.concatenate([np.tile(np.arange(32), 32), 32 + np.tile(np.arange(32), 32)])
+    py = np.concatenate([np.repeat(np.arange(32), 32)] * 2)
+    cam = camera_params(r.camera, "cpu")
+    x = (torch.as_tensor(px, dtype=torch.float32) + 0.5) / 96
+    y = (torch.as_tensor(py, dtype=torch.float32) + 0.5) / 64
+    o, d = generate_rays(cam, x, y)
+    assert torch.equal(primary[0], o) and torch.equal(primary[1], d)
+    assert all(w[0].shape == (n, 3) and w[2].shape == (n,) for w in (primary, bounce, shadow))
+
+    gen = torch.Generator().manual_seed(0)
+    rays = bk.random_rays(r, n, gen)
+    cam_o, cam_d, lo, hi = rays["camera"]
+    assert torch.equal(lo, cam.n_clip.expand(n)) and torch.equal(hi, cam.f_clip.expand(n))
+    hit = rays["bounce"][3] > 0
+    assert 0 < hit.sum() < n
+    live = rays["shadow"][3] > 0
+    assert (live <= hit).all() and 0.5 < live.sum() / hit.sum() < 0.9
+    odd = torch.arange(n) % 2 == 1
+    assert torch.equal(rays["shadow"][1][odd], rays["bounce"][1][odd])
+
+
 def test_cpu_run_end_to_end(tmp_path):
     out = tmp_path / "bench.json"
     cases = []
@@ -87,7 +124,13 @@ def test_cpu_run_end_to_end(tmp_path):
             assert torch.equal(got[3], c.base_tests), c.label  # A's tests: the same chunks
 
 
-def test_refuses_without_card(monkeypatch, tmp_path):
+@pytest.mark.parametrize("tool", ["bench_kernels", "ab_walk"])
+def test_refuses_without_card(tool, monkeypatch, tmp_path):
+    """Both measuring entry points raise, before building anything, where there is no card."""
+    from lens_flare_tpu_torch import ab_walk
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"bench_kernels": ["--n", "64"], "ab_walk": ["--baseline", str(tmp_path)]}[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        bk.main(["--n", "64", "--out", str(tmp_path / "x.json")])
+        {"bench_kernels": bk, "ab_walk": ab_walk}[tool].main(argv + ["--out", str(tmp_path / "x.json")])
+    assert not (tmp_path / "x.json").exists()

@@ -106,7 +106,7 @@ def test_pipeline_composite(masks):
     )
     tp = tpipe.FlarePipeline(
         aperture=ApertureTexture.from_array(masks[0]), ghost_aperture=ApertureTexture.from_array(masks[1]),
-        lens=prescription_from_numpy(j_reference_prescription()), **kw,
+        lens=prescription_from_numpy(j_reference_prescription()), device="cpu", **kw,
     )
     hdr = np.random.default_rng(0).uniform(0, 1, (H, W, 3)).astype(np.float32)
     want = np.asarray(jp.composite(jnp.asarray(hdr)))

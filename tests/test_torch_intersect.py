@@ -81,21 +81,75 @@ def _rays(scene, n_cam=1024, n_rand=1024, seed=0):
     return o, d, t_lo, t_hi
 
 
+def _hard_rays(scene, n=2045, seed=5):
+    """Rays for the corners of the walk, N not a multiple of the kernels' rays per block.
+
+    A fifth each: rays aimed at a vertex or an edge midpoint of a triangle
+    (ties between neighbours); shadow-like rays from just above the surface
+    with t_lo <= 0, so that occluded lanes keep walking under [t_lo, 0]; a
+    NaN in one of o, d, t_lo or t_hi; empty or degenerate intervals (t_lo >
+    t_hi, t_lo == t_hi, t_hi < 0, t_hi = inf); and the rest from ``_rays``.
+    """
+    rng = np.random.default_rng(seed)
+    tri = np.asarray(scene.tri_p, np.float32)
+    m = n // 5
+    o_r, d_r, lo_r, hi_r = _rays(scene, n, n, seed=seed)
+    pick = rng.choice(len(o_r), n, replace=False)
+    o, d, t_lo, t_hi = (a[pick].copy() for a in (o_r, d_r, lo_r, hi_r))
+
+    def unit(v):
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+    idx = rng.integers(0, len(tri), m)
+    which = rng.integers(0, 3, m)
+    corner, nxt = tri[idx, which], tri[idx, (which + 1) % 3]
+    target = np.where(rng.uniform(size=(m, 1)) < 0.5, corner, (corner + nxt) * np.float32(0.5))
+    src = target + rng.uniform(-3, 3, (m, 3)).astype(np.float32) + np.float32([0, 0, 6])
+    o[:m], d[:m], t_lo[:m], t_hi[:m] = src, unit(target - src), 1e-3, 1e30
+
+    bary = rng.dirichlet(np.ones(3), m).astype(np.float32)
+    surf = np.einsum("mc,mcj->mj", bary, tri[rng.integers(0, len(tri), m)]) + np.float32([0, 0, 0.05])
+    d_sh = rng.normal(size=(m, 3)).astype(np.float32)
+    sl = slice(m, 2 * m)
+    o[sl], d[sl] = surf, unit(d_sh)
+    t_lo[sl] = rng.choice(np.float32([0.0, -1e-3, -2.0]), m)
+    t_hi[sl] = rng.choice(np.float32([20.0, 1e30]), m)
+
+    sl = slice(2 * m, 3 * m)
+    for j, arr in enumerate((o, d, t_lo, t_hi)):
+        lanes = np.arange(2 * m + j, 3 * m, 4)
+        if arr.ndim == 2:
+            arr[lanes, rng.integers(0, 3, len(lanes))] = np.nan
+        else:
+            arr[lanes] = np.nan
+
+    lanes = np.arange(3 * m, 4 * m)
+    kind = lanes % 4
+    t_lo[lanes], t_hi[lanes] = (
+        np.select([kind == 0, kind == 1, kind == 2], [1e-3, 5.0, -5.0], -1.0).astype(np.float32),
+        np.select([kind == 0, kind == 1, kind == 2], [0.0, 5.0, -1.0], np.inf).astype(np.float32),
+    )
+    return o, d, t_lo, t_hi
+
+
 CASES = {
-    # name: (n_quads, n_spheres, PallasScene kwargs)
-    "terrain8": (8, 0, {}),  # single-level tree, brute-mode shadow rays
-    "terrain40_vmem": (40, 0, {"force_stream": False}),  # (16, 32, 32)
-    "terrain40_stream": (40, 0, {"force_stream": True}),  # kernel 2: HBM pages
-    "terrain8_spheres": (8, 5, {}),
+    # name: (n_quads, n_spheres, PallasScene kwargs, forced (B1, B2, K) or ())
+    "terrain8": (8, 0, {}, ()),  # single-level tree, brute-mode shadow rays
+    "terrain40_vmem": (40, 0, {"force_stream": False}, ()),  # (16, 32, 32)
+    "terrain40_stream": (40, 0, {"force_stream": True}, ()),  # kernel 2: HBM pages
+    "terrain8_spheres": (8, 5, {}, ()),
+    # chunks wider than a warp (K = 64, 128), as choose_shape gives past 2M triangles
+    "terrain40_4x16x64": (40, 0, {}, (4, 16, 64)),
+    "terrain40_2x16x128_spheres": (40, 3, {}, (2, 16, 128)),
 }
 
 
 def _setup(case, device="cpu", pallas=True):
     """(scene, PallasScene or None, CudaScene) over one WideBVH."""
-    nq, n_sph, kw = CASES[case]
+    nq, n_sph, kw, shape = CASES[case]
     scene = make_terrain_scene(nq)
     sc, sr = _spheres(n_sph) if n_sph else (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
-    wb = build_wide_bvh(scene.tri_p)
+    wb = build_wide_bvh(scene.tri_p, *shape)
     if pallas and jnp is None:
         pytest.skip("needs JAX for the Pallas reference")
     ps = PallasScene(wb, sc, sr, scene.num_triangles, **kw) if pallas else None
@@ -182,6 +236,19 @@ def test_wrappers_take_plain_version_on_cpu_only():
         ic.intersect(cs, o.double(), d, t_lo, t_hi)
 
 
+def test_warp_walk_refuses_a_tree_it_cannot_read():
+    """Kernels B and D read the tree as float4: the wrapper refuses a view off 16 bytes or of the wrong shape."""
+    import dataclasses
+
+    _, _, cs = _setup("terrain40_vmem", pallas=False)
+    ic._check_warp_walk_tree(cs)
+    shifted = torch.empty(cs.tri.numel() + 1)[1:].view_as(cs.tri)
+    for bad in (dataclasses.replace(cs, tri=shifted), dataclasses.replace(cs, top=cs.top[:-1]),
+                dataclasses.replace(cs, child=cs.child.t().contiguous().t()), dataclasses.replace(cs, k=0)):
+        with pytest.raises(ValueError):
+            ic._check_warp_walk_tree(bad)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -189,12 +256,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+RAY_SETS = {"mixed": _rays, "hard": _hard_rays}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("rays", list(RAY_SETS))
 @pytest.mark.parametrize("case", list(CASES))
-def test_kernels_match_plain_on_card(case, cuda_device):
+def test_kernels_match_plain_on_card(case, rays, cuda_device):
     """Each kernel equals its plain version on the card, lane for lane."""
     scene, _, cs = _setup(case, cuda_device, pallas=False)
-    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in RAY_SETS[rays](scene))
     runs = [
         ("A", lambda: ic.tree_closest_hit(cs, o, d, t_lo, t_hi), lambda: ic.tree_plain(cs, o, d, t_lo, t_hi, False)),
         ("B", lambda: ic.tree_any_hit(cs, o, d, t_lo, t_hi), lambda: ic.tree_plain(cs, o, d, t_lo, t_hi, True)),
@@ -212,8 +283,12 @@ def test_kernels_match_plain_on_card(case, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,n_sph", [(40, 0), (40, 5)], ids=["terrain40", "terrain40_spheres"])
-def test_shade_kernel_matches_plain_on_card(nq, n_sph, cuda_device):
+@pytest.mark.parametrize("rays", list(RAY_SETS))
+@pytest.mark.parametrize(
+    "nq,n_sph,shape", [(40, 0, ()), (40, 5, ()), (40, 0, (4, 16, 64)), (40, 3, (2, 16, 128))],
+    ids=["terrain40", "terrain40_spheres", "terrain40_4x16x64", "terrain40_2x16x128_spheres"],
+)
+def test_shade_kernel_matches_plain_on_card(nq, n_sph, shape, rays, cuda_device):
     """Kernel D equals its plain version on the card, and its walk equals kernel A's."""
     scene = make_terrain_scene(nq)
     sc, sr = _spheres(n_sph) if n_sph else (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
@@ -222,10 +297,10 @@ def test_shade_kernel_matches_plain_on_card(nq, n_sph, cuda_device):
          np.asarray(scene.tri_bsdf, np.float32).reshape(-1, 1)], axis=1,
     )
     cs = cuda_scene_from_wide_bvh(
-        build_wide_bvh(scene.tri_p), sc, sr, scene.num_triangles, cuda_device, shade_rows=rows
+        build_wide_bvh(scene.tri_p, *shape), sc, sr, scene.num_triangles, cuda_device, shade_rows=rows
     )
     assert cs.shade
-    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in RAY_SETS[rays](scene))
     before = ic.KERNELS["D"].launches
     got = ic.tree_closest_shade(cs, o, d, t_lo, t_hi)
     torch.cuda.synchronize()
