@@ -11,15 +11,18 @@ raises, so the script exits non-zero and prints no result):
 2. each kernel against its plain PyTorch version on the card, on terrain
    scenes of 128, 3,200, 131,072 and 524,288 triangles with camera, bounce
    and shadow rays of random pixels, plus each one's time beside the plain
-   version's at 64k lanes; B and D (the warp-per-ray walk) must equal their
-   plain versions bit for bit on every set, and are also timed on the first
-   64k pixels in the renderer's 32x32-block order (D camera and bounce on
-   131,072 triangles, B shadow on 131,072 and 524,288) and B on the
-   131,072-triangle shadow rays; kernel D (closest hit plus shading rows,
-   on the two mid-size scenes) is also held to kernel A's outputs and timed
-   against A plus ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2 and
-   4, closest hit, any hit and shade) on the two mid-size scenes, exactly
-   against its plain version and against A, B and D; kernel E (the
+   version's at 64k lanes; A, B, D and F (the warp-per-ray walk) must equal
+   their plain versions bit for bit on every set, A at chunk batch 2 on the
+   single-level 128-triangle tree and at chunk batch 1 on the others.  The
+   walk is also timed on the first 64k pixels in the renderer's 32x32-block
+   order (A camera and bounce on 524,288 triangles, D camera and bounce on
+   131,072, B shadow on both), A on the single-level tree and on the
+   131,072-triangle tree, and B on the 131,072-triangle shadow rays;
+   kernel D (closest hit plus shading rows, on the two mid-size scenes) is
+   also held to kernel A's outputs and timed against A plus
+   ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2
+   and 4, closest hit, any hit and shade) on the two mid-size scenes,
+   exactly against its plain version and against A, B and D; kernel E (the
    coefficient walk) on the exact-fit trees of 8,192 and 32,768 triangles,
    exactly against its plain version and against A (hits and slots equal
    on all but at most 1 lane in 10,000, t within 1e-3 relative);
@@ -27,7 +30,8 @@ raises, so the script exits non-zero and prints no result):
    depth 4, NEE and RR bounces, then the paraxial flare composite, written
    as a PNG; launch counts show the frame went through kernels A and B;
 4. a 320x240 frame of the 128-triangle terrain, which traces its shadow
-   rays with kernel C, held against the same frame rendered on the CPU;
+   rays with kernel C and its closest hits with kernel A on a single-level
+   tree (chunk batch 2), held against the same frame rendered on the CPU;
 5. config2_frame: the thin-lens octagon-bokeh adaptive render (ns_aa 16,
    stages of 4, 4 and 8 samples) of the 131,072-triangle terrain at
    1920x1080, focused by autofocus; its closest hits go through kernel D;
@@ -86,14 +90,18 @@ TIMED = {
     ("B", "shadow", 256): "B_t256",
     ("D", "camera_blocked", 256): "D_blocked_camera", ("D", "bounce_blocked", 256): "D_blocked_bounce",
     ("B", "shadow_blocked", 256): "B_blocked_t256", ("B", "shadow_blocked", 512): "B_blocked",
+    ("A", "camera_blocked", 512): "A_blocked_camera", ("A", "bounce_blocked", 512): "A_blocked_bounce",
+    ("A", "camera", 8): "A_single",
 }
-# the kernels line: each kernel at its PERF.md table shape, then D's and B's other timed shapes
+# the kernels line: each kernel at its PERF.md table shape, then the warp walk's other timed shapes
 LINE_CASES = {
     "A": "terrain512_camera_random", "B": "terrain512_shadow_random", "C": "terrain8_shadow_random",
     "D": "terrain256_camera_random", "E": "bench_terrain128_bounce", "F": "bench_terrain256_bounce_tb2",
     "B_t256": "terrain256_shadow_random", "D_blocked_camera": "terrain256_camera_blocked",
     "D_blocked_bounce": "terrain256_bounce_blocked", "B_blocked_t256": "terrain256_shadow_blocked",
     "B_blocked": "terrain512_shadow_blocked",
+    "A_blocked_camera": "terrain512_camera_blocked", "A_blocked_bounce": "terrain512_bounce_blocked",
+    "A_single": "terrain8_camera_random",
 }
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
 
@@ -213,9 +221,8 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.load_library()
-    regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
     phase("build", t0, library=so.name, compiled_now=bool(_build.build_log),
-          nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(regs))
+          nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(_build.ptxas_report(_build.build_log)))
 
     # -- 2. kernels against their plain versions ---------------------------
     from lens_flare_tpu_torch.ops import intersect_cuda as ic
@@ -254,6 +261,12 @@ def main() -> int:
             rays.update({f"{kind}_blocked": w for kind, w in zip(("camera", "bounce", "shadow"), blocked)})
             runs.append(("B", "shadow_blocked", lambda o, d, a, b: ic.tree_any_hit(cs, o, d, a, b),
                          lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, True)))
+            if not cs.shade:  # terrain_1080p's closest hits: kernel A
+                runs += [
+                    ("A", kind_rays, lambda o, d, a, b: ic.tree_closest_hit(cs, o, d, a, b),
+                     lambda o, d, a, b: ic.tree_plain(cs, o, d, a, b, False))
+                    for kind_rays in ("camera_blocked", "bounce_blocked")
+                ]
         if cs.shade:
             kinds = ("camera", "bounce") + (("camera_blocked", "bounce_blocked") if nq in BLOCKED_SCENES else ())
             runs += [
@@ -278,17 +291,18 @@ def main() -> int:
                 a_out = ic.tree_closest_hit(cs, *args)
                 assert all(torch.equal(x, y) for x, y in zip(got[:4], a_out)), "D's walk differs from A's"
                 exact = exact and torch.equal(got[4], want[4])
-            if key in ("B", "D"):  # the warp walk gives its plain version's outputs bit for bit
+            if key in ("A", "B", "D"):  # the warp walk gives its plain version's outputs bit for bit
                 assert exact, f"{key} differs from its plain version: terrain{nq} {kind_rays}"
             errs[key] = max(errs[key], err)
             report[f"{key}_{kind_rays}"] = f"err={err:.3g},exact={exact},hits={int((got[1] >= 0).sum())}"
             # the main path's shapes: primary rays at 524k tris for A (the
             # JAX package's stream mode, PERF.md row 2), shadow rays at 524k
-            # tris for B, shadow rays of the small scene for C, primary rays
-            # at 131k tris for D (config2_frame's scene), B's shadow rays
-            # there, and D's and B's blocked-order wavefronts; and two rows
-            # no path runs by default: A on the 131k VMEM-mode tree (row 1)
-            # and C's closest-hit flag (row 5)
+            # tris for B, shadow rays of the small scene for C and its
+            # primary rays for A on the single-level tree, primary rays at
+            # 131k tris for D (config2_frame's scene), B's shadow rays there,
+            # and A's, D's and B's blocked-order wavefronts; and two rows no
+            # path runs by default: A on the 131k VMEM-mode tree (row 1) and
+            # C's closest-hit flag (row 5)
             label = TIMED.get((key, kind_rays, nq))
             if label:
                 times[label] = (
@@ -378,25 +392,11 @@ def main() -> int:
           f"D_ms={times['D'][0]:.4f} D_plain_ms={times['D'][1]:.4f}", flush=True)
 
     # -- 3. the slice: the 1080p terrain frame with the flare --------------
-    from lens_flare_tpu_torch.lens.aperture import ApertureTexture, polygon_mask
+    from lens_flare_tpu_torch.ab_walk import config2_renderer, terrain_1080p
     from lens_flare_tpu_torch.utils import image as img
 
     t0 = time.perf_counter()
-    r = Renderer(
-        width=1920, height=1080, ns_aa=1, max_ray_depth=4, ns_area_light=1, indirect=True,
-        seed=0, flare_intensity=1.5, flare_radius=30.0, device="cuda",
-        aperture=ApertureTexture.from_array(polygon_mask(256, 5, rotation=0.3)),
-        ghost_aperture=ApertureTexture.from_array(polygon_mask(64, 6)),
-    )
-    r.load_flat_scene(make_terrain_scene(512))
-    pipeline = r.flare_pipeline()
-    assert pipeline is not None, "the terrain's sun must project on screen"
-    pipeline.starburst()  # aperture FFT cached outside the timed frame, as bench.py does
-
-    def frame():
-        hdr, counts = r.render(progress=False)
-        return hdr, counts, pipeline.composite(hdr)
-
+    r, pipeline, frame = terrain_1080p("cuda")
     frame()  # warm-up: cuFFT plans, allocator, first launches
     torch.cuda.synchronize()
     ic.reset_launch_counts()
@@ -431,7 +431,7 @@ def main() -> int:
     got, _ = rs.render(progress=False)
     torch.cuda.synchronize()
     small_launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    assert small_launches["C"] > 0, f"the small frame skipped kernel C: {small_launches}"
+    assert small_launches["C"] > 0 and small_launches["A"] > 0, f"the small frame skipped C or A: {small_launches}"
     rc = Renderer(device="cpu", **small)
     rc.load_flat_scene(make_terrain_scene(8))
     want, _ = rc.render(progress=False)
@@ -446,8 +446,6 @@ def main() -> int:
           rays_traced=rs.stats.total_rays, launches=json.dumps(small_launches))
 
     # -- 5. config2_frame: thin-lens bokeh adaptive render through kernel D -
-    from lens_flare_tpu_torch.ab_walk import config2_renderer
-
     t0 = time.perf_counter()
     r2, _ = config2_renderer(256, "cuda", width=1920, height=1080, ns_aa=16, samples_per_batch=4)
     assert r2.bundle.cscene.shade and not r2.bundle.cscene.stream
@@ -545,6 +543,7 @@ def main() -> int:
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],
              "E": bench_launches["E"], "F": bench_launches["F"]}
     count.update({label: c2_launches["B"] for label in ("B_t256", "B_blocked_t256")})
+    count["A_single"] = small_launches["A"]  # the small frame's closest hits
     kernels = [
         {
             "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNEL_SOURCE,

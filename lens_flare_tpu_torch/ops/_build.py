@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,6 +88,30 @@ def build(csrc_dir: Path = CSRC_DIR) -> Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
     os.replace(tmp, so)
     return so
+
+
+_ENTRY = re.compile(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(I(?:L[bi]\d+E)+E)?")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spilled bytes of each kernel in nvcc's ``-Xptxas -v`` output.
+
+    ``{"warp_walk_kernel<false, true, 1>": "48 registers, 0 B spilled", ...}``:
+    the kernel's name with its template arguments read back from the
+    mangled symbol (``Lb1E`` -> true, ``Li2E`` -> 2).
+    """
+    regs, spill, name = {}, {}, None
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([bi])(\d+)E", entry.group(2) or "")]
+            name = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            spill[name] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            regs[name] = int(m.group(1))
+    return {k: f"{v} registers, {spill.get(k, 0)} B spilled" for k, v in regs.items()}
 
 
 def open_library(path: Path) -> ctypes.CDLL:

@@ -5,7 +5,8 @@
 // (intersect_pallas.py:1267) and pl.pallas_call:
 //
 //   A  lf_tree_closest  <- _make_kernel(any_hit=False)        :214, call :1392
-//                          (VMEM mode and the HBM-streaming mode, stream=True)
+//                          (VMEM mode and the HBM-streaming mode, stream=True;
+//                          chunk batch 2 on single-level trees; warp per ray)
 //   B  lf_tree_any_hit  <- _make_kernel(any_hit=True)         :214, call :1392
 //                          (VMEM and stream modes; warp per ray)
 //   D  lf_tree_closest_shade <- _make_kernel(shade=True)      :214, call :1392
@@ -19,7 +20,8 @@
 //                          PallasScene.__init__ :1153-1214, call :1392
 //   F  lf_tree_group    <- _make_kernel(top_batch>1)          :214, group_body
 //                          :699-799, any-hit exit :803-816, call :1392
-//                          (closest hit, any hit and shade: three instances)
+//                          (closest hit, any hit and shade: three instances;
+//                          warp per ray)
 //   _sphere_pass (:840) runs at the end of every kernel.
 //
 // Every kernel walks the same two-level cluster tree (accel/wide.py: B1 top
@@ -31,7 +33,8 @@
 // the 50 MB L2.
 //
 // Two designs:
-// - B and D, one warp per ray (warp_walk_kernel).  What bounded them as one
+// - A, B, D and F, one warp per ray (warp_walk_kernel; F's group_walk_kernel
+//   with its list and continuation passes).  What bounded them as one
 //   thread per ray was latency, not bytes or operations: a 64k-lane
 //   wavefront gave only 2,048 warps, each thread ran a long chain of
 //   dependent scalar loads from addresses private to it, and a warp ran the
@@ -41,8 +44,8 @@
 //   load coalesces, a 64k-lane call has 65,536 warps, and no lane waits on
 //   another ray's path.  Ballots pick the boxes hit and warp shuffles
 //   reduce a chunk in the sequential order (see warp_walk_kernel).
-// - A, C, E and F, one thread per ray, carried over from the TPU's
-//   per-lane walk; they keep the costs above.
+// - C and E, one thread per ray, carried over from the TPU's per-lane walk;
+//   they keep the costs above.
 //
 // Semantics kept from the Pallas kernels (see intersect_cuda.py for the
 // plain PyTorch version of each kernel, held to bit equality on the card):
@@ -255,60 +258,9 @@ __device__ __forceinline__ void sphere_pass(const float* __restrict__ sph, int n
   tests += n_spheres;
 }
 
-// Kernel A: the two-level walk, one thread per ray, chunk batch 1 or 2.
-__global__ void tree_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                            const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
-                            const float* __restrict__ top, const float* __restrict__ child,
-                            const float* __restrict__ tri, const float* __restrict__ sph, int n,
-                            int b1, int b2, int k, int n_spheres, int chunk_batch,
-                            float* __restrict__ out_t, int* __restrict__ out_slot,
-                            float* __restrict__ out_bary, int* __restrict__ out_tests) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
-  const float t_lo = r.t_lo;
-  const float t_hi = r.t_hi;
-
-  float best_t = KINF;
-  int slot = -1;
-  float ob1 = 0.0f, ob2 = 0.0f;
-  int tests = 0;
-
-  for (int tp = 0; r.finite && tp < b1; ++tp) {
-    const float t_clip = min_nan(t_hi, best_t);
-    // child boxes lie inside their top box, so this prunes exactly the
-    // children the tile-level walk would have masked off for this lane
-    if (b1 > 1 && !box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
-    Batch bt;
-    int in_batch = 0;
-    for (int c = 0; c < b2; ++c) {
-      const int node = tp * b2 + c;
-      if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
-      tests += k;  // the chunk mask is fixed for the whole top
-      const float* rows = tri + (size_t)node * k * 12;
-      if (in_batch == 0) batch_reset(bt, t_hi, best_t);
-      for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
-      if (++in_batch == chunk_batch) {
-        batch_commit(bt, best_t, slot, ob1, ob2);
-        in_batch = 0;
-      }
-    }
-    if (in_batch > 0) batch_commit(bt, best_t, slot, ob1, ob2);
-  }
-
-  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
-
-  out_t[i] = best_t;
-  out_slot[i] = slot;
-  out_bary[2 * i] = ob1;
-  out_bary[2 * i + 1] = ob2;
-  out_tests[i] = tests;
-}
-
-// Kernels B (ANY_HIT) and D (closest hit at chunk batch 1 plus shading
-// rows): one warp walks one ray.  The result is the sequential walk's (A's
-// at chunk batch 1, the plain version tree_plain), bit for bit and with
-// the same per-lane tests; only who does which test changes.
+// Kernels A, B and D: one warp walks one ray.  The result is the sequential
+// walk's (the plain version tree_plain), bit for bit and with the same
+// per-lane tests; only who does which test changes.
 //
 // 1. Tops go in words of 32, one per lane.  A ballot of each lane's top box
 //    under [t_lo, hi_pre], the loosest clip the walk can use (t_hi; for any
@@ -317,24 +269,28 @@ __global__ void tree_kernel(const float* __restrict__ o, const float* __restrict
 // 2. The candidates go in ascending order.  The clip is fixed at the top's
 //    start (min(t_hi, best_t); for any hit t_hi, or 0 once occluded), and a
 //    candidate is tested again, warp-uniformly, where the clip is tighter.
-// 3. The top's children go in words of 32: a ballot of the child boxes hit
-//    under the clip, K tests charged per set bit, then each set child's chunk
-//    in ascending order, one slot per lane in strides of 32 (K != 32 masks
-//    or loops).
-// 4. Closest hit: a chunk's limit is min(t_hi, best_t) at its start; the
-//    warp's minimum t (fminf butterfly), then a ballot of the slots tied at
-//    it.  Merged stride by stride into the chunk's state exactly as
-//    batch_test's sequential update would: the first tied slot's t (its
-//    sign of zero too), the highest tied slot id, and fmaxf over the tied
-//    barycentrics in ascending slot order.  The chunk commits where its t
-//    beats best_t.  Any hit: __any_sync; once occluded, the top's charged
-//    tests stand, and the walk goes on under [t_lo, 0] only where t_lo <= 0.
+// 3. The top's children go in words of 32 (walk_top): a ballot of the child
+//    boxes hit under the clip, K tests charged per set bit, then each set
+//    child's chunk in ascending order, one slot per lane in strides of 32
+//    (K != 32 masks or loops).
+// 4. Closest hit: the hit chunks of a top go in batches of CB (chunk batch,
+//    2 on single-level trees for A, else 1), in hit order and across child
+//    words.  A batch's limit is min(t_hi, best_t) at its start; each
+//    chunk's stride takes the warp's minimum t (fminf butterfly), then a
+//    ballot of the slots tied at it, merged into the batch's state exactly as
+//    batch_test's sequential update would: the first tied slot's t (its sign
+//    of zero too), the highest tied slot id, and fmaxf over the tied
+//    barycentrics in ascending slot order.  The batch commits where its t
+//    beats best_t, after every CB-th hit chunk and at the top's end.  Any
+//    hit: __any_sync; once occluded, the top's charged tests stand, and the
+//    walk goes on under [t_lo, 0] only where t_lo <= 0.
 // 5. A ray with a NaN or an empty interval (t_lo > t_hi) hits no box under
 //    any clip: it skips the walk in one uniform branch.
-// 6. D takes the winner's 10-float row before the sphere pass (lanes 0-9
-//    copy one float each, zeros where no triangle won), as the TPU kernel's
-//    one-hot select did (intersect_pallas.py:524-542, :843-847).  Every lane
-//    then runs the sphere pass on the same values; lane 0 writes the outputs.
+// 6. D (SHADE) takes the winner's 10-float row before the sphere pass
+//    (lanes 0-9 copy one float each, zeros where no triangle won), as the
+//    TPU kernel's one-hot select did (intersect_pallas.py:524-542,
+//    :843-847).  Every lane then runs the sphere pass on the same values;
+//    lane 0 writes the outputs.
 //
 // The TPU walked tiles of rays in lockstep because its vector unit is wide
 // and its cost is per tile; a packet of rays per warp would bring back the
@@ -355,47 +311,37 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// One chunk of closest hit: the sequential batch_reset / batch_test x K /
-// batch_commit, with the slots spread over the warp.
-__device__ __forceinline__ void warp_chunk_closest(const float* __restrict__ tri, int node, int k,
-                                                   int lane, const Ray& r, float& best_t,
-                                                   int& slot, float& ob1, float& ob2) {
-  const float limit = min_nan(r.t_hi, best_t);
-  float bt = KINF;  // batch state, as Batch: t, max id and barycentrics at it
-  int bid = -1;
-  float bb1 = -KINF, bb2 = -KINF;
+// One chunk of closest hit merged into the batch bt: the sequential
+// batch_test x K, with the slots spread over the warp.
+__device__ __forceinline__ void warp_chunk_test(const float* __restrict__ tri, int node, int k,
+                                                int lane, const Ray& r, Batch& bt) {
   for (int s0 = 0; s0 < k; s0 += 32) {
     const int s = s0 + lane;
     float tt = 0.0f, b1 = 0.0f, b2 = 0.0f;
     bool valid = false;
     if (s < k)
-      valid = closest_terms(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, limit, tt, b1,
-                            b2);
+      valid = closest_terms(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, bt.limit, tt,
+                            b1, b2);
     const float mn = warp_min(valid ? tt : KINF);
-    if (mn > bt) continue;  // every valid slot of the stride loses
+    if (mn > bt.t) continue;  // every valid slot of the stride loses
     const unsigned tied = __ballot_sync(FULL_MASK, valid && tt == mn);
     if (tied == 0u) continue;  // no valid slot at all
     unsigned rest = tied;
-    if (mn < bt) {  // the first tied slot replaces the state
+    if (mn < bt.t) {  // the first tied slot replaces the state
       const int first = __ffs(tied) - 1;
-      bt = __shfl_sync(FULL_MASK, tt, first);
-      bb1 = __shfl_sync(FULL_MASK, b1, first);
-      bb2 = __shfl_sync(FULL_MASK, b2, first);
+      bt.t = __shfl_sync(FULL_MASK, tt, first);
+      bt.b1 = __shfl_sync(FULL_MASK, b1, first);
+      bt.b2 = __shfl_sync(FULL_MASK, b2, first);
       rest &= rest - 1u;
     }
-    bid = max(bid, node * k + s0 + 31 - __clz(tied));
+    // slot ids only grow along a batch, so the max is the highest tied one
+    bt.id = max(bt.id, node * k + s0 + 31 - __clz(tied));
     while (rest != 0u) {  // the others tie with it, in slot order
       const int l = __ffs(rest) - 1;
       rest &= rest - 1u;
-      bb1 = fmaxf(bb1, __shfl_sync(FULL_MASK, b1, l));
-      bb2 = fmaxf(bb2, __shfl_sync(FULL_MASK, b2, l));
+      bt.b1 = fmaxf(bt.b1, __shfl_sync(FULL_MASK, b1, l));
+      bt.b2 = fmaxf(bt.b2, __shfl_sync(FULL_MASK, b2, l));
     }
-  }
-  if (bt < best_t) {
-    best_t = bt;
-    slot = bid;
-    ob1 = bb1;
-    ob2 = bb2;
   }
 }
 
@@ -411,7 +357,77 @@ __device__ __forceinline__ bool warp_chunk_occludes(const float* __restrict__ tr
   return false;
 }
 
-template <bool ANY_HIT>
+// The walk's state, the same in every lane of the warp.
+struct Walk {
+  float best_t = KINF;
+  int slot = -1;
+  float ob1 = 0.0f, ob2 = 0.0f;
+  int tests = 0;
+  bool occluded = false;
+};
+
+// The children of top tp under the clip [t_lo, t_clip]: K tests charged per
+// child box hit, then the hit chunks in ascending order, closest hit in
+// batches of CB, a template argument so that at CB = 1 (every walk but A's
+// on single-level trees) no batch state lives across chunks.
+template <bool ANY_HIT, int CB>
+__device__ __forceinline__ void walk_top(const float* __restrict__ child,
+                                         const float* __restrict__ tri, int tp, float t_clip,
+                                         int b2, int k, int lane, const Ray& r, Walk& w) {
+  Batch bt{};  // reset before its first use
+  int in_batch = 0;
+  for (int c0 = 0; c0 < b2; c0 += 32) {
+    const int c = c0 + lane;
+    const unsigned hits =
+        __ballot_sync(FULL_MASK, c < b2 && box_hit4(child + 8 * (tp * b2 + c), r, r.t_lo, t_clip));
+    w.tests += k * __popc(hits);  // the chunk mask is fixed for the whole top
+    unsigned todo = (ANY_HIT && w.occluded) ? 0u : hits;
+    while (todo != 0u) {
+      const int node = tp * b2 + c0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      if (ANY_HIT) {
+        if (warp_chunk_occludes(tri, node, k, lane, r)) {
+          w.occluded = true;
+          todo = 0u;
+        }
+      } else {
+        if (in_batch == 0) batch_reset(bt, r.t_hi, w.best_t);
+        warp_chunk_test(tri, node, k, lane, r, bt);
+        if (++in_batch == CB) {
+          batch_commit(bt, w.best_t, w.slot, w.ob1, w.ob2);
+          in_batch = 0;
+        }
+      }
+    }
+  }
+  if (!ANY_HIT && in_batch > 0) batch_commit(bt, w.best_t, w.slot, w.ob1, w.ob2);
+}
+
+// The end of every warp walk: the any-hit marker, D's row (lanes 0-9, before
+// the spheres), the sphere pass in every lane, and lane 0's outputs.
+template <bool ANY_HIT, bool SHADE>
+__device__ __forceinline__ void warp_finish(int i, int lane, const Ray& r, Walk& w,
+                                            const float* __restrict__ shade,
+                                            const float* __restrict__ sph, int n_spheres,
+                                            int base_slot, float* __restrict__ out_t,
+                                            int* __restrict__ out_slot,
+                                            float* __restrict__ out_bary,
+                                            int* __restrict__ out_tests,
+                                            float* __restrict__ out_shade) {
+  if (ANY_HIT && w.occluded) w.slot = 0;
+  if (SHADE && lane < 10)  // lane j copies float j of the row
+    out_shade[(size_t)10 * i + lane] = w.slot >= 0 ? shade[(size_t)10 * w.slot + lane] : 0.0f;
+  sphere_pass(sph, n_spheres, base_slot, r, w.best_t, w.slot, w.tests);
+  if (lane == 0) {
+    out_t[i] = w.best_t;
+    out_slot[i] = w.slot;
+    out_bary[2 * i] = w.ob1;
+    out_bary[2 * i + 1] = w.ob2;
+    out_tests[i] = w.tests;
+  }
+}
+
+template <bool ANY_HIT, bool SHADE, int CB>
 __global__ void __launch_bounds__(32 * WALK_RAYS)
     warp_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
@@ -427,13 +443,7 @@ __global__ void __launch_bounds__(32 * WALK_RAYS)
   const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
   const float t_lo = r.t_lo;
   const float t_hi = r.t_hi;
-
-  // the walk's state, the same in every lane
-  float best_t = KINF;
-  int slot = -1;
-  float ob1 = 0.0f, ob2 = 0.0f;
-  int tests = 0;
-  bool occluded = false;
+  Walk w;
 
   if (r.finite && t_lo <= t_hi) {
     const float hi_pre = ANY_HIT ? fmaxf(t_hi, 0.0f) : t_hi;
@@ -448,49 +458,18 @@ __global__ void __launch_bounds__(32 * WALK_RAYS)
         const int tp = tp0 + __ffs(cand) - 1;
         cand &= cand - 1u;
         // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
-        if (ANY_HIT && occluded && !(t_lo <= 0.0f)) {
+        if (ANY_HIT && w.occluded && !(t_lo <= 0.0f)) {
           done = true;
           break;
         }
-        const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
+        const float t_clip = ANY_HIT ? (w.occluded ? 0.0f : t_hi) : min_nan(t_hi, w.best_t);
         if (b1 > 1 && t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
-        for (int c0 = 0; c0 < b2; c0 += 32) {
-          const int c = c0 + lane;
-          const unsigned hits =
-              __ballot_sync(FULL_MASK, c < b2 && box_hit4(child + 8 * (tp * b2 + c), r, t_lo, t_clip));
-          tests += k * __popc(hits);  // the chunk mask is fixed for the whole top
-          unsigned todo = (ANY_HIT && occluded) ? 0u : hits;
-          while (todo != 0u) {
-            const int node = tp * b2 + c0 + __ffs(todo) - 1;
-            todo &= todo - 1u;
-            if (ANY_HIT) {
-              if (warp_chunk_occludes(tri, node, k, lane, r)) {
-                occluded = true;
-                todo = 0u;
-              }
-            } else {
-              warp_chunk_closest(tri, node, k, lane, r, best_t, slot, ob1, ob2);
-            }
-          }
-        }
+        walk_top<ANY_HIT, CB>(child, tri, tp, t_clip, b2, k, lane, r, w);
       }
     }
   }
-  if (ANY_HIT && occluded) slot = 0;
-
-  if (!ANY_HIT && lane < 10) {  // D's row: lane j copies float j
-    out_shade[(size_t)10 * i + lane] = slot >= 0 ? shade[(size_t)10 * slot + lane] : 0.0f;
-  }
-
-  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
-
-  if (lane == 0) {
-    out_t[i] = best_t;
-    out_slot[i] = slot;
-    out_bary[2 * i] = ob1;
-    out_bary[2 * i + 1] = ob2;
-    out_tests[i] = tests;
-  }
+  warp_finish<ANY_HIT, SHADE>(i, lane, r, w, shade, sph, n_spheres, b1 * b2 * k, out_t, out_slot,
+                              out_bary, out_tests, out_shade);
 }
 
 // Kernel C: the tree-free pass over every real triangle of a tiny scene.
@@ -638,70 +617,75 @@ __global__ void mxu_kernel(const float* __restrict__ o, const float* __restrict_
 // SHADE false), any hit (ANY_HIT) and closest hit with D's shading rows
 // (SHADE).  Its t, slot, barycentrics, hits and rows equal A's, B's and D's;
 // it differs from them in when the clip interval is fixed, which shows only
-// in the tests counter.  To count as the TPU kernel did, lane for lane, a
-// block is one tile of the TPU grid, of the size the caller passes
+// in the tests counter.  To count as the TPU kernel did, lane for lane, rays
+// go in tiles of the TPU grid, of the size the caller passes
 // (intersect_cuda.group_tile: _auto_tile's 512 lanes, or 1024 for any hit),
 // tail padding lanes included (o = d = 0, t_lo = t_hi = 0,
-// intersect_pallas.py:1435-1440):
-// 1. the block ORs its lanes' top-box hits under [t_lo, t_hi] into a shared
-//    flag per top (intersect_pallas.py:342-347), and one warp compacts the
-//    flags into the ascending active-top list;
-// 2. each lane walks that list in groups of TB tops: the clip is fixed at the
-//    group's start (min(t_hi, best_t); [t_lo, 0] once occluded), K tests are
-//    charged per child box hit under it, and the chunks are tested in group
-//    order (tops in list order, children ascending) with the running best as
-//    the limit (group_body, :699-799);
-// 3. any hit: before each group the block stops once every lane is occluded
-//    or dead (t_hi <= t_lo), the while_loop of :803-816.  An occluded lane
-//    with t_lo > 0 hits no box under [t_lo, 0] and idles; one with t_lo <= 0
-//    keeps being charged until its block stops.
+// intersect_pallas.py:1435-1440).  A lane's walk depends on its tile through
+// the tile's active-top list and, for any hit, the group before which the
+// tile stops.  Each is computed in a pass of its own, so that the walk keeps
+// one warp per ray (A's, B's and D's design) rather than one block per tile:
+// 1. group_list_kernel, one block per tile, one thread per lane up to 1024:
+//    the tile's lanes OR their top-box hits under [t_lo, t_hi] into a
+//    shared flag per top (intersect_pallas.py:342-347), and one warp
+//    compacts the flags into the tile's ascending active-top list, written
+//    to global scratch with its length.
+// 2. group_walk_kernel, one warp per ray: the lane walks its tile's list in
+//    groups of TB tops (group_walk).  The clip is fixed at the group's start
+//    (min(t_hi, best_t); [t_lo, 0] once occluded), K tests are charged per
+//    child box hit under it, and the chunks resolve in group order (tops in
+//    list order, children ascending) with the running best as each chunk's
+//    limit (group_body, :699-799).  The list goes in words of 32 entries, a
+//    ballot of their top boxes under the loosest clip first, as in A's walk.
+//    Any hit: the tile stops before the first group at which every lane is
+//    occluded or dead (t_hi <= t_lo), the while_loop of :803-816.  A lane is
+//    so from its "done group" on: 0 if dead, one past the group in which it
+//    became occluded, else the tile's group count (a NaN lane, for one).  The
+//    lane walks up to its done group, and atomicMax folds that into its
+//    tile's exit group.
+// 3. Any hit only, group_continue_kernel: the lanes that are charged after
+//    they are done walk on from their done group to the tile's exit group:
+//    occluded lanes with t_lo <= 0, which still enter boxes under [t_lo, 0],
+//    and dead lanes with t_lo == t_hi, which enter boxes at a point (their
+//    whole walk).  A warp takes 32 lanes and walks those few in turn.
 // The children of a top lie inside its box and the slab test is monotone in
 // the box bounds, so a lane that misses a top's box under the clip misses all
-// its children: skipping them changes no count.  What bounds it: the same
-// divergent L2 loads as A, plus one __syncthreads_or per group for any hit.
-// The TPU batched tops to amortise its per-top sequential overhead, which
-// one thread per ray does not have; B's and D's warp-per-ray walk, with the
-// tile's list and exit kept per block, is its redesign.
-constexpr int GROUP_MAX_TILE = 1024;  // the largest block, so the largest tile
+// its children: skipping them changes no count.  What bounds it is the walk
+// pass, latency-bound as A's walk; the list pass (tile x B1 box tests per
+// tile) is about an eighth of a call at the kernel bench's shapes (PERF.md).
+constexpr int LIST_MAX_THREADS = 1024;
 
-template <bool ANY_HIT, bool SHADE>
-__global__ void __launch_bounds__(GROUP_MAX_TILE)
-    group_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                 const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
-                 const float* __restrict__ top, const float* __restrict__ child,
-                 const float* __restrict__ tri, const float* __restrict__ shade,
-                 const float* __restrict__ sph, int n, int b1, int b2, int k, int n_spheres,
-                 int tb, float* __restrict__ out_t, int* __restrict__ out_slot,
-                 float* __restrict__ out_bary, int* __restrict__ out_tests,
-                 float* __restrict__ out_shade) {
-  extern __shared__ int smem[];
-  int* flags = smem;       // (b1,) 1 where a lane of the tile hits the top
-  int* tops = smem + b1;   // (b1,) the tile's active tops, ascending
-  __shared__ int n_top_s;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool real = i < n;
+// The tile's padding lanes: o = d = 0, t_lo = t_hi = 0.
+__device__ __forceinline__ Ray padding_ray() {
   Ray r;
-  if (real) {
-    r = load_ray(o, d, t_lo_in, t_hi_in, i);
-  } else {  // a tail padding lane of the tile
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      r.o[a] = 0.0f;
-      r.d[a] = 0.0f;
-      r.inv[a] = safe_inv(0.0f);
-    }
-    r.t_lo = r.t_hi = 0.0f;
-    r.finite = true;
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = 0.0f;
+    r.d[a] = 0.0f;
+    r.inv[a] = safe_inv(0.0f);
   }
-  const float t_lo = r.t_lo;
-  const float t_hi = r.t_hi;
+  r.t_lo = r.t_hi = 0.0f;
+  r.finite = true;
+  return r;
+}
 
+__global__ void __launch_bounds__(LIST_MAX_THREADS)
+    group_list_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                      const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                      const float* __restrict__ top, int n, int b1, int tile,
+                      int* __restrict__ lists, int* __restrict__ counts,
+                      int* __restrict__ exits) {
+  extern __shared__ int flags[];  // (b1,) 1 where a lane of the tile hits the top
+  const int t = blockIdx.x;
   for (int j = threadIdx.x; j < b1; j += blockDim.x) flags[j] = 0;
   __syncthreads();
-  if (r.finite) {
+  for (int l = threadIdx.x; l < tile; l += blockDim.x) {
+    const int i = t * tile + l;
+    const Ray r = i < n ? load_ray(o, d, t_lo_in, t_hi_in, i) : padding_ray();
+    if (!r.finite) continue;
+    // a flag another lane has set needs no test (a stale read only costs one)
     for (int tp = 0; tp < b1; ++tp)
-      if (box_hit(top + 8 * tp, r, t_lo, t_hi)) flags[tp] = 1;
+      if (!flags[tp] && box_hit4(top + 8 * tp, r, r.t_lo, r.t_hi)) flags[tp] = 1;
   }
   __syncthreads();
   if (threadIdx.x < 32) {
@@ -710,102 +694,179 @@ __global__ void __launch_bounds__(GROUP_MAX_TILE)
     for (int base = 0; base < b1; base += 32) {
       const int j = base + lane;
       const bool f = j < b1 && flags[j] != 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, f);
-      if (f) tops[count + __popc(mask & ((1u << lane) - 1u))] = j;
+      const unsigned mask = __ballot_sync(FULL_MASK, f);
+      if (f) lists[(size_t)t * b1 + count + __popc(mask & ((1u << lane) - 1u))] = j;
       count += __popc(mask);
     }
-    if (lane == 0) n_top_s = count;
+    if (lane == 0) {
+      counts[t] = count;
+      exits[t] = 0;
+    }
   }
-  __syncthreads();
-  const int n_top = n_top_s;
-  const int n_groups = (n_top + tb - 1) / tb;
+}
 
-  float best_t = KINF;
-  int slot = -1;
-  float ob1 = 0.0f, ob2 = 0.0f;
-  int tests = 0;
-  bool occluded = false;
-  const bool dead = t_hi <= t_lo;
-  const bool walks = real && r.finite;
-
-  for (int g = 0; g < n_groups; ++g) {
-    // every thread reaches this barrier: n_groups and the exit are block-uniform
-    if (ANY_HIT && __syncthreads_or(!(occluded || dead)) == 0) break;
-    if (!walks || (ANY_HIT && occluded && !(t_lo <= 0.0f))) continue;
-    const float t_clip = ANY_HIT ? (occluded ? 0.0f : t_hi) : min_nan(t_hi, best_t);
-    for (int u = 0; u < tb; ++u) {
-      const int si = g * tb + u;
-      if (si >= n_top) break;
-      const int tp = tops[si];
-      if (!box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
-      for (int ch = 0; ch < b2; ++ch) {
-        const int node = tp * b2 + ch;
-        if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
-        tests += k;
-        const float* rows = tri + (size_t)node * k * 12;
-        if (ANY_HIT) {
-          if (occluded) continue;
-          for (int s = 0; s < k; ++s) {
-            if (occludes(mt_terms(rows + 12 * s, r), t_lo, t_hi)) {
-              occluded = true;
-              break;
-            }
-          }
-        } else {
-          Batch bt;
-          batch_reset(bt, t_hi, best_t);
-          for (int s = 0; s < k; ++s) batch_test(bt, mt_terms(rows + 12 * s, r), node * k + s, t_lo);
-          batch_commit(bt, best_t, slot, ob1, ob2);
-        }
+// Entries [e_begin, e_end) of the tile's list, in groups of tb from entry 0.
+// stop_when_done (pass 2 of any hit): stop at the lane's done group.
+// Returns the group in which the lane became occluded (any hit), else -1.
+template <bool ANY_HIT>
+__device__ __forceinline__ int group_walk(const float* __restrict__ top,
+                                          const float* __restrict__ child,
+                                          const float* __restrict__ tri,
+                                          const int* __restrict__ list, int e_begin, int e_end,
+                                          int tb, bool stop_when_done, int b2, int k, int lane,
+                                          const Ray& r, Walk& w) {
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+  const float hi_pre = ANY_HIT ? fmaxf(t_hi, 0.0f) : t_hi;
+  int occ_group = -1;
+  int g_cur = -1;
+  float t_clip = t_hi;
+  for (int j0 = e_begin & ~31; j0 < e_end; j0 += 32) {
+    const int j = j0 + lane;
+    const bool in = j >= e_begin && j < e_end;
+    const int tp_l = in ? list[j] : 0;
+    unsigned cand = __ballot_sync(FULL_MASK, in && box_hit4(top + 8 * tp_l, r, t_lo, hi_pre));
+    while (cand != 0u) {
+      const int bit = __ffs(cand) - 1;
+      cand &= cand - 1u;
+      const int g = (j0 + bit) / tb;
+      if (g != g_cur) {
+        // a group with no candidate changes nothing, so the clip taken at
+        // its first candidate is the one fixed at its start
+        if (ANY_HIT && w.occluded && (stop_when_done || !(t_lo <= 0.0f))) return occ_group;
+        g_cur = g;
+        t_clip = ANY_HIT ? (w.occluded ? 0.0f : t_hi) : min_nan(t_hi, w.best_t);
       }
+      const int tp = __shfl_sync(FULL_MASK, tp_l, bit);
+      if (t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
+      const bool was_occluded = w.occluded;
+      walk_top<ANY_HIT, 1>(child, tri, tp, t_clip, b2, k, lane, r, w);
+      if (ANY_HIT && w.occluded && !was_occluded) occ_group = g;
     }
   }
-  if (!real) return;
-  if (ANY_HIT && occluded) slot = 0;
-  if (SHADE) {  // as kernel D: the best triangle's row, before the spheres
-    float* row = out_shade + (size_t)10 * i;
-    if (slot >= 0) {
-      const float* src = shade + (size_t)10 * slot;
-#pragma unroll
-      for (int j = 0; j < 10; ++j) row[j] = src[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 10; ++j) row[j] = 0.0f;
+  return occ_group;
+}
+
+template <bool ANY_HIT, bool SHADE>
+__global__ void __launch_bounds__(32 * WALK_RAYS)
+    group_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                      const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                      const float* __restrict__ top, const float* __restrict__ child,
+                      const float* __restrict__ tri, const float* __restrict__ shade,
+                      const float* __restrict__ sph, int n, int b1, int b2, int k,
+                      int n_spheres, int tb, int tile, const int* __restrict__ lists,
+                      const int* __restrict__ counts, int* __restrict__ exits,
+                      int* __restrict__ cont, float* __restrict__ out_t,
+                      int* __restrict__ out_slot, float* __restrict__ out_bary,
+                      int* __restrict__ out_tests, float* __restrict__ out_shade) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * WALK_RAYS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
+  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+  const int t = i / tile;
+  const int n_top = counts[t];
+  Walk w;
+  // any hit: a dead lane (t_hi <= t_lo) is done from group 0, so its walk,
+  // where it has one (t_lo == t_hi), is pass 3's
+  const bool walks = r.finite && (ANY_HIT ? t_lo < t_hi : t_lo <= t_hi);
+  int occ_group = -1;
+  if (walks)
+    occ_group = group_walk<ANY_HIT>(top, child, tri, lists + (size_t)t * b1, 0, n_top, tb, ANY_HIT,
+                                    b2, k, lane, r, w);
+  if (ANY_HIT) {
+    const int n_groups = (n_top + tb - 1) / tb;
+    const int done = (t_hi <= t_lo) ? 0 : (w.occluded ? occ_group + 1 : n_groups);
+    const bool charged_on = r.finite && ((w.occluded && t_lo <= 0.0f) || t_lo == t_hi);
+    if (lane == 0) {
+      atomicMax(exits + t, done);
+      cont[i] = charged_on ? done : -1;
     }
   }
-  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
-  out_t[i] = best_t;
-  out_slot[i] = slot;
-  out_bary[2 * i] = ob1;
-  out_bary[2 * i + 1] = ob2;
-  out_tests[i] = tests;
+  warp_finish<ANY_HIT, SHADE>(i, lane, r, w, shade, sph, n_spheres, b1 * b2 * k, out_t, out_slot,
+                              out_bary, out_tests, out_shade);
+}
+
+__global__ void __launch_bounds__(32 * WALK_RAYS)
+    group_continue_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                          const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                          const float* __restrict__ top, const float* __restrict__ child,
+                          const float* __restrict__ tri, int n, int b1, int b2, int k, int tb,
+                          int tile, const int* __restrict__ lists,
+                          const int* __restrict__ counts, const int* __restrict__ exits,
+                          const int* __restrict__ cont, int* __restrict__ out_slot,
+                          int* __restrict__ out_tests) {
+  const int lane = threadIdx.x & 31;
+  const int base = (blockIdx.x * WALK_RAYS + (threadIdx.x >> 5)) * 32;
+  if (base >= n) return;  // the whole warp
+  const int j = base + lane;
+  const int from = j < n ? cont[j] : -1;
+  const int to = j < n ? exits[j / tile] : 0;
+  unsigned todo = __ballot_sync(FULL_MASK, from >= 0 && from < to);
+  while (todo != 0u) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int i = base + l;
+    const int g0 = __shfl_sync(FULL_MASK, from, l);
+    const int g1 = __shfl_sync(FULL_MASK, to, l);
+    const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+    const int t = i / tile;
+    Walk w;
+    w.occluded = r.t_lo != r.t_hi;  // an occluded lane; a dead one walks afresh
+    group_walk<true>(top, child, tri, lists + (size_t)t * b1, g0 * tb, min(counts[t], g1 * tb),
+                     tb, false, b2, k, lane, r, w);
+    if (lane == 0) {
+      out_tests[i] += w.tests;
+      // pass 2 wrote -1 where neither a triangle nor a sphere was hit
+      if (w.occluded && out_slot[i] == -1) out_slot[i] = 0;
+    }
+  }
 }
 
 constexpr int TREE_THREADS = 128;
 constexpr int BRUTE_THREADS = 256;
 static_assert(BRUTE_TILE % BRUTE_THREADS == 0, "a block must lie inside one brute tile");
 
+template <bool ANY_HIT, bool SHADE, int CB>
+int launch_walk(const float* o, const float* d, const float* t_lo, const float* t_hi,
+                const float* top, const float* child, const float* tri, const float* shade,
+                const float* sph, int n, int b1, int b2, int k, int n_spheres, float* out_t,
+                int* out_slot, float* out_bary, int* out_tests, float* out_shade, void* stream) {
+  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
+    warp_walk_kernel<ANY_HIT, SHADE, CB><<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
+        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
+        out_bary, out_tests, out_shade);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer;
 // rays are o (N, 3), d (N, 3), t_lo (N,), t_hi (N,); outputs t (N,),
 // slot (N,), bary (N, 2), tests (N,).  Returns cudaGetLastError().
+// Kernels A, B, D and F walk one ray per warp: top, child and tri 16-byte
+// aligned (the wrapper checks), any B1, B2, K >= 1.
+// Kernel A: chunk_batch 1 or 2 (_auto_chunk_batch: 2 on single-level trees).
 extern "C" int lf_tree_closest(const float* o, const float* d, const float* t_lo,
                                const float* t_hi, const float* top, const float* child,
                                const float* tri, const float* sph, int n, int b1, int b2, int k,
                                int n_spheres, int chunk_batch, float* out_t, int* out_slot,
                                float* out_bary, int* out_tests, void* stream) {
-  if (n > 0) {
-    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    tree_kernel<<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, sph, n, b1, b2, k, n_spheres, chunk_batch, out_t,
-        out_slot, out_bary, out_tests);
-  }
-  return (int)cudaGetLastError();
+  if (chunk_batch == 1)
+    return launch_walk<false, false, 1>(o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1,
+                                        b2, k, n_spheres, out_t, out_slot, out_bary, out_tests,
+                                        nullptr, stream);
+  if (chunk_batch == 2)
+    return launch_walk<false, false, 2>(o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1,
+                                        b2, k, n_spheres, out_t, out_slot, out_bary, out_tests,
+                                        nullptr, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Kernels D and B, one warp per ray: top, child and tri 16-byte aligned
-// (the wrapper checks), any B1, B2, K >= 1.
 // Kernel D: shade (B1*B2*K, 10) slot-ordered [9 corner-normal components |
 // bsdf id]; out_shade (N, 10).  Chunk batch 1, as the TPU's shade mode forces
 // (intersect_pallas.py:1307-1308).
@@ -815,14 +876,9 @@ extern "C" int lf_tree_closest_shade(const float* o, const float* d, const float
                                      int n, int b1, int b2, int k, int n_spheres, float* out_t,
                                      int* out_slot, float* out_bary, int* out_tests,
                                      float* out_shade, void* stream) {
-  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
-    warp_walk_kernel<false><<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
-        out_bary, out_tests, out_shade);
-  }
-  return (int)cudaGetLastError();
+  return launch_walk<false, true, 1>(o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k,
+                                     n_spheres, out_t, out_slot, out_bary, out_tests, out_shade,
+                                     stream);
 }
 
 extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo,
@@ -830,14 +886,9 @@ extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo
                                const float* tri, const float* sph, int n, int b1, int b2, int k,
                                int n_spheres, float* out_t, int* out_slot, float* out_bary,
                                int* out_tests, void* stream) {
-  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
-    warp_walk_kernel<true><<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
-        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
-        out_bary, out_tests, nullptr);
-  }
-  return (int)cudaGetLastError();
+  return launch_walk<true, false, 1>(o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k,
+                                     n_spheres, out_t, out_slot, out_bary, out_tests, nullptr,
+                                     stream);
 }
 
 extern "C" int lf_brute(const float* o, const float* d, const float* t_lo, const float* t_hi,
@@ -873,33 +924,54 @@ extern "C" int lf_tree_closest_mxu(const float* o, const float* d, const float* 
   return (int)cudaGetLastError();
 }
 
-// Kernel F: tb tops per group (2 <= tb <= b1, multi-level trees), one block
-// per tile of tile lanes (32 <= tile <= 1024, a multiple of 32); any_hit
-// selects the any-hit instance, shade_rows the shade one (shade and
-// out_shade as for kernel D).
+// Kernel F: tb tops per group (2 <= tb <= b1, multi-level trees) in tiles
+// of tile lanes; any_hit selects the any-hit instance, shade_rows the shade
+// one (shade and out_shade as for kernel D).  Two passes, three for any hit
+// (see group_walk_kernel).  The tiles' lists, counts and exit groups, and
+// for any hit one int per lane, live in scratch taken from the stream's
+// pool (cudaMallocAsync) and given back on the same stream after the last
+// pass: no host synchronisation, and the C interface is the one the
+// single-pass kernel had.
 extern "C" int lf_tree_group(const float* o, const float* d, const float* t_lo,
                              const float* t_hi, const float* top, const float* child,
                              const float* tri, const float* shade, const float* sph, int n,
                              int b1, int b2, int k, int n_spheres, int tb, int tile,
                              int any_hit, int shade_rows, float* out_t, int* out_slot,
                              float* out_bary, int* out_tests, float* out_shade, void* stream) {
-  if (tile < 32 || tile > GROUP_MAX_TILE || tile % 32 != 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int grid = (n + tile - 1) / tile;
-    const size_t smem = 2 * sizeof(int) * (size_t)b1;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (any_hit)
-      group_kernel<true, false><<<grid, tile, smem, st>>>(
-          o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, out_t,
-          out_slot, out_bary, out_tests, nullptr);
-    else if (shade_rows)
-      group_kernel<false, true><<<grid, tile, smem, st>>>(
-          o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, tb, out_t,
-          out_slot, out_bary, out_tests, out_shade);
-    else
-      group_kernel<false, false><<<grid, tile, smem, st>>>(
-          o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, out_t,
-          out_slot, out_bary, out_tests, nullptr);
+  if (b1 < 1 || b2 < 1 || k < 1 || tb < 1 || tile < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (n - 1) / tile + 1;
+  const size_t words = (size_t)n_tiles * (b1 + 2) + (any_hit ? (size_t)n : 0);
+  int* scratch = nullptr;
+  cudaError_t err = cudaMallocAsync(reinterpret_cast<void**>(&scratch), words * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  int* lists = scratch;                       // (n_tiles, b1)
+  int* counts = lists + (size_t)n_tiles * b1;  // (n_tiles,)
+  int* exits = counts + n_tiles;               // (n_tiles,)
+  int* cont = exits + n_tiles;                 // (n,), any hit
+  const int list_threads = tile < LIST_MAX_THREADS ? (tile + 31) / 32 * 32 : LIST_MAX_THREADS;
+  group_list_kernel<<<n_tiles, list_threads, sizeof(int) * (size_t)b1, st>>>(
+      o, d, t_lo, t_hi, top, n, b1, tile, lists, counts, exits);
+  const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
+  if (any_hit) {
+    group_walk_kernel<true, false><<<grid, 32 * WALK_RAYS, 0, st>>>(
+        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, tile, lists,
+        counts, exits, cont, out_t, out_slot, out_bary, out_tests, nullptr);
+    const int grid_cont = (n + 32 * WALK_RAYS - 1) / (32 * WALK_RAYS);
+    group_continue_kernel<<<grid_cont, 32 * WALK_RAYS, 0, st>>>(
+        o, d, t_lo, t_hi, top, child, tri, n, b1, b2, k, tb, tile, lists, counts, exits, cont,
+        out_slot, out_tests);
+  } else if (shade_rows) {
+    group_walk_kernel<false, true><<<grid, 32 * WALK_RAYS, 0, st>>>(
+        o, d, t_lo, t_hi, top, child, tri, shade, sph, n, b1, b2, k, n_spheres, tb, tile, lists,
+        counts, exits, nullptr, out_t, out_slot, out_bary, out_tests, out_shade);
+  } else {
+    group_walk_kernel<false, false><<<grid, 32 * WALK_RAYS, 0, st>>>(
+        o, d, t_lo, t_hi, top, child, tri, nullptr, sph, n, b1, b2, k, n_spheres, tb, tile, lists,
+        counts, exits, nullptr, out_t, out_slot, out_bary, out_tests, nullptr);
   }
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  const cudaError_t freed = cudaFreeAsync(scratch, st);
+  return (int)(err != cudaSuccess ? err : freed);
 }

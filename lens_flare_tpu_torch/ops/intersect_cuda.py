@@ -30,9 +30,11 @@ any hit and shade) are reached only when a caller asks for them
 package, whose defaults are ``mxu=False`` and ``TOP_BATCH = 1``: the kernel
 bench (:mod:`lens_flare_tpu_torch.bench_kernels`) is their path.
 
-B and D walk one ray per warp (32 boxes or one chunk's slots at a time,
-read coalesced); A, C, E and F one ray per thread.  All six give their
-plain version's outputs bit for bit, ``tests`` included.
+A, B, D and F walk one ray per warp (32 boxes or one chunk's slots at a
+time, read coalesced; F with a pass before the walk for its tiles'
+active-top lists, and for any hit one after it for the lanes charged past
+their own end); C and E one ray per thread.  All six give their plain
+version's outputs bit for bit, ``tests`` included.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
@@ -55,7 +57,7 @@ BRUTE_BLOCK = 64  # rows per tie-breaking block of kernel C's closest hit
 # lanes per tile of the group walk (F): the tile the TPU kernel saw, from
 # _auto_tile on multi-level VMEM trees (intersect_pallas.py:67-83); the tile
 # fixes the active-top list and, for any hit, when the walk stops.  Kernel F
-# takes it as an argument, one block per tile (:func:`group_tile`).
+# takes it as an argument (:func:`group_tile`).
 GROUP_TILE = 512
 GROUP_TILE_ANY_HIT = 1024
 MXU_FEATURES = 10  # [1 | o-c | d | d x (o-c)]; the table pads to 16
@@ -657,7 +659,7 @@ def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
 
 
 def _check_warp_walk_tree(cs: CudaScene):
-    """Kernels B and D read boxes and triangle rows as float4: the tree's own shapes, contiguous, 16-byte aligned."""
+    """Kernels A, B, D and F read boxes and triangle rows as float4: the tree's own shapes, contiguous, 16-byte aligned."""
     if min(cs.b1, cs.b2, cs.k) < 1:
         raise ValueError(f"tree shape ({cs.b1}, {cs.b2}, {cs.k}) has an empty level")
     n_nodes = cs.b1 * cs.b2
@@ -671,7 +673,7 @@ def _check_warp_walk_tree(cs: CudaScene):
 def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 1, shade: bool = False):
     from ._build import load_library
 
-    if key in ("B", "D"):
+    if key in ("A", "B", "D", "F"):
         _check_warp_walk_tree(cs)
     lib = load_library()
     n = o.shape[0]

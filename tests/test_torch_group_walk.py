@@ -14,6 +14,11 @@ the same t, slot, barycentrics, hits and rows exactly.  Ragged cases
 (N not a multiple of the tile) cover the tile's padding lanes, and an
 any-hit case with t_lo = 0 covers occluded lanes that stay charged until
 their tile stops.
+
+``test_exit_decomposition_matches_plain`` recomputes the any-hit walk's
+``tests`` the way kernel F's passes split it (per-lane done groups, each
+tile's exit group, the lanes charged past their own end) and holds it to the
+plain version lane for lane.
 """
 
 import jax.numpy as jnp
@@ -26,7 +31,7 @@ from lens_flare_tpu.ops.intersect_pallas import PallasScene, intersect_pallas
 from lens_flare_tpu.scene.procedural import make_terrain_scene
 from lens_flare_tpu_torch.convert import cuda_scene_from_wide_bvh
 from lens_flare_tpu_torch.ops import intersect_cuda as ic
-from test_torch_intersect import _compare
+from test_torch_intersect import _compare, _exit_rays
 
 
 def _shade_rows(scene):
@@ -151,3 +156,83 @@ def test_top_batch_clamps_where_pallas_does():
             assert all(torch.equal(g, w) for g, w in zip(got, want))
         with pytest.raises(ValueError):
             ic.tree_group(cs, *rays, 2)
+
+
+def _free_walk(cs, o, d, t_lo, t_hi, tb, tile):
+    """Any-hit group walk of every lane over its tile's whole list, no tile exit.
+
+    Returns (tests charged per group (G, N), occluded at each group's start
+    (G, N), groups per tile, each lane's tile).
+    """
+    n = o.shape[0]
+    b1, b2, k = cs.b1, cs.b2, cs.k
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    padded = torch.nn.functional.pad
+    flags = ic._box_hits(
+        cs.top, padded(o, (0, 0, 0, pad)), ic._safe_inv(padded(d, (0, 0, 0, pad))),
+        padded(t_lo, (0, pad)), padded(t_hi, (0, pad)),
+    ).view(n_tiles, tile, b1).any(dim=1)
+    tops = torch.where(flags, torch.arange(b1), b1).sort(dim=1).values
+    n_groups = (flags.sum(dim=1) + tb - 1) // tb
+    g_max = int(n_groups.max())
+    lane_tile = torch.arange(n) // tile
+    inv = ic._safe_inv(d)
+    child = cs.child.view(b1, b2, 8)
+    tri = cs.tri.view(b1 * b2, k, 12)
+    occluded = torch.zeros(n, dtype=torch.bool)
+    charged = torch.zeros(g_max, n, dtype=torch.int32)
+    occ_start = torch.zeros(g_max, n, dtype=torch.bool)
+    for g in range(g_max):
+        occ_start[g] = occluded
+        t_clip = torch.where(occluded, 0.0, t_hi)
+        hit = torch.zeros(n, dtype=torch.bool)
+        for u in range(min(tb, b1 - g * tb)):
+            tl = tops[:, g * tb + u][lane_tile]
+            lanes = (tl < b1).nonzero()[:, 0]
+            tp = tl[lanes]
+            keep = ic._box_hits(cs.top[tp][:, None, :], o[lanes], inv[lanes], t_lo[lanes], t_clip[lanes])[:, 0]
+            lanes, tp = lanes[keep], tp[keep]
+            ch = ic._box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_clip[lanes])
+            charged[g].index_add_(0, lanes, (k * ch.sum(dim=1)).to(torch.int32))
+            pl, pc = (ch & ~occluded[lanes, None]).nonzero(as_tuple=True)
+            gl = lanes[pl]
+            terms = ic._mt_terms(tri[tp[pl] * b2 + pc], o[gl, None, :], d[gl, None, :])
+            hit[gl[ic._occludes(*terms, t_lo[gl, None], t_hi[gl, None]).any(dim=1)]] = True
+        occluded |= hit
+    return charged, occ_start, n_groups, lane_tile
+
+
+@pytest.mark.parametrize("tb", [2, 4])
+@pytest.mark.parametrize("shape", [(), (64, 8, 8)], ids=["16x32x32", "64x8x8"])
+def test_exit_decomposition_matches_plain(shape, tb):
+    """F's any-hit tests = each lane's walk to its done group + the tile's walk on to its exit group.
+
+    A lane's done group is 0 if it is dead (t_hi <= t_lo), else one past the
+    group in which it became occluded, else its tile's group count; the tile
+    stops at the largest done group of its lanes.  Past its own done group a
+    lane is charged only if it is occluded with t_lo <= 0 or dead with t_lo
+    == t_hi.  The rays make tiles stop early with both kinds present.
+    """
+    scene = make_terrain_scene(40)
+    wb = build_wide_bvh(scene.tri_p, *shape)
+    none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    cs = cuda_scene_from_wide_bvh(wb, *none, scene.num_triangles)
+    rays = o, d, t_lo, t_hi = [torch.from_numpy(x) for x in _exit_rays(scene, wb, 3000)]
+    charged, occ_start, n_groups, lane_tile = _free_walk(cs, *rays, tb, ic.group_tile(True))
+    g = torch.arange(charged.shape[0])[:, None]
+    first_occ = torch.where(occ_start, g, charged.shape[0]).min(dim=0).values
+    done = torch.where(t_hi <= t_lo, 0, torch.minimum(first_occ, n_groups[lane_tile]))
+    exit_group = torch.zeros(len(n_groups), dtype=torch.long).scatter_reduce(0, lane_tile, done, "amax")
+    own = (charged * (g < done)).sum(dim=0)
+    after = (charged * ((g >= done) & (g < exit_group[lane_tile]))).sum(dim=0)
+
+    want = ic.tree_plain(cs, *rays, True, top_batch=tb)[3]
+    assert torch.equal(own + after, want)
+    occluded_low = (t_lo < t_hi) & (t_lo <= 0)
+    point = t_lo == t_hi
+    assert (after[~occluded_low & ~point] == 0).all()
+    assert (exit_group < n_groups).any(), "no tile stopped early"
+    assert (after[point] > 0).any()
+    if tb == 2:
+        assert (after[occluded_low] > 0).any()

@@ -29,6 +29,7 @@ there without this repository's conftest:
 ``python -m pytest --noconftest -m gpu tests/test_torch_intersect.py``.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -132,6 +133,36 @@ def _hard_rays(scene, n=2045, seed=5):
     return o, d, t_lo, t_hi
 
 
+def _exit_rays(scene, wb, n, tile=ic.GROUP_TILE_ANY_HIT, seed=7):
+    """Shadow rays whose tiles of kernel F's any-hit walk stop before their last group.
+
+    Each tile's rays pass, at a shallow slope, through one triangle of top 0
+    (the first of every active-top list) and on under the terrain, so that
+    the list is long but every lane is occluded in its first group.  An
+    eighth each: t_lo = 0 and t_lo = -0.6 (occluded lanes that stay charged
+    under [t_lo, 0] until their tile stops), t_lo == t_hi (dead lanes that
+    still enter boxes at a point), and empty intervals.
+    """
+    rng = np.random.default_rng(seed)
+    tri = np.asarray(scene.tri_p, np.float32)
+    ids = wb.tri_id[: wb.b2 * wb.k]
+    ids = ids[ids >= 0]
+    n_tiles = -(-n // tile)
+    spot = np.repeat(tri[rng.choice(ids, n_tiles)].mean(axis=1), tile, axis=0)[:n]
+    a = rng.uniform(0, 2 * np.pi, n)
+    d = np.stack([np.cos(a), np.sin(a), np.full(n, -0.15)], axis=1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = (spot - d + rng.uniform(-0.01, 0.01, (n, 3))).astype(np.float32)
+    t_lo = np.full(n, 1e-3, np.float32)
+    t_hi = np.full(n, 1e30, np.float32)
+    kind = np.arange(n) % 8
+    t_lo[kind == 1] = 0.0
+    t_lo[kind == 2] = -0.6
+    t_lo[kind == 3] = t_hi[kind == 3] = 0.25
+    t_hi[kind == 4] = 0.0
+    return o, d, t_lo, t_hi
+
+
 CASES = {
     # name: (n_quads, n_spheres, PallasScene kwargs, forced (B1, B2, K) or ())
     "terrain8": (8, 0, {}, ()),  # single-level tree, brute-mode shadow rays
@@ -141,6 +172,10 @@ CASES = {
     # chunks wider than a warp (K = 64, 128), as choose_shape gives past 2M triangles
     "terrain40_4x16x64": (40, 0, {}, (4, 16, 64)),
     "terrain40_2x16x128_spheres": (40, 3, {}, (2, 16, 128)),
+    # single-level trees that are not brute (2,048 triangles): kernel A's
+    # chunk batch 2, whose batches straddle 32-child words on (1, 64, 32)
+    "terrain32_single": (32, 0, {}, ()),  # (1, 64, 32)
+    "terrain32_1x32x64": (32, 0, {}, (1, 32, 64)),
 }
 
 
@@ -237,9 +272,7 @@ def test_wrappers_take_plain_version_on_cpu_only():
 
 
 def test_warp_walk_refuses_a_tree_it_cannot_read():
-    """Kernels B and D read the tree as float4: the wrapper refuses a view off 16 bytes or of the wrong shape."""
-    import dataclasses
-
+    """Kernels A, B, D and F read the tree as float4: the wrapper refuses a view off 16 bytes or of the wrong shape."""
     _, _, cs = _setup("terrain40_vmem", pallas=False)
     ic._check_warp_walk_tree(cs)
     shifted = torch.empty(cs.tri.numel() + 1)[1:].view_as(cs.tri)
@@ -272,14 +305,20 @@ def test_kernels_match_plain_on_card(case, rays, cuda_device):
     ]
     if cs.brute:
         runs.append(("C", lambda: ic.brute_hit(cs, o, d, t_lo, t_hi), lambda: ic.brute_plain(cs, o, d, t_lo, t_hi)))
+    outs = {}
     for key, kernel, plain in runs:
         before = ic.KERNELS[key].launches
-        got = kernel()
+        outs[key] = got = kernel()
         torch.cuda.synchronize()
         assert ic.KERNELS[key].launches == before + 1
         want = plain()
         for g, w in zip(got, want):
             assert torch.equal(g, w), key
+    if cs.b1 > 1:  # D is A at chunk batch 1 plus the rows (single-level trees take no D)
+        shaded = dataclasses.replace(cs, shade=True, slot_shade=torch.rand(
+            cs.tri.shape[0], 10, generator=torch.Generator().manual_seed(0)).to(cuda_device))
+        for g, a in zip(ic.tree_closest_shade(shaded, o, d, t_lo, t_hi), outs["A"]):
+            assert torch.equal(g, a)
 
 
 @pytest.mark.gpu
@@ -335,23 +374,42 @@ def test_mxu_kernel_matches_plain_on_card(nq, shape, cuda_device):
     assert torch.allclose(got[0][hit], a[0][hit], rtol=1e-3, atol=1e-5)
 
 
+GROUP_SETS = {
+    # name: (n_quads, forced tree shape or (), lanes, rays)
+    "terrain40_whole_tiles": (40, (), 2048, "mixed"),
+    "terrain40_ragged": (40, (), 1500, "mixed"),
+    "terrain40_hard": (40, (), 2045, "hard"),
+    "terrain40_exit": (40, (), 3000, "exit"),
+    # B1 > 32: the active-top lists span two words
+    "terrain256_64x64x32": (256, (64, 64, 32), 3000, "mixed"),
+    "terrain256_64x64x32_exit": (256, (64, 64, 32), 3000, "exit"),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2048, 1500], ids=["whole_tiles", "ragged"])
 @pytest.mark.parametrize("tb", [2, 4])
-def test_group_kernel_matches_plain_on_card(tb, n, cuda_device):
+@pytest.mark.parametrize("case", list(GROUP_SETS))
+def test_group_kernel_matches_plain_on_card(case, tb, cuda_device):
     """Kernel F (closest, any hit, shade) equals its plain version; its hits equal A's, B's and D's."""
-    scene = make_terrain_scene(40)
+    nq, shape, n, ray_set = GROUP_SETS[case]
+    scene = make_terrain_scene(nq)
     rows = np.concatenate(
         [np.asarray(scene.tri_n, np.float32).reshape(-1, 9),
          np.asarray(scene.tri_bsdf, np.float32).reshape(-1, 1)], axis=1,
     )
     sc, sr = _spheres(3)
-    cs = cuda_scene_from_wide_bvh(
-        build_wide_bvh(scene.tri_p), sc, sr, scene.num_triangles, cuda_device, shade_rows=rows
-    )
+    wb = build_wide_bvh(scene.tri_p, *shape)
+    cs = cuda_scene_from_wide_bvh(wb, sc, sr, scene.num_triangles, cuda_device, shade_rows=rows)
     assert cs.shade and cs.b1 > 1 and not cs.stream
-    o, d, t_lo, t_hi = (torch.from_numpy(x[:n]).to(cuda_device) for x in _rays(scene))
-    t_lo = torch.where(torch.arange(n, device=cuda_device) % 5 == 0, 0.0, t_lo)  # occluded lanes stay charged
+    if ray_set == "exit":
+        rays = _exit_rays(scene, wb, n)
+    elif ray_set == "hard":
+        rays = _hard_rays(scene, n)
+    else:  # camera rays, then random ones
+        rays = _rays(scene, max(n, 2048) // 2, max(n, 2048) // 2)
+    o, d, t_lo, t_hi = (torch.from_numpy(x[:n]).to(cuda_device) for x in rays)
+    if ray_set == "mixed":  # occluded lanes stay charged
+        t_lo = torch.where(torch.arange(n, device=cuda_device) % 5 == 0, 0.0, t_lo)
     for any_hit, shade, base in (
         (False, False, ic.tree_closest_hit), (True, False, ic.tree_any_hit), (False, True, ic.tree_closest_shade),
     ):
