@@ -9,15 +9,18 @@ raises, so the script exits non-zero and prints no result):
 0. the device: torch's name for it, and name and power limit from nvidia-smi;
 1. build the CUDA kernels from the sources in this checkout (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version on the card, on terrain
-   scenes of 128, 3,200, 131,072 and 524,288 triangles with camera, bounce
-   and shadow rays of random pixels, plus each one's time beside the plain
-   version's at 64k lanes; A, B, D and F (the warp-per-ray walk) must equal
-   their plain versions bit for bit on every set, A at chunk batch 2 on the
-   single-level 128-triangle tree and at chunk batch 1 on the others.  The
+   scenes of 128, 450 (with 70 spheres, past the Pallas kernel's 64),
+   3,200, 131,072 and 524,288 triangles with camera, bounce and shadow rays
+   of random pixels, plus each one's time beside the plain version's at 64k
+   lanes; every kernel must equal its plain version bit for bit on every
+   set, A at chunk batch 2 on the single-level trees and at chunk batch 1
+   on the others, C (any hit and the closest-hit flag) on both brute-mode
+   scenes.  The
    walk is also timed on the first 64k pixels in the renderer's 32x32-block
    order (A camera and bounce on 524,288 triangles, D camera and bounce on
    131,072, B shadow on both), A on the single-level tree and on the
-   131,072-triangle tree, and B on the 131,072-triangle shadow rays;
+   131,072-triangle tree, B on the 131,072-triangle shadow rays, and C on
+   both brute-mode scenes;
    kernel D (closest hit plus shading rows, on the two mid-size scenes) is
    also held to kernel A's outputs and timed against A plus
    ``finalize_hit``'s row gather; kernel F (the group walk, top_batch 2
@@ -47,10 +50,12 @@ raises, so the script exits non-zero and prints no result):
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
-its path, the largest error against its plain version, its time, the
+its path (0 for C's 450-triangle case, which no path traces), the largest error against its plain version, its time, the
 plain version's, and its bound (the larger of the FLOPs the function needs
 over 67 TFLOP/s, the H100's float32 peak without tensor cores, and the least
-bytes it must move over 3.35 TB/s; see :func:`bound`).  TF32 is off for
+bytes it must move over 3.35 TB/s; see ``bench_kernels.bound``).  Phase 1
+prints ptxas' registers and spilled bytes of kernel C's two instances and
+kernel E on a line of their own.  TF32 is off for
 matrix products and convolutions: the ghost products are float32.
 """
 
@@ -64,23 +69,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LANES = 1 << 16  # wavefront width of the main path (Renderer.tile_pixels)
 BENCH_LANES = 1 << 18  # wavefront width of the kernel bench (E's and F's path)
-PEAK_FLOPS = 67e12  # H100 SXM float32 without tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-# FLOP per slot test, counted from intersect.cu: mt_terms (3 sub, 18 mul,
-# 12 add/sub = 41 with the dots) plus batch_test (1 div, 3 mul, 1 add) for
-# closest hit, plus occludes (6 mul, 1 add) for any hit; E's four 10-term
-# dot products (76) plus batch_test.  Comparisons are not counted.
-FLOP_PER_TEST = {"closest": 46, "any": 48, "mxu": 81}
-LANE_BYTES = 32 + 20  # o, d, t_lo, t_hi in; t, slot, bary, tests out
-# the least bytes a walk reads of the tree: a box's lo and hi (24 of its 32
-# bytes), a triangle slot's p0, e1 and e2 (36 of 48), E's four 10-term rows
-# of a slot's (4, 16) coefficients (160 of 256), a top's centre (E), and a
-# hit slot's shading row (D and F's shade instance)
-BOX_BYTES = 24
-TRI_ROW_BYTES = 36
-MXU_ROW_BYTES = 160
-CENTER_BYTES = 12
-SHADE_ROW_BYTES = 40
 # (kernel, rays, terrain n_quads) of phase 2 that are timed -> their label;
 # "random" rays are LANES random pixels of the 1920x1080 film, "blocked" the
 # first LANES pixels in the renderer's 32x32-block order
@@ -92,6 +80,7 @@ TIMED = {
     ("B", "shadow_blocked", 256): "B_blocked_t256", ("B", "shadow_blocked", 512): "B_blocked",
     ("A", "camera_blocked", 512): "A_blocked_camera", ("A", "bounce_blocked", 512): "A_blocked_bounce",
     ("A", "camera", 8): "A_single",
+    ("C", "shadow", 15): "C_t450_spheres", ("C", "camera", 15): "C_closest_t450_spheres",
 }
 # the kernels line: each kernel at its PERF.md table shape, then the warp walk's other timed shapes
 LINE_CASES = {
@@ -101,76 +90,15 @@ LINE_CASES = {
     "D_blocked_bounce": "terrain256_bounce_blocked", "B_blocked_t256": "terrain256_shadow_blocked",
     "B_blocked": "terrain512_shadow_blocked",
     "A_blocked_camera": "terrain512_camera_blocked", "A_blocked_bounce": "terrain512_bounce_blocked",
-    "A_single": "terrain8_camera_random",
+    "A_single": "terrain8_camera_random", "C_t450_spheres": "terrain15_spheres70_shadow_random",
 }
+SPHERE_SCENE = (15, 70)  # a brute-mode terrain near BRUTE_MAX_TRIS, with spheres built in code
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
 
 
 def phase(title, t0, **numbers):
     fields = " ".join(f"{k}={v}" for k, v in numbers.items())
     print(f"[{title}] {fields} seconds={time.perf_counter() - t0:.3f}", flush=True)
-
-
-def chunks_hit(cs, o, d, t_lo, t_hi) -> tuple[int, int]:
-    """(tops, chunks) whose boxes at least one ray enters within [t_lo, t_hi]."""
-    from lens_flare_tpu_torch.ops import intersect_cuda as ic
-
-    inv = ic._safe_inv(d)
-    if cs.b1 > 1:
-        top_hits = ic._box_hits(cs.top, o, inv, t_lo, t_hi)
-        tops = top_hits.any(dim=0).nonzero()[:, 0].tolist()
-    else:
-        top_hits, tops = None, [0]
-    child = cs.child.view(cs.b1, cs.b2, 8)
-    n_chunks = 0
-    for tp in tops:
-        lanes = top_hits[:, tp].nonzero()[:, 0] if top_hits is not None else slice(None)
-        ch = ic._box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_hi[lanes])
-        n_chunks += int(ch.any(dim=0).sum())
-    return len(tops), n_chunks
-
-
-def bound(cs, key, any_hit, rays, out, tests=None):
-    """(bound_ms, bound_by) of one kernel call: max(FLOPs / peak, bytes / bandwidth).
-
-    FLOPs: the summed ``tests`` times the FLOP per slot test.  ``tests``
-    defaults to the call's own; F passes those of the default walk (A or B)
-    on the same rays, which computes the same function with the clip fixed
-    per top, so F's extra tests from the clip fixed per group are not work
-    the function needs.  Bytes: every lane's rays and outputs once (D and
-    F's shade instance: +40 for the rows), the top boxes, and the child boxes
-    and slot rows of the chunks that the hits found require (a box a
-    closest-hit ray enters before its hit, or an unoccluded shadow ray
-    enters at all), each once, at the least size a walk reads (BOX_BYTES and
-    the rest above), plus the shading rows of the slots hit.
-    """
-    import torch
-
-    o, d, t_lo, t_hi = rays
-    t, slot = out[0], out[1]
-    tests = out[3] if tests is None else tests
-    n = o.shape[0]
-    shade = len(out) > 4
-    kind = "mxu" if key == "E" else ("any" if any_hit else "closest")
-    flops = float(tests.sum(dtype=torch.float64)) * FLOP_PER_TEST[kind]
-    nbytes = n * (LANE_BYTES + (SHADE_ROW_BYTES if shade else 0))
-    if key.startswith("C"):
-        nbytes += cs.s_real * TRI_ROW_BYTES  # every real triangle row
-    else:
-        if kind == "any":
-            live, clip = slot < 0, t_hi
-        else:
-            live, clip = torch.ones_like(slot, dtype=torch.bool), torch.minimum(t_hi, t)
-        n_tops, n_chunks = chunks_hit(cs, o[live], d[live], t_lo[live], clip[live])
-        row = MXU_ROW_BYTES if key == "E" else TRI_ROW_BYTES
-        nbytes += BOX_BYTES * cs.b1 + BOX_BYTES * cs.b2 * n_tops + row * cs.k * n_chunks
-        if key == "E":
-            nbytes += CENTER_BYTES * n_tops
-        if shade:
-            tri_slot = slot[(slot >= 0) & (slot < cs.b1 * cs.b2 * cs.k)]
-            nbytes += SHADE_ROW_BYTES * int(torch.unique(tri_slot).numel())
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 def compare(got, want):
@@ -221,8 +149,12 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.load_library()
+    ptxas = _build.ptxas_report(_build.build_log)
     phase("build", t0, library=so.name, compiled_now=bool(_build.build_log),
-          nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(_build.ptxas_report(_build.build_log)))
+          nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(ptxas))
+    redesigned = {k: v for k, v in ptxas.items() if k.startswith(("brute_kernel", "mxu_walk_kernel"))}
+    assert len(redesigned) == 3 or not _build.build_log, f"ptxas did not report C's and E's kernels: {ptxas}"
+    print("[ptxas] " + " ".join(f"{k.replace(' ', '')}={json.dumps(v)}" for k, v in redesigned.items()), flush=True)
 
     # -- 2. kernels against their plain versions ---------------------------
     from lens_flare_tpu_torch.ops import intersect_cuda as ic
@@ -235,10 +167,18 @@ def main() -> int:
     errs = {key: 0.0 for key in "ABCDEF"}
     times = {}
     bounds = {}
-    for nq in (8, 40, 256, 512):
+    for nq in (8, SPHERE_SCENE[0], 40, 256, 512):
         t0 = time.perf_counter()
         r = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda")
-        r.load_flat_scene(make_terrain_scene(nq))
+        scene = make_terrain_scene(nq)
+        if nq == SPHERE_SCENE[0]:
+            rng = np.random.default_rng(3)
+            n_sph = SPHERE_SCENE[1]
+            scene.sph_center = rng.uniform(-8, 8, (n_sph, 3)).astype(np.float32)
+            scene.sph_center[:, 2] = rng.uniform(1, 3, n_sph)
+            scene.sph_radius = rng.uniform(0.3, 1.0, n_sph).astype(np.float32)
+            scene.sph_bsdf = np.zeros(n_sph, np.int32)
+        r.load_flat_scene(scene)
         cs = r.bundle.cscene
         rays = bk.random_rays(r, LANES, gen)
         runs = [
@@ -291,7 +231,7 @@ def main() -> int:
                 a_out = ic.tree_closest_hit(cs, *args)
                 assert all(torch.equal(x, y) for x, y in zip(got[:4], a_out)), "D's walk differs from A's"
                 exact = exact and torch.equal(got[4], want[4])
-            if key in ("A", "B", "D"):  # the warp walk gives its plain version's outputs bit for bit
+            if key in ("A", "B", "C", "D"):  # each gives its plain version's outputs bit for bit
                 assert exact, f"{key} differs from its plain version: terrain{nq} {kind_rays}"
             errs[key] = max(errs[key], err)
             report[f"{key}_{kind_rays}"] = f"err={err:.3g},exact={exact},hits={int((got[1] >= 0).sum())}"
@@ -309,7 +249,7 @@ def main() -> int:
                     bk.cuda_ms(lambda: kernel(*args), 20),
                     bk.cuda_ms(lambda: plain(*args), 3),
                 )
-                bounds[label] = bound(cs, key, kind_rays.startswith("shadow"), args, got)
+                bounds[label] = bk.bound(cs, key, kind_rays.startswith("shadow"), args, got)
         if cs.shade and nq == 256:
             # D with its rows against A plus finalize_hit's row gather, to the Hit
             o, d, a, b = rays["camera"]
@@ -348,7 +288,7 @@ def main() -> int:
                     tag = f"F{tb}_{kind_rays}" + ("_shade" if shade else "")
                     report[tag] = f"exact={exact},tests={int(got[3].sum())}/{int(ref[3].sum())}"
         shape = f"{cs.b1}x{cs.b2}x{cs.k}"
-        phase("kernels", t0, tris=r.scene.num_triangles, tree=shape, brute=cs.brute,
+        phase("kernels", t0, tris=r.scene.num_triangles, spheres=cs.n_spheres, tree=shape, brute=cs.brute,
               shade=cs.shade, lanes=LANES, **report)
     # E, the coefficient walk, on the exact-fit trees of tools/ab_mxu_mt.py
     from lens_flare_tpu_torch.accel.wide import build_wide_bvh
@@ -392,7 +332,7 @@ def main() -> int:
           f"D_ms={times['D'][0]:.4f} D_plain_ms={times['D'][1]:.4f}", flush=True)
 
     # -- 3. the slice: the 1080p terrain frame with the flare --------------
-    from lens_flare_tpu_torch.ab_walk import config2_renderer, terrain_1080p
+    from lens_flare_tpu_torch.ab_walk import SMALL, config2_renderer, terrain_1080p
     from lens_flare_tpu_torch.utils import image as img
 
     t0 = time.perf_counter()
@@ -424,15 +364,14 @@ def main() -> int:
 
     # -- 4. small frame through kernel C, held against the CPU render ------
     t0 = time.perf_counter()
-    small = dict(width=320, height=240, ns_aa=1, max_ray_depth=4, indirect=True, seed=0)
-    rs = Renderer(device="cuda", **small)
+    rs = Renderer(device="cuda", **SMALL)
     rs.load_flat_scene(make_terrain_scene(8))
     ic.reset_launch_counts()
     got, _ = rs.render(progress=False)
     torch.cuda.synchronize()
     small_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     assert small_launches["C"] > 0 and small_launches["A"] > 0, f"the small frame skipped C or A: {small_launches}"
-    rc = Renderer(device="cpu", **small)
+    rc = Renderer(device="cpu", **SMALL)
     rc.load_flat_scene(make_terrain_scene(8))
     want, _ = rc.render(progress=False)
     got = got.cpu().double()
@@ -525,7 +464,7 @@ def main() -> int:
         err, _ = compare(got, want)
         errs[c.key] = max(errs[c.key], err)
         plain_ms = bk.cuda_ms(c.plain, 2)
-        b_ms, b_by = bound(c.cs, c.key, c.any_hit, c.rays, got, tests=None if c.key == "E" else c.base_tests)
+        b_ms, b_by = bk.bound(c.cs, c.key, c.any_hit, c.rays, got, tests=None if c.key == "E" else c.base_tests)
         # the kernels line takes E on terrain 128's bounce rays and F at
         # top_batch 2 on terrain 256's bounce wavefront
         if c.label in ("terrain128_bounce", "terrain256_bounce_tb2"):
@@ -544,6 +483,7 @@ def main() -> int:
              "E": bench_launches["E"], "F": bench_launches["F"]}
     count.update({label: c2_launches["B"] for label in ("B_t256", "B_blocked_t256")})
     count["A_single"] = small_launches["A"]  # the small frame's closest hits
+    count["C_t450_spheres"] = 0  # no path traces this scene: only phase 2's checks launch C on it
     kernels = [
         {
             "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNEL_SOURCE,

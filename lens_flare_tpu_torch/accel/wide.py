@@ -80,6 +80,24 @@ def choose_shape(n_tris: int) -> tuple[int, int, int]:
     return 512, 128, 256
 
 
+# the largest tree of choose_shape's ladder: past it a cluster overflows K
+MAX_TRIS = 512 * 128 * 256
+
+
+def check_capacity(n_tris: int) -> None:
+    """Raise for a scene the cluster tree cannot hold (more than ``MAX_TRIS`` triangles).
+
+    The JAX package sends such scenes to its XLA binary-BVH walk
+    (``lens_flare_tpu/renderer.py:169-176``); the port has no such walk yet
+    (ROADMAP Queue 2, item 6).
+    """
+    if n_tris > MAX_TRIS:
+        raise ValueError(
+            f"{n_tris:,} triangles: the cluster tree holds at most {MAX_TRIS:,} (512*128*256), and the "
+            "binary-BVH walk for larger scenes is not ported yet (ROADMAP Queue 2, item 6)"
+        )
+
+
 def build_wide_bvh(tri_p: np.ndarray, b1: int | None = None, b2: int | None = None, k: int | None = None) -> WideBVH:
     """tri_p: (T, 3, 3) triangle corners.  The C++ builder where g++ builds it, else NumPy."""
     n = len(tri_p)

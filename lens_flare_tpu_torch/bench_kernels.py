@@ -57,6 +57,27 @@ FILM = 512  # the tool's 512x512 film
 # table holds no padding nodes
 MXU_SCENES = ((64, (8, 32, 32)), (128, (32, 32, 32)))
 REPEATS = 5  # timed calls per measurement
+PEAK_FLOPS = 67e12  # H100 SXM float32 without tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# FLOP per slot test, counted from intersect.cu: mt_terms (3 sub, 18 mul,
+# 12 add/sub = 41 with the dots) plus batch_test (1 div, 3 mul, 1 add) for
+# closest hit, plus occludes (6 mul, 1 add) for any hit; E's first stage
+# (CoefSlots::closest: the det and b1 dot products, 38, a division and a
+# product) on every slot, and its second (the t and b2 dot products, two
+# products and a sum) only where det != 0 and b1 lies in [0, 1].
+# Comparisons are not counted.
+FLOP_PER_TEST = {"closest": 46, "any": 48, "mxu": 40}
+MXU_PASS_FLOP = 41
+LANE_BYTES = 32 + 20  # o, d, t_lo, t_hi in; t, slot, bary, tests out
+# the least bytes a walk reads of the tree: a box's lo and hi (24 of its 32
+# bytes), a triangle slot's p0, e1 and e2 (36 of 48), half of E's packed
+# 160-byte row (det and b1; t and b2 only for slots that pass them), a
+# top's centre (E), and a hit slot's shading row (D and F's shade instance)
+BOX_BYTES = 24
+TRI_ROW_BYTES = 36
+MXU_HALF_ROW_BYTES = 80
+CENTER_BYTES = 12
+SHADE_ROW_BYTES = 40
 QUEUE_CYCLES = 50_000_000  # ~0.03 s of device sleep ahead of the timed calls
 
 
@@ -92,6 +113,130 @@ def cuda_ms(fn, repeats: int = REPEATS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def chunk_pairs(cs, o, d, t_lo, t_hi):
+    """Per top that a ray enters within [t_lo, t_hi], ascending: (top, lanes, children) of its (lane, chunk) pairs entered."""
+    inv = ic._safe_inv(d)
+    if cs.b1 > 1:
+        top_hits = ic._box_hits(cs.top, o, inv, t_lo, t_hi)
+        tops = top_hits.any(dim=0).nonzero()[:, 0].tolist()
+    else:
+        top_hits, tops = None, [0]
+    child = cs.child.view(cs.b1, cs.b2, 8)
+    for tp in tops:
+        lanes = top_hits[:, tp].nonzero()[:, 0] if top_hits is not None else torch.arange(o.shape[0], device=o.device)
+        ch = ic._box_hits(child[tp], o[lanes], inv[lanes], t_lo[lanes], t_hi[lanes])
+        pl, pc = ch.nonzero(as_tuple=True)
+        yield tp, lanes[pl], pc
+
+
+def chunks_hit(cs, o, d, t_lo, t_hi) -> tuple[int, int]:
+    """(tops, chunks) whose boxes at least one ray enters within [t_lo, t_hi]."""
+    n_tops = n_chunks = 0
+    for _, _, pc in chunk_pairs(cs, o, d, t_lo, t_hi):
+        n_tops += 1
+        n_chunks += int(torch.unique(pc).numel())
+    return n_tops, n_chunks
+
+
+def mxu_passes(cs, o, d, t_lo, t_hi, block: int = 1 << 14) -> tuple[int, int]:
+    """Kernel E's second stage over the chunks rays enter within [t_lo, t_hi]: (tests, slots).
+
+    A (lane, slot) pair passes E's first stage where det != 0 and b1 lies in
+    [0, 1], computed as ``CoefSlots::closest`` computes them; returns the
+    number of passing pairs and of slots with at least one.
+    """
+    k = cs.k
+    coef = cs.mxu_coef.view(cs.b1, cs.b2, k, 4, 16)
+    passed = torch.zeros(cs.b1 * cs.b2 * k, dtype=torch.bool, device=o.device)
+    n_pass = 0
+    for tp, gl, pc in chunk_pairs(cs, o, d, t_lo, t_hi):
+        for i in range(0, gl.numel(), block):
+            g, c = gl[i : i + block], pc[i : i + block]
+            det, _, bb1_n, _ = ic._mxu_terms(coef[tp, c], ic._mxu_features(o[g], d[g], cs.mxu_centers[tp]))
+            b1 = bb1_n * (1.0 / torch.where(det == 0, 1e-30, det))
+            ok = (det != 0) & (b1 >= 0) & (b1 <= 1)  # (P, K)
+            n_pass += int(ok.sum())
+            ids = (tp * cs.b2 + c)[:, None] * k + torch.arange(k, device=o.device)
+            passed[ids[ok]] = True
+    return n_pass, int(passed.sum())
+
+
+def brute_any_hit_tests(cs, o, d, t_lo, t_hi, tests, block: int = 1 << 13) -> tuple[torch.Tensor, int]:
+    """Kernel C's any-hit tests cut to what the function needs: (tests per lane, triangle rows read).
+
+    A live lane (t_hi > t_lo, in a tile the kernel walks, ``tests`` > 0)
+    needs the triangles up to its first occluder in row order, then the
+    sphere pass, whose slot lands in the output whether or not a triangle
+    occludes; the rows read are those up to the last lane's need.
+    """
+    s = cs.s_real
+    need = torch.full_like(tests, s)
+    rows = cs.tri_brute[:s]
+    for i in range(0, o.shape[0], block):
+        sl = slice(i, i + block)
+        terms = ic._mt_terms(rows[None], o[sl, None, :], d[sl, None, :])
+        occ = ic._occludes(*terms, t_lo[sl, None], t_hi[sl, None])  # (L, S)
+        first = torch.where(occ.any(dim=1), occ.int().argmax(dim=1) + 1, s)
+        need[sl] = first.to(tests.dtype)
+    walked = (t_hi > t_lo) & (tests > 0)
+    cut = torch.where(walked, tests - (s - need), tests)
+    return cut, int(need[walked].max()) if bool(walked.any()) else 0
+
+
+def bound(cs, key, any_hit, rays, out, tests=None):
+    """(bound_ms, bound_by) of one kernel call: max(FLOPs / peak, bytes / bandwidth).
+
+    FLOPs: the summed ``tests`` times the FLOP per slot test.  ``tests``
+    defaults to the call's own; F passes those of the default walk (A or B)
+    on the same rays, which computes the same function with the clip fixed
+    per top, so F's extra tests from the clip fixed per group are not work
+    the function needs.  C's any hit counts each lane's tests up to its
+    first occluder (:func:`brute_any_hit_tests`), and E adds its second
+    stage's FLOP for the pairs that reach it (:func:`mxu_passes`).  Bytes:
+    every lane's rays and outputs once (D and F's shade instance: +40 for
+    the rows), C's triangle rows up to the last one a lane needs, the top
+    boxes, and the child boxes and slot rows of the chunks that the hits
+    found require (a box a closest-hit ray enters before its hit, or an
+    unoccluded shadow ray enters at all), each once, at the least size a
+    walk reads (BOX_BYTES and the rest above: for E, the first half of every
+    such slot's row and the second half of the slots that pass), plus the
+    shading rows of the slots hit.
+    """
+    o, d, t_lo, t_hi = rays
+    t, slot = out[0], out[1]
+    tests = out[3] if tests is None else tests
+    n = o.shape[0]
+    shade = len(out) > 4
+    kind = "mxu" if key == "E" else ("any" if any_hit else "closest")
+    nbytes = n * (LANE_BYTES + (SHADE_ROW_BYTES if shade else 0))
+    extra_flops = 0.0
+    if key.startswith("C"):
+        n_rows = cs.s_real
+        if any_hit:
+            tests, n_rows = brute_any_hit_tests(cs, o, d, t_lo, t_hi, tests)
+        nbytes += n_rows * TRI_ROW_BYTES
+    else:
+        if kind == "any":
+            live, clip = slot < 0, t_hi
+        else:
+            live, clip = torch.ones_like(slot, dtype=torch.bool), torch.minimum(t_hi, t)
+        walk = (o[live], d[live], t_lo[live], clip[live])
+        n_tops, n_chunks = chunks_hit(cs, *walk)
+        nbytes += BOX_BYTES * cs.b1 + BOX_BYTES * cs.b2 * n_tops
+        if key == "E":
+            n_pass, n_pass_slots = mxu_passes(cs, *walk)
+            extra_flops = float(n_pass) * MXU_PASS_FLOP
+            nbytes += MXU_HALF_ROW_BYTES * (cs.k * n_chunks + n_pass_slots) + CENTER_BYTES * n_tops
+        else:
+            nbytes += TRI_ROW_BYTES * cs.k * n_chunks
+        if shade:
+            tri_slot = slot[(slot >= 0) & (slot < cs.b1 * cs.b2 * cs.k)]
+            nbytes += SHADE_ROW_BYTES * int(torch.unique(tri_slot).numel())
+    flops = float(tests.sum(dtype=torch.float64)) * FLOP_PER_TEST[kind] + extra_flops
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 @dataclass

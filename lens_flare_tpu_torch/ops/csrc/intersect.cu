@@ -14,10 +14,12 @@
 //                          results at chunk batch 1, plus the winning
 //                          triangle slot's shading row
 //   C  lf_brute         <- _make_brute_kernel(any_hit=True)   :877, call :1292
-//                          (closest=1 selects _make_brute_kernel(any_hit=False))
+//                          (closest=1 selects _make_brute_kernel(any_hit=False);
+//                          rows in shared memory)
 //   E  lf_tree_closest_mxu <- _make_kernel(mxu=True)          :214, walk :559-629,
 //                          features mxu_fmat :310-332, coefficient planes
 //                          PallasScene.__init__ :1153-1214, call :1392
+//                          (warp per ray; packed 160-byte coefficient rows)
 //   F  lf_tree_group    <- _make_kernel(top_batch>1)          :214, group_body
 //                          :699-799, any-hit exit :803-816, call :1392
 //                          (closest hit, any hit and shade: three instances;
@@ -32,20 +34,23 @@
 // and 0.5 MB of boxes for the 524k-triangle terrain), which sits mostly in
 // the 50 MB L2.
 //
-// Two designs:
-// - A, B, D and F, one warp per ray (warp_walk_kernel; F's group_walk_kernel
-//   with its list and continuation passes).  What bounded them as one
-//   thread per ray was latency, not bytes or operations: a 64k-lane
-//   wavefront gave only 2,048 warps, each thread ran a long chain of
-//   dependent scalar loads from addresses private to it, and a warp ran the
-//   union of its 32 rays' tops and chunks.  A warp now walks one ray: its
-//   lanes test 32 top or child boxes at once (two float4 each) and one
-//   triangle each of a chunk (three float4 of the 48-byte row), so every
-//   load coalesces, a 64k-lane call has 65,536 warps, and no lane waits on
-//   another ray's path.  Ballots pick the boxes hit and warp shuffles
-//   reduce a chunk in the sequential order (see warp_walk_kernel).
-// - C and E, one thread per ray, carried over from the TPU's per-lane walk;
-//   they keep the costs above.
+// Two designs, both for this card rather than carried over from the TPU's
+// per-lane walk:
+// - A, B, D, E and F, one warp per ray (warp_walk_kernel and E's
+//   mxu_walk_kernel through walk_tree; F's group_walk_kernel with its list
+//   and continuation passes).  What bounded them as one thread per ray was
+//   latency, not bytes or operations: a 64k-lane wavefront gave only 2,048
+//   warps, each thread ran a long chain of dependent scalar loads from
+//   addresses private to it, and a warp ran the union of its 32 rays' tops
+//   and chunks.  A warp now walks one ray: its lanes test 32 top or child
+//   boxes at once (two float4 each) and one slot each of a chunk (three
+//   float4 of the 48-byte triangle row; E ten float4 of its 160-byte
+//   coefficient row), so every load coalesces, a 64k-lane call has 65,536
+//   warps, and no lane waits on another ray's path.  Ballots pick the boxes
+//   hit and warp shuffles reduce a chunk in the sequential order (see
+//   warp_walk_kernel).
+// - C, the tree-free pass: every triangle row staged once per block in
+//   shared memory, one ray per thread (see brute_kernel).
 //
 // Semantics kept from the Pallas kernels (see intersect_cuda.py for the
 // plain PyTorch version of each kernel, held to bit equality on the card):
@@ -66,6 +71,8 @@
 #define KINF 3.0e38f
 #define BRUTE_TILE 1024
 #define BRUTE_BLOCK 64
+#define BRUTE_MAX_TRIS 512  // intersect_pallas.py:102
+#define MXU_FEATURES 10
 
 namespace {
 
@@ -258,7 +265,7 @@ __device__ __forceinline__ void sphere_pass(const float* __restrict__ sph, int n
   tests += n_spheres;
 }
 
-// Kernels A, B and D: one warp walks one ray.  The result is the sequential
+// Kernels A, B, D and E: one warp walks one ray.  The result is the sequential
 // walk's (the plain version tree_plain), bit for bit and with the same
 // per-lane tests; only who does which test changes.
 //
@@ -311,17 +318,33 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// Where a walk takes a slot's test from.  TriSlots: the triangle rows
+// [p0 | e1 | e2 | pad] (A, B, D and F).  CoefSlots (E) is below, with its
+// kernel.  enter_top runs once per walked top, before its children; closest
+// is closest_terms of the slot (whether it is a valid hit, with its t and
+// barycentrics); occludes (any hit) is occludes of the slot.
+struct TriSlots {
+  const float* __restrict__ tri;  // (B1*B2*K, 12)
+  __device__ __forceinline__ void enter_top(int, const Ray&) {}
+  __device__ __forceinline__ bool closest(size_t slot, const Ray& r, float limit, float& tt,
+                                          float& b1, float& b2) const {
+    return closest_terms(mt_terms4(tri + slot * 12, r), r.t_lo, limit, tt, b1, b2);
+  }
+  __device__ __forceinline__ bool occludes(size_t slot, const Ray& r) const {
+    return ::occludes(mt_terms4(tri + slot * 12, r), r.t_lo, r.t_hi);
+  }
+};
+
 // One chunk of closest hit merged into the batch bt: the sequential
 // batch_test x K, with the slots spread over the warp.
-__device__ __forceinline__ void warp_chunk_test(const float* __restrict__ tri, int node, int k,
-                                                int lane, const Ray& r, Batch& bt) {
+template <class Slots>
+__device__ __forceinline__ void warp_chunk_test(const Slots& rows, int node, int k, int lane,
+                                                const Ray& r, Batch& bt) {
   for (int s0 = 0; s0 < k; s0 += 32) {
     const int s = s0 + lane;
     float tt = 0.0f, b1 = 0.0f, b2 = 0.0f;
     bool valid = false;
-    if (s < k)
-      valid = closest_terms(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, bt.limit, tt,
-                            b1, b2);
+    if (s < k) valid = rows.closest((size_t)node * k + s, r, bt.limit, tt, b1, b2);
     const float mn = warp_min(valid ? tt : KINF);
     if (mn > bt.t) continue;  // every valid slot of the stride loses
     const unsigned tied = __ballot_sync(FULL_MASK, valid && tt == mn);
@@ -346,12 +369,12 @@ __device__ __forceinline__ void warp_chunk_test(const float* __restrict__ tri, i
 }
 
 // One chunk of any hit: whether a slot occludes in [t_lo, t_hi].
-__device__ __forceinline__ bool warp_chunk_occludes(const float* __restrict__ tri, int node, int k,
-                                                    int lane, const Ray& r) {
+template <class Slots>
+__device__ __forceinline__ bool warp_chunk_occludes(const Slots& rows, int node, int k, int lane,
+                                                    const Ray& r) {
   for (int s0 = 0; s0 < k; s0 += 32) {
     const int s = s0 + lane;
-    const bool occ =
-        s < k && occludes(mt_terms4(tri + ((size_t)node * k + s) * 12, r), r.t_lo, r.t_hi);
+    const bool occ = s < k && rows.occludes((size_t)node * k + s, r);
     if (__any_sync(FULL_MASK, occ)) return true;
   }
   return false;
@@ -370,10 +393,10 @@ struct Walk {
 // child box hit, then the hit chunks in ascending order, closest hit in
 // batches of CB, a template argument so that at CB = 1 (every walk but A's
 // on single-level trees) no batch state lives across chunks.
-template <bool ANY_HIT, int CB>
-__device__ __forceinline__ void walk_top(const float* __restrict__ child,
-                                         const float* __restrict__ tri, int tp, float t_clip,
-                                         int b2, int k, int lane, const Ray& r, Walk& w) {
+template <bool ANY_HIT, int CB, class Slots>
+__device__ __forceinline__ void walk_top(const float* __restrict__ child, const Slots& rows, int tp,
+                                         float t_clip, int b2, int k, int lane, const Ray& r,
+                                         Walk& w) {
   Batch bt{};  // reset before its first use
   int in_batch = 0;
   for (int c0 = 0; c0 < b2; c0 += 32) {
@@ -385,14 +408,14 @@ __device__ __forceinline__ void walk_top(const float* __restrict__ child,
     while (todo != 0u) {
       const int node = tp * b2 + c0 + __ffs(todo) - 1;
       todo &= todo - 1u;
-      if (ANY_HIT) {
-        if (warp_chunk_occludes(tri, node, k, lane, r)) {
+      if constexpr (ANY_HIT) {
+        if (warp_chunk_occludes(rows, node, k, lane, r)) {
           w.occluded = true;
           todo = 0u;
         }
       } else {
         if (in_batch == 0) batch_reset(bt, r.t_hi, w.best_t);
-        warp_chunk_test(tri, node, k, lane, r, bt);
+        warp_chunk_test(rows, node, k, lane, r, bt);
         if (++in_batch == CB) {
           batch_commit(bt, w.best_t, w.slot, w.ob1, w.ob2);
           in_batch = 0;
@@ -401,6 +424,34 @@ __device__ __forceinline__ void walk_top(const float* __restrict__ child,
     }
   }
   if (!ANY_HIT && in_batch > 0) batch_commit(bt, w.best_t, w.slot, w.ob1, w.ob2);
+}
+
+// Steps 1-5 of the walk over the whole tree (A, B, D and E).
+template <bool ANY_HIT, int CB, class Slots>
+__device__ __forceinline__ void walk_tree(const float* __restrict__ top,
+                                          const float* __restrict__ child, Slots& rows, int b1,
+                                          int b2, int k, int lane, const Ray& r, Walk& w) {
+  const float t_lo = r.t_lo;
+  const float t_hi = r.t_hi;
+  if (!(r.finite && t_lo <= t_hi)) return;
+  const float hi_pre = ANY_HIT ? fmaxf(t_hi, 0.0f) : t_hi;
+  for (int tp0 = 0; tp0 < b1; tp0 += 32) {
+    unsigned cand = 1u;  // a single-level tree has no top box to test
+    if (b1 > 1) {
+      const int tp = tp0 + lane;
+      cand = __ballot_sync(FULL_MASK, tp < b1 && box_hit4(top + 8 * tp, r, t_lo, hi_pre));
+    }
+    while (cand != 0u) {
+      const int tp = tp0 + __ffs(cand) - 1;
+      cand &= cand - 1u;
+      // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
+      if (ANY_HIT && w.occluded && !(t_lo <= 0.0f)) return;
+      const float t_clip = ANY_HIT ? (w.occluded ? 0.0f : t_hi) : min_nan(t_hi, w.best_t);
+      if (b1 > 1 && t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
+      rows.enter_top(tp, r);
+      walk_top<ANY_HIT, CB>(child, rows, tp, t_clip, b2, k, lane, r, w);
+    }
+  }
 }
 
 // The end of every warp walk: the any-hit marker, D's row (lanes 0-9, before
@@ -441,83 +492,115 @@ __global__ void __launch_bounds__(32 * WALK_RAYS)
   const int i = blockIdx.x * WALK_RAYS + (threadIdx.x >> 5);
   if (i >= n) return;  // the whole warp
   const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
-  const float t_lo = r.t_lo;
-  const float t_hi = r.t_hi;
   Walk w;
-
-  if (r.finite && t_lo <= t_hi) {
-    const float hi_pre = ANY_HIT ? fmaxf(t_hi, 0.0f) : t_hi;
-    bool done = false;
-    for (int tp0 = 0; tp0 < b1 && !done; tp0 += 32) {
-      unsigned cand = 1u;  // a single-level tree has no top box to test
-      if (b1 > 1) {
-        const int tp = tp0 + lane;
-        cand = __ballot_sync(FULL_MASK, tp < b1 && box_hit4(top + 8 * tp, r, t_lo, hi_pre));
-      }
-      while (cand != 0u) {
-        const int tp = tp0 + __ffs(cand) - 1;
-        cand &= cand - 1u;
-        // once occluded, t_clip = 0: no box can be hit unless t_lo <= 0
-        if (ANY_HIT && w.occluded && !(t_lo <= 0.0f)) {
-          done = true;
-          break;
-        }
-        const float t_clip = ANY_HIT ? (w.occluded ? 0.0f : t_hi) : min_nan(t_hi, w.best_t);
-        if (b1 > 1 && t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
-        walk_top<ANY_HIT, CB>(child, tri, tp, t_clip, b2, k, lane, r, w);
-      }
-    }
-  }
+  TriSlots rows{tri};
+  walk_tree<ANY_HIT, CB>(top, child, rows, b1, b2, k, lane, r, w);
   warp_finish<ANY_HIT, SHADE>(i, lane, r, w, shade, sph, n_spheres, b1 * b2 * k, out_t, out_slot,
                               out_bary, out_tests, out_shade);
 }
 
-// Kernel C: the tree-free pass over every real triangle of a tiny scene.
-// Rays are grouped in 1024-lane tiles as the TPU kernel's grid was: a tile
-// with no live lane (t_hi > t_lo) does no work at all, sphere tests included.
+// The tile's padding lanes: o = d = 0, t_lo = t_hi = 0.
+__device__ __forceinline__ Ray padding_ray() {
+  Ray r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = 0.0f;
+    r.d[a] = 0.0f;
+    r.inv[a] = safe_inv(0.0f);
+  }
+  r.t_lo = r.t_hi = 0.0f;
+  r.finite = true;
+  return r;
+}
+
+// Kernel C: the tree-free pass over every real triangle of a tiny scene
+// (row 4 of PERF.md's kernel table; row 5 with the closest-hit flag).  Rays
+// are grouped in 1024-lane tiles as the TPU kernel's grid was: a tile with
+// no live lane (t_hi > t_lo) does no work at all, sphere tests included.
+//
+// What bounds it is operations: every lane of a live tile takes s_real <=
+// 512 Moller-Trumbore tests of ~60 instructions each (no fused multiply-add
+// under --fmad=false), and its inputs are a few KB.  So:
+// - A block stages the scene's s_real rows in shared memory once (<= 24 KB
+//   of 48-byte rows), with coalesced float4 loads by all its threads: the
+//   rows are contiguous and one L2 round trip each, so a bulk copy with an
+//   mbarrier would buy nothing here.  Every read of a row is then a
+//   warp-wide broadcast of three float4.
+// - One ray per thread, BRUTE_LANES of them per block inside one tile, so
+//   that the main path's 64k lanes give 256 blocks of 8 warps for 132 SMs
+//   (64 tiles would leave half the SMs idle).  Two or four rays per thread,
+//   each row read feeding that many tests, measured slower, as did
+//   reordering a block's lanes so that dead lanes take a cheaper test: the
+//   issue rate of the tests is what bounds the pass (PERF.md).
+// - A block learns whether its tile is live from its own lanes, and reads
+//   the tile's other lanes, once each, only where its own are all dead.
+// - Any hit: a warp stops once each of its lanes is occluded or cannot be
+//   (a NaN in the ray fails every comparison).  A lane with an empty
+//   interval (t_lo > t_hi) keeps testing: the divide-free test accepts it
+//   where t_lo * |det| and t_hi * |det| round alike.  tests is s_real per
+//   live lane whatever the exit.
+// - Closest hit: the rows in static blocks of 64, batch_reset / batch_test
+//   / batch_commit per block as the TPU kernel's sublane blocks resolved
+//   them (ties to the highest slot within a block, the earliest block
+//   across blocks).
+constexpr int BRUTE_LANES = 256;  // lanes per block, one per thread
+static_assert(BRUTE_TILE % BRUTE_LANES == 0, "a block must lie inside one brute tile");
+
 template <bool CLOSEST>
-__global__ void brute_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                             const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
-                             const float* __restrict__ tri, const float* __restrict__ sph, int n,
-                             int s_real, int s_pad, int n_spheres, float* __restrict__ out_t,
-                             int* __restrict__ out_slot, float* __restrict__ out_bary,
-                             int* __restrict__ out_tests) {
-  // blockDim.x divides BRUTE_TILE: each block reads the liveness of its tile
-  const int tile0 = (blockIdx.x * blockDim.x) / BRUTE_TILE * BRUTE_TILE;
-  int any_live = 0;
-  for (int l = tile0 + threadIdx.x; l < tile0 + BRUTE_TILE && l < n; l += blockDim.x)
-    any_live |= (t_hi_in[l] > t_lo_in[l]) ? 1 : 0;
-  const bool tile_live = __syncthreads_or(any_live) != 0;
+__global__ void __launch_bounds__(BRUTE_LANES)
+    brute_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                 const float* __restrict__ tri, const float* __restrict__ sph, int n, int s_real,
+                 int s_pad, int n_spheres, float* __restrict__ out_t, int* __restrict__ out_slot,
+                 float* __restrict__ out_bary, int* __restrict__ out_tests) {
+  __shared__ float4 rows[3 * BRUTE_MAX_TRIS];  // row s: rows[3s .. 3s+2]
+  const float4* tri4 = reinterpret_cast<const float4*>(tri);
+  for (int j = threadIdx.x; j < 3 * s_real; j += BRUTE_LANES) rows[j] = __ldg(tri4 + j);
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * BRUTE_LANES;
+  const int i = lane0 + tid;
+  const Ray r = i < n ? load_ray(o, d, t_lo_in, t_hi_in, i) : padding_ray();
+  bool live = __syncthreads_or(r.t_hi > r.t_lo) != 0;  // also publishes the rows
+  if (!live) {
+    const int tile0 = lane0 - lane0 % BRUTE_TILE;
+    const int tile1 = min(tile0 + BRUTE_TILE, n);
+    int other = 0;
+    for (int l = tile0 + tid; l < tile1; l += BRUTE_LANES)
+      if (l < lane0 || l >= lane0 + BRUTE_LANES) other |= (t_hi_in[l] > t_lo_in[l]) ? 1 : 0;
+    live = __syncthreads_or(other) != 0;
+  }
 
-  float best_t = KINF;
-  int slot = -1;
-  float ob1 = 0.0f, ob2 = 0.0f;
-  int tests = 0;
-  if (tile_live) {
-    const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  float best_t = KINF, ob1 = 0.0f, ob2 = 0.0f;
+  int slot = -1, tests = 0;
+  if (live) {  // block-uniform
     if (CLOSEST) {
-      // rows in static blocks of 64, as the TPU kernel's sublane blocks
       for (int c0 = 0; c0 < s_real; c0 += BRUTE_BLOCK) {
         Batch bt;
         batch_reset(bt, r.t_hi, best_t);
         const int c1 = min(c0 + BRUTE_BLOCK, s_real);
-        for (int s = c0; s < c1; ++s) batch_test(bt, mt_terms(tri + 9 * s, r), s, r.t_lo);
+        for (int s = c0; s < c1; ++s) {
+          const float4 a = rows[3 * s], b = rows[3 * s + 1], c = rows[3 * s + 2];
+          const float v[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+          batch_test(bt, mt_terms(v, r), s, r.t_lo);
+        }
         batch_commit(bt, best_t, slot, ob1, ob2);
       }
     } else {
+      bool occ = false;
+      const bool never = i >= n || !r.finite;
       for (int s = 0; s < s_real; ++s) {
-        if (occludes(mt_terms(tri + 9 * s, r), r.t_lo, r.t_hi)) {
-          slot = 0;
-          break;
-        }
+        if (__all_sync(FULL_MASK, occ || never)) break;  // warp-uniform
+        const float4 a = rows[3 * s], b = rows[3 * s + 1], c = rows[3 * s + 2];
+        const float v[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+        occ = occludes(mt_terms(v, r), r.t_lo, r.t_hi) || occ;
       }
+      if (occ) slot = 0;
     }
     tests = (r.t_hi > r.t_lo) ? s_real : 0;
     sphere_pass(sph, n_spheres, s_pad, r, best_t, slot, tests);
   }
+  if (i >= n) return;
   out_t[i] = best_t;
   out_slot[i] = slot;
   out_bary[2 * i] = ob1;
@@ -529,88 +612,107 @@ __global__ void brute_kernel(const float* __restrict__ o, const float* __restric
 //
 // With the features f = [1 | o-c | d | g = d x (o-c)] of a ray about its
 // top's centre c, the Moller-Trumbore numerators det, t.det, b1.det and
-// b2.det are linear forms per slot, whose coefficients the wrapper packs
-// slot-major (B1*B2*K, 4, 16) (intersect_cuda.mxu_tables).  The TPU kernel
-// evaluated them as one (16,128)^T x (16,TILE) matrix product per chunk on
-// its matrix unit.  Here one thread per ray walks the tree as kernel A does
-// at chunk batch 1, forms f once per walked top, and for each slot of an
-// active chunk takes four dot products over the ten non-zero features in
-// plain float32, features 0 -> 9 (--fmad=false), then A's closest-hit
-// update.  What bounds it on this card: 256 bytes of coefficients per slot
-// (A reads 48) and 76 FLOP per slot for the four dots (A's cross-product
-// chain is 41), both served from L2 in divergent per-thread loads, so it is
-// slower than A by design.  The Hopper counterpart of the TPU's reason for
-// this row -- a block's lanes sharing one chunk's (K x 4, 16) coefficients
-// in shared memory and evaluating them as a tile product on the tensor
-// cores with 3xTF32 mma.sync / wgmma -- is ROADMAP Queue 2's redesign.
-__device__ __forceinline__ float dot10(const float* __restrict__ c, const float* f) {
-  const float4 q0 = reinterpret_cast<const float4*>(c)[0];
-  const float4 q1 = reinterpret_cast<const float4*>(c)[1];
-  const float2 q2 = reinterpret_cast<const float2*>(c)[4];
-  float acc = q0.x * f[0];
-  acc = acc + q0.y * f[1];
-  acc = acc + q0.z * f[2];
-  acc = acc + q0.w * f[3];
-  acc = acc + q1.x * f[4];
-  acc = acc + q1.y * f[5];
-  acc = acc + q1.z * f[6];
-  acc = acc + q1.w * f[7];
-  acc = acc + q2.x * f[8];
-  acc = acc + q2.y * f[9];
+// b2.det are linear forms per slot.  The TPU kernel evaluated them as one
+// (16,128)^T x (16,TILE) matrix product per chunk on its matrix unit, since
+// its vector unit is narrow.  Here E is A's warp-per-ray walk at chunk batch
+// 1 (walk_tree) with another slot test, CoefSlots: every lane forms f once
+// per walked top, with mxu_fmat's rounding (intersect_pallas.py:310-332: two
+// products, then their difference), and lane s of a chunk reads its slot's
+// packed row, the ten non-zero coefficients of each of the four forms (160
+// bytes, ten float4, coalesced across the chunk's 32 slots), and takes the
+// four 10-term dot products in order 0 -> 9 in plain float32, reading the
+// t and b2 forms only for slots whose det and b1 pass (CoefSlots::closest).
+// The warp then reduces the chunk as A does.  What bounds it is A's latency
+// chain, with up to 160 bytes and 76 FLOP per slot test where A has 48 and
+// 41; the two-stage read took the primary rows' time down 9-12% and the
+// bounce rows' up 7-9% (PERF.md).  The tensor cores do not serve this
+// walk: one ray against a chunk is a (128 x 10) by (10 x 1) product, 1/8 of
+// the smallest mma.sync tile; float32 accuracy needs the 3xTF32 split,
+// which triples the work and gives up bit equality with the plain version;
+// and a packet of rays sharing each chunk, as the TPU tile did, walks the
+// union of the packet's chunks, the divergence the warp walk removed.
+__device__ __forceinline__ float dot10(const float* q, const float* f) {
+  float acc = q[0] * f[0];
+#pragma unroll
+  for (int j = 1; j < MXU_FEATURES; ++j) acc = acc + q[j] * f[j];
   return acc;
 }
 
-__global__ void mxu_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                           const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
-                           const float* __restrict__ top, const float* __restrict__ child,
-                           const float* __restrict__ coef, const float* __restrict__ centers,
-                           const float* __restrict__ sph, int n, int b1, int b2, int k,
-                           int n_spheres, float* __restrict__ out_t, int* __restrict__ out_slot,
-                           float* __restrict__ out_bary, int* __restrict__ out_tests) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
-  const float t_lo = r.t_lo;
-  const float t_hi = r.t_hi;
-  float best_t = KINF;
-  int slot = -1;
-  float ob1 = 0.0f, ob2 = 0.0f;
-  int tests = 0;
+struct CoefSlots {
+  const float* __restrict__ coef;     // (B1*B2*K, 40) [det | t.det | b1.det | b2.det] x 10
+  const float* __restrict__ centers;  // (B1, 3)
+  float f[MXU_FEATURES];              // the ray's features about the walked top's centre
 
-  for (int tp = 0; r.finite && tp < b1; ++tp) {
-    const float t_clip = min_nan(t_hi, best_t);
-    if (b1 > 1 && !box_hit(top + 8 * tp, r, t_lo, t_clip)) continue;
-    // mxu_fmat (intersect_pallas.py:310-332): products rounded, then differences
-    const float* c = centers + 3 * tp;
-    const float ocx = r.o[0] - c[0], ocy = r.o[1] - c[1], ocz = r.o[2] - c[2];
-    const float f[10] = {1.0f, ocx, ocy, ocz, r.d[0], r.d[1], r.d[2],
-                         r.d[1] * ocz - r.d[2] * ocy, r.d[2] * ocx - r.d[0] * ocz,
-                         r.d[0] * ocy - r.d[1] * ocx};
-    for (int ch = 0; ch < b2; ++ch) {
-      const int node = tp * b2 + ch;
-      if (!box_hit(child + 8 * node, r, t_lo, t_clip)) continue;
-      tests += k;
-      Batch bt;
-      batch_reset(bt, t_hi, best_t);
-      const float* cf = coef + (size_t)node * k * 64;
-      for (int s = 0; s < k; ++s) {
-        const float* q = cf + 64 * s;  // [det | t.det | b1.det | b2.det] x 16 features
-        MT m;
-        m.det = dot10(q, f);
-        m.tt_n = dot10(q + 16, f);
-        m.bb1_n = dot10(q + 32, f);
-        m.bb2_n = dot10(q + 48, f);
-        batch_test(bt, m, node * k + s, t_lo);
-      }
-      batch_commit(bt, best_t, slot, ob1, ob2);
-    }
+  __device__ __forceinline__ void enter_top(int tp, const Ray& r) {
+    const float ocx = r.o[0] - centers[3 * tp];
+    const float ocy = r.o[1] - centers[3 * tp + 1];
+    const float ocz = r.o[2] - centers[3 * tp + 2];
+    f[0] = 1.0f;
+    f[1] = ocx;
+    f[2] = ocy;
+    f[3] = ocz;
+    f[4] = r.d[0];
+    f[5] = r.d[1];
+    f[6] = r.d[2];
+    f[7] = r.d[1] * ocz - r.d[2] * ocy;
+    f[8] = r.d[2] * ocx - r.d[0] * ocz;
+    f[9] = r.d[0] * ocy - r.d[1] * ocx;
   }
-  sphere_pass(sph, n_spheres, b1 * b2 * k, r, best_t, slot, tests);
-  out_t[i] = best_t;
-  out_slot[i] = slot;
-  out_bary[2 * i] = ob1;
-  out_bary[2 * i + 1] = ob2;
-  out_tests[i] = tests;
+
+  // closest_terms in two reads: det and b1.det (float4 0-2 and 5-7 of the
+  // row), then, only where det != 0 and b1 lies in [0, 1], t.det and b2.det
+  // (float4 3-4 and 8-9).  A slot that fails the first half is invalid
+  // whatever the rest, and an invalid slot's t and barycentrics are never
+  // read, so this is closest_terms' result with fewer bytes.
+  __device__ __forceinline__ bool closest(size_t slot, const Ray& r, float limit, float& tt,
+                                          float& b1, float& b2) const {
+    const float4* q4 = reinterpret_cast<const float4*>(coef + slot * (4 * MXU_FEATURES));
+    float q[4 * MXU_FEATURES];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {  // float4 0-2 and 5-7
+      load4(q, q4, j);
+      load4(q, q4, j + 5);
+    }
+    const float det = dot10(q, f);
+    const float inv_det = 1.0f / (det == 0.0f ? 1e-30f : det);
+    b1 = dot10(q + 2 * MXU_FEATURES, f) * inv_det;
+    if (!((det != 0.0f) && (b1 >= 0.0f) && (b1 <= 1.0f))) return false;
+#pragma unroll
+    for (int j = 3; j < 5; ++j) {  // float4 3-4 and 8-9
+      load4(q, q4, j);
+      load4(q, q4, j + 5);
+    }
+    tt = dot10(q + MXU_FEATURES, f) * inv_det;
+    b2 = dot10(q + 3 * MXU_FEATURES, f) * inv_det;
+    return (tt >= r.t_lo) && (tt <= limit) && (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
+  }
+
+  static __device__ __forceinline__ void load4(float* q, const float4* q4, int j) {
+    const float4 v = __ldg(q4 + j);
+    q[4 * j] = v.x;
+    q[4 * j + 1] = v.y;
+    q[4 * j + 2] = v.z;
+    q[4 * j + 3] = v.w;
+  }
+};
+
+__global__ void __launch_bounds__(32 * WALK_RAYS)
+    mxu_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ t_lo_in, const float* __restrict__ t_hi_in,
+                    const float* __restrict__ top, const float* __restrict__ child,
+                    const float* __restrict__ coef, const float* __restrict__ centers,
+                    const float* __restrict__ sph, int n, int b1, int b2, int k, int n_spheres,
+                    float* __restrict__ out_t, int* __restrict__ out_slot,
+                    float* __restrict__ out_bary, int* __restrict__ out_tests) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * WALK_RAYS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
+  const Ray r = load_ray(o, d, t_lo_in, t_hi_in, i);
+  Walk w;
+  CoefSlots rows{coef, centers, {}};
+  walk_tree<false, 1>(top, child, rows, b1, b2, k, lane, r, w);
+  warp_finish<false, false>(i, lane, r, w, nullptr, sph, n_spheres, b1 * b2 * k, out_t, out_slot,
+                            out_bary, out_tests, nullptr);
 }
 
 // Kernel F: the top-batched group walk (row 8), closest hit (ANY_HIT and
@@ -654,20 +756,6 @@ __global__ void mxu_kernel(const float* __restrict__ o, const float* __restrict_
 // pass, latency-bound as A's walk; the list pass (tile x B1 box tests per
 // tile) is about an eighth of a call at the kernel bench's shapes (PERF.md).
 constexpr int LIST_MAX_THREADS = 1024;
-
-// The tile's padding lanes: o = d = 0, t_lo = t_hi = 0.
-__device__ __forceinline__ Ray padding_ray() {
-  Ray r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = 0.0f;
-    r.d[a] = 0.0f;
-    r.inv[a] = safe_inv(0.0f);
-  }
-  r.t_lo = r.t_hi = 0.0f;
-  r.finite = true;
-  return r;
-}
 
 __global__ void __launch_bounds__(LIST_MAX_THREADS)
     group_list_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -740,7 +828,7 @@ __device__ __forceinline__ int group_walk(const float* __restrict__ top,
       const int tp = __shfl_sync(FULL_MASK, tp_l, bit);
       if (t_clip != hi_pre && !box_hit4(top + 8 * tp, r, t_lo, t_clip)) continue;
       const bool was_occluded = w.occluded;
-      walk_top<ANY_HIT, 1>(child, tri, tp, t_clip, b2, k, lane, r, w);
+      walk_top<ANY_HIT, 1>(child, TriSlots{tri}, tp, t_clip, b2, k, lane, r, w);
       if (ANY_HIT && w.occluded && !was_occluded) occ_group = g;
     }
   }
@@ -824,10 +912,6 @@ __global__ void __launch_bounds__(32 * WALK_RAYS)
   }
 }
 
-constexpr int TREE_THREADS = 128;
-constexpr int BRUTE_THREADS = 256;
-static_assert(BRUTE_TILE % BRUTE_THREADS == 0, "a block must lie inside one brute tile");
-
 template <bool ANY_HIT, bool SHADE, int CB>
 int launch_walk(const float* o, const float* d, const float* t_lo, const float* t_hi,
                 const float* top, const float* child, const float* tri, const float* shade,
@@ -848,7 +932,7 @@ int launch_walk(const float* o, const float* d, const float* t_lo, const float* 
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer;
 // rays are o (N, 3), d (N, 3), t_lo (N,), t_hi (N,); outputs t (N,),
 // slot (N,), bary (N, 2), tests (N,).  Returns cudaGetLastError().
-// Kernels A, B, D and F walk one ray per warp: top, child and tri 16-byte
+// Kernels A, B, D, E and F walk one ray per warp: top, child and tri 16-byte
 // aligned (the wrapper checks), any B1, B2, K >= 1.
 // Kernel A: chunk_batch 1 or 2 (_auto_chunk_batch: 2 on single-level trees).
 extern "C" int lf_tree_closest(const float* o, const float* d, const float* t_lo,
@@ -891,33 +975,39 @@ extern "C" int lf_tree_any_hit(const float* o, const float* d, const float* t_lo
                                      stream);
 }
 
+// Kernel C: tri (s_pad, 12) rows [p0 | e1 | e2 | pad], 16-byte aligned,
+// s_real <= 512 of them real (the wrapper checks).
 extern "C" int lf_brute(const float* o, const float* d, const float* t_lo, const float* t_hi,
                         const float* tri, const float* sph, int n, int s_real, int s_pad,
                         int n_spheres, int closest, float* out_t, int* out_slot, float* out_bary,
                         int* out_tests, void* stream) {
+  if (s_real < 0 || s_real > BRUTE_MAX_TRIS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + BRUTE_THREADS - 1) / BRUTE_THREADS;
+    const int grid = (n + BRUTE_LANES - 1) / BRUTE_LANES;
     if (closest)
-      brute_kernel<true><<<grid, BRUTE_THREADS, 0, (cudaStream_t)stream>>>(
+      brute_kernel<true><<<grid, BRUTE_LANES, 0, (cudaStream_t)stream>>>(
           o, d, t_lo, t_hi, tri, sph, n, s_real, s_pad, n_spheres, out_t, out_slot, out_bary,
           out_tests);
     else
-      brute_kernel<false><<<grid, BRUTE_THREADS, 0, (cudaStream_t)stream>>>(
+      brute_kernel<false><<<grid, BRUTE_LANES, 0, (cudaStream_t)stream>>>(
           o, d, t_lo, t_hi, tri, sph, n, s_real, s_pad, n_spheres, out_t, out_slot, out_bary,
           out_tests);
   }
   return (int)cudaGetLastError();
 }
 
-// Kernel E: coef (B1*B2*K, 4, 16) slot-major coefficients, centers (B1, 3).
+// Kernel E: coef (B1*B2*K, 40) packed rows, the ten non-zero columns of each
+// of the four forms of intersect_cuda.mxu_tables; centers (B1, 3).  One ray
+// per warp: top, child and coef 16-byte aligned (the wrapper checks).
 extern "C" int lf_tree_closest_mxu(const float* o, const float* d, const float* t_lo,
                                    const float* t_hi, const float* top, const float* child,
                                    const float* coef, const float* centers, const float* sph,
                                    int n, int b1, int b2, int k, int n_spheres, float* out_t,
                                    int* out_slot, float* out_bary, int* out_tests, void* stream) {
+  if (b1 < 1 || b2 < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int grid = (n + TREE_THREADS - 1) / TREE_THREADS;
-    mxu_kernel<<<grid, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+    const int grid = (n + WALK_RAYS - 1) / WALK_RAYS;
+    mxu_walk_kernel<<<grid, 32 * WALK_RAYS, 0, (cudaStream_t)stream>>>(
         o, d, t_lo, t_hi, top, child, coef, centers, sph, n, b1, b2, k, n_spheres, out_t, out_slot,
         out_bary, out_tests);
   }

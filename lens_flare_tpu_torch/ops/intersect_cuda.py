@@ -2,13 +2,16 @@
 
 Counterpart of ``lens_flare_tpu/ops/intersect_pallas.py``.  The scene is the
 same two-level cluster tree (``accel/wide.py:WideBVH``), kept in the layout a
-thread wants to read: per-triangle rows ``tri`` (B1*B2*K, 12) =
+warp wants to read: per-triangle rows ``tri`` (B1*B2*K, 12) =
 [p0 | e1 | e2 | pad], child boxes (B1*B2, 8), top boxes (B1, 8), for
 shade scenes slot-ordered shading rows (B1*B2*K, 10) and, for mxu scenes,
-slot-major Möller-Trumbore coefficients (B1*B2*K, 4, 16) with the top
-centres (B1, 3).  The TPU layouts of ``PallasScene`` (component-major
-planes, 128-padded boxes, HBM pages, (16, B_nodes*128) coefficient lanes)
-were VMEM workarounds and are not carried over.
+slot-major Möller-Trumbore coefficients (B1*B2*K, 4, 16) (the plain
+version's) packed for kernel E as (B1*B2*K, 40) rows of their ten non-zero
+columns, with the top centres (B1, 3); brute scenes keep their real
+triangles' rows (S_pad, 12) for kernel C.  The TPU layouts of
+``PallasScene`` (component-major planes, 128-padded boxes, HBM pages,
+(16, B_nodes*128) coefficient lanes) were VMEM workarounds and are not
+carried over.
 
 Six kernels (``csrc/intersect.cu``), each with a plain PyTorch version
 beside it that computes the same function with the same arithmetic:
@@ -30,11 +33,13 @@ any hit and shade) are reached only when a caller asks for them
 package, whose defaults are ``mxu=False`` and ``TOP_BATCH = 1``: the kernel
 bench (:mod:`lens_flare_tpu_torch.bench_kernels`) is their path.
 
-A, B, D and F walk one ray per warp (32 boxes or one chunk's slots at a
-time, read coalesced; F with a pass before the walk for its tiles'
-active-top lists, and for any hit one after it for the lanes charged past
-their own end); C and E one ray per thread.  All six give their plain
-version's outputs bit for bit, ``tests`` included.
+A, B, D, E and F walk one ray per warp (32 boxes or one chunk's slots at
+a time, read coalesced: a slot's 48-byte triangle row, or E's 160-byte
+coefficient row; F with a pass before the walk for its tiles' active-top
+lists, and for any hit one after it for the lanes charged past their own
+end).  C stages a scene's rows in shared memory once per block and tests
+one ray per thread against them.  All six give their plain version's
+outputs bit for bit, ``tests`` included.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
@@ -125,10 +130,11 @@ class CudaScene:
     tri: torch.Tensor  # (B1*B2*K, 12) f32 [p0 | e1 | e2 | pad]
     sph: torch.Tensor  # (max(S, 1), 8) f32 [center | radius | pad]
     slot_map: torch.Tensor  # (B1*B2*K + max(S, 1),) slot -> primitive id
-    tri_brute: torch.Tensor  # (S_pad, 9) real triangle rows (brute mode)
+    tri_brute: torch.Tensor  # (S_pad, 12) real triangle rows [p0 | e1 | e2 | pad] (brute mode)
     brute_map: torch.Tensor  # (S_pad + max(S, 1),)
     slot_shade: torch.Tensor  # (B1*B2*K, 10) shading row per slot (shade), else (1, 10)
     mxu_coef: torch.Tensor  # (B1*B2*K, 4, 16) [det | t.det | b1.det | b2.det] x features (mxu), else (1, 4, 16)
+    mxu_rows: torch.Tensor  # (B1*B2*K, 40) kernel E's rows: mxu_coef[:, j, :10] for j = 0..3 (mxu), else (1, 40)
     mxu_centers: torch.Tensor  # (B1, 3) per-top centre the features are taken about (mxu), else (1, 3)
     b1: int
     b2: int
@@ -171,12 +177,12 @@ class CudaScene:
             rows = np.ascontiguousarray(wb.tri_soa[real][:, :9], np.float32)
             s_real = rows.shape[0]
             s_pad = (max(s_real, 1) + 7) // 8 * 8
-            rows = np.pad(rows, ((0, s_pad - s_real), (0, 0)))
+            rows = np.pad(rows, ((0, s_pad - s_real), (0, 3)))  # 48-byte rows: three float4
             brute_map = np.concatenate(
                 [np.pad(wb.tri_id[real].astype(np.int32), (0, s_pad - s_real)), sph_ids]
             )
         else:
-            rows = np.zeros((8, 9), np.float32)
+            rows = np.zeros((8, 12), np.float32)
             brute_map = np.zeros(9, np.int32)
             s_pad = s_real = 0
         sph = np.zeros((max(n_sph, 1), 8), np.float32)
@@ -207,6 +213,7 @@ class CudaScene:
         else:
             mxu_centers = np.zeros((1, 3), np.float32)
             mxu_coef = np.zeros((1, 4, 16), np.float32)
+        mxu_rows = mxu_coef[:, :, :MXU_FEATURES].reshape(len(mxu_coef), 4 * MXU_FEATURES)
 
         def t(a, dtype=np.float32):
             return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
@@ -221,6 +228,7 @@ class CudaScene:
             brute_map=t(brute_map, np.int32),
             slot_shade=t(slot_shade),
             mxu_coef=t(mxu_coef),
+            mxu_rows=t(mxu_rows),
             mxu_centers=t(mxu_centers),
             b1=b1,
             b2=b2,
@@ -244,8 +252,9 @@ def mxu_tables(wb):
     det = d.(e2 x e1), t.det = (o-c).n - p0.n with n = e1 x e2,
     b1.det = -g.e2 - d.(e2 x p0) and b2.det = g.e1 - d.(p0 x e1), with p0
     re-centred on c.  Built in float64 exactly as ``PallasScene``
-    (``intersect_pallas.py:1175-1210``), then cast; rows are slot-major, so
-    one thread reads one slot's 256 bytes.
+    (``intersect_pallas.py:1175-1210``), then cast; rows are slot-major.
+    Columns 10-15 are zero; kernel E reads the other forty
+    (``CudaScene.mxu_rows``).
     """
     b1, b2, k = int(wb.b1), int(wb.b2), int(wb.k)
     n_nodes = b1 * b2
@@ -658,23 +667,40 @@ def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
         raise ValueError(f"scene is on {cs.tri.device}, rays on {o.device}")
 
 
-def _check_warp_walk_tree(cs: CudaScene):
-    """Kernels A, B, D and F read boxes and triangle rows as float4: the tree's own shapes, contiguous, 16-byte aligned."""
-    if min(cs.b1, cs.b2, cs.k) < 1:
-        raise ValueError(f"tree shape ({cs.b1}, {cs.b2}, {cs.k}) has an empty level")
-    n_nodes = cs.b1 * cs.b2
-    for name, x, shape in (("top", cs.top, (cs.b1, 8)), ("child", cs.child, (n_nodes, 8)),
-                           ("tri", cs.tri, (n_nodes * cs.k, 12))):
+def _check_float4_rows(*arrays):
+    """Each (name, tensor, shape): a contiguous, 16-byte aligned float32 array of that shape."""
+    for name, x, shape in arrays:
         if tuple(x.shape) != shape or x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: want a contiguous, 16-byte aligned float32 {shape}, "
                              f"got {x.dtype} {tuple(x.shape)} at offset {x.data_ptr() % 16}")
 
 
+def _check_warp_walk_tree(cs: CudaScene, mxu: bool = False):
+    """Kernels A, B, D, E and F read boxes and slot rows as float4: the tree's own shapes, contiguous, 16-byte aligned.
+
+    ``mxu``: the slot rows are kernel E's packed coefficients, not the triangles.
+    """
+    if min(cs.b1, cs.b2, cs.k) < 1:
+        raise ValueError(f"tree shape ({cs.b1}, {cs.b2}, {cs.k}) has an empty level")
+    n_slots = cs.b1 * cs.b2 * cs.k
+    slots = ("mxu_rows", cs.mxu_rows, (n_slots, 4 * MXU_FEATURES)) if mxu else ("tri", cs.tri, (n_slots, 12))
+    _check_float4_rows(("top", cs.top, (cs.b1, 8)), ("child", cs.child, (cs.b1 * cs.b2, 8)), slots)
+
+
+def _check_brute_rows(cs: CudaScene):
+    """Kernel C stages at most BRUTE_MAX_TRIS rows in shared memory, read as float4."""
+    if not 0 <= cs.s_real <= min(cs.s_pad, BRUTE_MAX_TRIS):
+        raise ValueError(f"brute scene has {cs.s_real} real rows of {cs.s_pad}; at most {BRUTE_MAX_TRIS}")
+    _check_float4_rows(("tri_brute", cs.tri_brute, (cs.s_pad, 12)))
+
+
 def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 1, shade: bool = False):
     from ._build import load_library
 
-    if key in ("A", "B", "D", "F"):
-        _check_warp_walk_tree(cs)
+    if key == "C":
+        _check_brute_rows(cs)
+    else:
+        _check_warp_walk_tree(cs, mxu=key == "E")
     lib = load_library()
     n = o.shape[0]
     o, d, t_lo, t_hi = (x.contiguous() for x in (o, d, t_lo, t_hi))
@@ -706,7 +732,7 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 
         )
     elif key == "E":
         rc = lib.lf_tree_closest_mxu(
-            *rays, *tree, cs.mxu_coef.data_ptr(), cs.mxu_centers.data_ptr(), cs.sph.data_ptr(),
+            *rays, *tree, cs.mxu_rows.data_ptr(), cs.mxu_centers.data_ptr(), cs.sph.data_ptr(),
             *shape, *outs, stream,
         )
     elif key == "F":

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from . import _rng
-from .accel.wide import build_wide_bvh
+from .accel.wide import build_wide_bvh, check_capacity
 from .integrator.lights import lights_to_device
 from .integrator.path import (
     BokehMask,
@@ -111,8 +111,8 @@ class Renderer:
         self._build()
 
     def _build(self) -> None:
-        if self.scene.num_spheres > 64:
-            raise ValueError("the trace kernels test at most 64 spheres")
+        # any number of spheres; the cluster tree has a capacity
+        check_capacity(self.scene.num_triangles)
         # check the scene against the ported feature set before building
         self.update_settings()
         t0 = time.perf_counter()

@@ -124,13 +124,97 @@ def test_cpu_run_end_to_end(tmp_path):
             assert torch.equal(got[3], c.base_tests), c.label  # A's tests: the same chunks
 
 
-@pytest.mark.parametrize("tool", ["bench_kernels", "ab_walk"])
+@pytest.mark.parametrize("tool", ["bench_kernels", "ab_walk", "ab_legacy"])
 def test_refuses_without_card(tool, monkeypatch, tmp_path):
-    """Both measuring entry points raise, before building anything, where there is no card."""
-    from lens_flare_tpu_torch import ab_walk
+    """The measuring entry points raise, before building anything, where there is no card."""
+    from lens_flare_tpu_torch import ab_legacy, ab_walk
 
+    launch = bk.ic._launch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = {"bench_kernels": ["--n", "64"], "ab_walk": ["--baseline", str(tmp_path)]}[tool]
+    argv = {"bench_kernels": ["--n", "64"]}.get(tool, ["--baseline", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        {"bench_kernels": bk, "ab_walk": ab_walk}[tool].main(argv + ["--out", str(tmp_path / "x.json")])
+        {"bench_kernels": bk, "ab_walk": ab_walk, "ab_legacy": ab_legacy}[tool].main(
+            argv + ["--out", str(tmp_path / "x.json")])
     assert not (tmp_path / "x.json").exists()
+    assert bk.ic._launch is launch  # ab_legacy puts the checked launch back
+
+
+def _aimed_rays(cs, n=384, seed=0):
+    """Rays at random brute rows' centroids from 5 units away; every other one turned back (mostly unoccluded)."""
+    rng = np.random.default_rng(seed)
+    rows = cs.tri_brute[: cs.s_real].numpy()
+    tri = rows[rng.integers(0, cs.s_real, n)]
+    target = tri[:, :3] + (tri[:, 3:6] + tri[:, 6:9]) / 3
+    away = rng.normal(size=(n, 3))
+    o = target + 5 * away / np.linalg.norm(away, axis=1, keepdims=True)
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[1::2] *= -1
+    t_hi = np.where(rng.uniform(size=n) < 0.1, 0.0, 1e30)  # a few dead lanes
+    return tuple(torch.as_tensor(a, dtype=torch.float32) for a in (o, d, np.full(n, 1e-4), t_hi))
+
+
+def test_bound_counts_what_the_function_needs():
+    """C's any hit: each lane's tests up to its first occluder; E: the second stage only where det and b1 pass.
+
+    C against a row-by-row scan of the same any-hit conditions; E's passing
+    (lane, slot) pairs against every (lane, chunk) pair of the whole tree,
+    masked by top and child box hits under [t_lo, min(t_hi, t)], and the
+    bound of each kernel against the same counts by hand.
+    """
+    from lens_flare_tpu_torch.accel.wide import build_wide_bvh
+    from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
+
+    ic = bk.ic
+    r = bk.build_renderer(8, "cpu")
+    cs = r.bundle.cscene
+    o, d, t_lo, t_hi = rays = _aimed_rays(cs)
+    out = ic.brute_hit(cs, *rays)
+    cut, n_rows = bk.brute_any_hit_tests(cs, *rays, out[3], block=50)
+    need = torch.full_like(out[3], cs.s_real)
+    found = torch.zeros(o.shape[0], dtype=torch.bool)
+    for s in range(cs.s_real):
+        occ = ic._occludes(*ic._mt_terms(cs.tri_brute[s], o, d), t_lo, t_hi)
+        need = torch.where(occ & ~found, s + 1, need)
+        found |= occ
+    walked = (t_hi > t_lo) & (out[3] > 0)
+    assert torch.equal(cut, torch.where(walked, need + cs.n_spheres, out[3]))
+    assert n_rows == int(need[walked].max())
+    assert 0 < int((cut < out[3]).sum()) < int(walked.sum())  # some lanes stop early, some walk every row
+    n = o.shape[0]
+    c_flops = float(cut.sum()) * bk.FLOP_PER_TEST["any"]
+    c_bytes = n * bk.LANE_BYTES + n_rows * bk.TRI_ROW_BYTES
+    assert bk.bound(cs, "C", True, rays, out)[0] == max(c_flops / bk.PEAK_FLOPS, c_bytes / bk.PEAK_BYTES) * 1e3
+
+    nq, shape = bk.MXU_SCENES[0]
+    scene = make_terrain_scene(nq)
+    none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    cs = ic.CudaScene.from_wide_bvh(build_wide_bvh(scene.tri_p, *shape), *none, scene.num_triangles, "cpu",
+                                    mxu=True)
+    o, d, t_lo, t_hi = rays = bk.mxu_rays(scene, 256, "cpu")["bounce"]
+    out = ic.tree_closest_mxu(cs, *rays)
+    clip = torch.minimum(t_hi, out[0])
+    n_pass, n_slots = bk.mxu_passes(cs, o, d, t_lo, clip, block=7)
+    inv = ic._safe_inv(d)
+    nodes = cs.b1 * cs.b2
+    entered = (ic._box_hits(cs.top, o, inv, t_lo, clip).repeat_interleave(cs.b2, dim=1)
+               & ic._box_hits(cs.child, o, inv, t_lo, clip))  # (N, B1*B2)
+    coef = cs.mxu_coef.view(nodes, cs.k, 4, 16)
+    want_pass, want_slots = 0, torch.zeros(nodes, cs.k, dtype=torch.bool)
+    for node in range(nodes):
+        lanes = entered[:, node].nonzero()[:, 0]
+        if lanes.numel():
+            f = ic._mxu_features(o[lanes], d[lanes], cs.mxu_centers[node // cs.b2])
+            det, _, bb1_n, _ = ic._mxu_terms(coef[node].expand(lanes.numel(), -1, -1, -1), f)
+            b1 = bb1_n * (1.0 / torch.where(det == 0, 1e-30, det))
+            ok = (det != 0) & (b1 >= 0) & (b1 <= 1)
+            want_pass += int(ok.sum())
+            want_slots[node] |= ok.any(dim=0)
+    assert (n_pass, n_slots) == (want_pass, int(want_slots.sum()))
+    hits = out[1] >= 0
+    assert int(hits.sum()) > 0 and int(hits.sum()) <= n_pass < int(out[3].sum())
+    n_tops, n_chunks = bk.chunks_hit(cs, o, d, t_lo, clip)
+    e_flops = float(out[3].sum()) * bk.FLOP_PER_TEST["mxu"] + n_pass * bk.MXU_PASS_FLOP
+    e_bytes = (o.shape[0] * bk.LANE_BYTES + bk.BOX_BYTES * (cs.b1 + cs.b2 * n_tops) + bk.CENTER_BYTES * n_tops
+               + bk.MXU_HALF_ROW_BYTES * (cs.k * n_chunks + n_slots))
+    assert bk.bound(cs, "E", False, rays, out)[0] == max(e_flops / bk.PEAK_FLOPS, e_bytes / bk.PEAK_BYTES) * 1e3

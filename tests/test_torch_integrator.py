@@ -17,6 +17,8 @@ port rounds every product), so
   counts differ by design: the JAX reference walks a binary SAH BVH).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from lens_flare_tpu.renderer import Renderer as JaxRenderer
 from lens_flare_tpu.scene.camera import generate_rays as j_generate_rays
 from lens_flare_tpu.scene.procedural import make_terrain_scene
 from lens_flare_tpu_torch import _rng
+from lens_flare_tpu_torch.accel.wide import check_capacity
 from lens_flare_tpu_torch.convert import (
     camera_params_from_numpy,
     cuda_scene_from_wide_bvh,
@@ -162,6 +165,51 @@ def test_render_matches_jax(pair):
         a, b = getattr(r.stats, name), getattr(jr.stats, name)
         assert abs(a - b) <= 5e-3 * max(b, 1), (name, a, b)
     assert r.stats.total_rays > 0 and r.stats.total_isects > 0
+
+
+def test_render_many_spheres_matches_jax():
+    """More than the Pallas kernel's 64 spheres: the port renders them, as the JAX Renderer's XLA path does.
+
+    Terrain 8 (128 triangles: kernel C's plain version for the shadow rays)
+    with 65 spheres, at ``test_render_matches_jax``'s film and samples but
+    depth 2, held to its tolerances (``_close``), pixel counts and stats.
+    """
+    rng = np.random.default_rng(3)
+    n_sph = 65
+    scene = make_terrain_scene(8)
+    scene.sph_center = rng.uniform(-8, 8, (n_sph, 3)).astype(np.float32)
+    scene.sph_center[:, 2] = rng.uniform(1, 3, n_sph)
+    scene.sph_radius = rng.uniform(0.3, 1.0, n_sph).astype(np.float32)
+    scene.sph_bsdf = np.zeros(n_sph, np.int32)
+    kw = dict(KW, max_ray_depth=2)
+    jr = JaxRenderer(use_pallas=False, **kw)
+    jr.load_flat_scene(scene)
+    want, want_counts = jr.render(progress=False)
+    r = Renderer(device="cpu", **kw)
+    r.load_flat_scene(scene)
+    assert r.bundle.cscene.n_spheres == n_sph and r.bundle.cscene.brute
+    got, counts = r.render(progress=False)
+    assert (counts.numpy() == np.asarray(want_counts)).all()
+    _close(got.numpy().reshape(-1, 3), np.asarray(want).reshape(-1, 3))
+    for name in ("total_rays", "total_zero_skipped"):
+        a, b = getattr(r.stats, name), getattr(jr.stats, name)
+        assert abs(a - b) <= 5e-3 * max(b, 1), (name, a, b)
+    # some primary rays end on a sphere
+    o, d = generate_rays(camera_params_from_numpy(jr.camera.params()),
+                         *(torch.as_tensor(rng.uniform(0, 1, 256), dtype=torch.float32) for _ in range(2)))
+    hits = intersect(r.bundle.cscene, o.contiguous(), d, torch.full((256,), 1e-3), torch.full((256,), 1e30))
+    assert (hits[1] >= scene.num_triangles).any()
+
+
+def test_triangle_limit_is_named():
+    """Past 512*128*256 triangles the renderer names the limit and the missing walk, before any build."""
+    check_capacity(16_777_216)
+    with pytest.raises(ValueError, match=r"16,777,217 triangles.*16,777,216.*Queue 2, item 6"):
+        check_capacity(16_777_217)
+    r = Renderer(device="cpu", **KW)
+    r.scene = SimpleNamespace(num_triangles=16_777_217)  # what _build reads first
+    with pytest.raises(ValueError, match="Queue 2, item 6"):
+        r._build()
 
 
 def test_unported_features_raise():

@@ -282,6 +282,26 @@ def test_warp_walk_refuses_a_tree_it_cannot_read():
             ic._check_warp_walk_tree(bad)
 
 
+def test_brute_and_mxu_wrappers_refuse_rows_they_cannot_read():
+    """Kernel C reads its staged rows, kernel E its packed coefficient rows, as float4: off 16 bytes or misshapen, the wrapper refuses."""
+    _, _, cs = _setup("terrain8", pallas=False)
+    assert cs.brute and cs.tri_brute.shape == (cs.s_pad, 12) and not cs.tri_brute[:, 9:].any()
+    ic._check_brute_rows(cs)
+    shifted = torch.empty(cs.tri_brute.numel() + 1)[1:].view_as(cs.tri_brute)
+    for bad in (dataclasses.replace(cs, tri_brute=shifted), dataclasses.replace(cs, tri_brute=cs.tri_brute[:, :9]),
+                dataclasses.replace(cs, s_real=cs.s_pad + 1)):
+        with pytest.raises(ValueError):
+            ic._check_brute_rows(bad)
+    scene = make_terrain_scene(64)
+    none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    cs = cuda_scene_from_wide_bvh(build_wide_bvh(scene.tri_p, 8, 32, 32), *none, scene.num_triangles, mxu=True)
+    ic._check_warp_walk_tree(cs, mxu=True)
+    shifted = torch.empty(cs.mxu_rows.numel() + 1)[1:].view_as(cs.mxu_rows)
+    for bad in (dataclasses.replace(cs, mxu_rows=shifted), dataclasses.replace(cs, mxu_rows=cs.mxu_coef)):
+        with pytest.raises(ValueError):
+            ic._check_warp_walk_tree(bad, mxu=True)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -352,26 +372,88 @@ def test_shade_kernel_matches_plain_on_card(nq, n_sph, shape, rays, cuda_device)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,shape", [(64, (8, 32, 32)), (20, ())], ids=["terrain64_8x32x32", "terrain20"])
-def test_mxu_kernel_matches_plain_on_card(nq, shape, cuda_device):
-    """Kernel E equals its plain version on the card; it finds kernel A's hits."""
+@pytest.mark.parametrize("rays", list(RAY_SETS))
+@pytest.mark.parametrize(
+    "nq,shape", [(64, (8, 32, 32)), (128, (32, 32, 32)), (20, ())],
+    ids=["terrain64_8x32x32", "terrain128_32x32x32", "terrain20"],
+)
+def test_mxu_kernel_matches_plain_on_card(nq, shape, rays, cuda_device):
+    """Kernel E equals its plain version on the card; on the mixed rays it finds kernel A's hits.
+
+    The first two trees are the kernel bench's (``bench_kernels.MXU_SCENES``).
+    On the hard rays (vertex and edge ties) E's affine forms may round a
+    grazing hit otherwise than A's cross products, so there E is held to its
+    plain version only.
+    """
     scene = make_terrain_scene(nq)
     none = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
     cs = cuda_scene_from_wide_bvh(
         build_wide_bvh(scene.tri_p, *shape), *none, scene.num_triangles, cuda_device, mxu=True
     )
     assert cs.mxu
-    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in _rays(scene))
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in RAY_SETS[rays](scene))
     before = ic.KERNELS["E"].launches
     got = ic.tree_closest_mxu(cs, o, d, t_lo, t_hi)
     torch.cuda.synchronize()
     assert ic.KERNELS["E"].launches == before + 1
     for g, w in zip(got, ic.tree_plain(cs, o, d, t_lo, t_hi, False, mxu=True)):
         assert torch.equal(g, w)
-    a = ic.tree_closest_hit(cs, o, d, t_lo, t_hi)
-    hit = got[1] >= 0
-    assert torch.equal(hit, a[1] >= 0) and torch.equal(got[1][hit], a[1][hit])
-    assert torch.allclose(got[0][hit], a[0][hit], rtol=1e-3, atol=1e-5)
+    if rays == "mixed":
+        a = ic.tree_closest_hit(cs, o, d, t_lo, t_hi)
+        hit = got[1] >= 0
+        assert torch.equal(hit, a[1] >= 0) and torch.equal(got[1][hit], a[1][hit])
+        assert torch.allclose(got[0][hit], a[0][hit], rtol=1e-3, atol=1e-5)
+
+
+def _dead_tile_rays(scene, n=2048, seed=9):
+    """A wavefront whose first 1024-lane tile of kernel C is all dead and whose second has one live lane.
+
+    Dead lanes vary: t_hi = 0 < t_lo, t_lo == t_hi (a point interval, which
+    still meets a triangle or sphere there), t_lo > t_hi > 0 and NaN; in the
+    live tile they are tested, in the dead one they keep the initial outputs.
+    """
+    o, d, t_lo, t_hi = _rays(scene, n // 2, n // 2, seed=seed)
+    kind = np.arange(n) % 4
+    t_lo[:] = np.select([kind == 1, kind == 2], [5.0, 6.0], 1e-3).astype(np.float32)
+    t_hi[:] = np.select([kind == 1, kind == 2], [5.0, 2.0], 0.0).astype(np.float32)
+    t_lo[kind == 3] = np.nan
+    live = ic.BRUTE_TILE + 700  # in the tile's third 256-lane quarter
+    t_lo[live], t_hi[live] = 1e-3, 1e30
+    return o, d, t_lo, t_hi
+
+
+BRUTE_SETS = {
+    # name: (n_quads, n_spheres, real triangles kept or None)
+    "terrain8": (8, 0, None),
+    "terrain16_512": (16, 0, None),  # the limit, BRUTE_MAX_TRIS
+    "terrain9_138": (9, 0, 138),  # s_real not a multiple of 64, as the pyramid scene's
+    "terrain15_450_spheres70": (15, 70, None),  # near the limit, past the Pallas kernel's 64 spheres
+}
+BRUTE_RAY_SETS = {"mixed": _rays, "hard": _hard_rays, "dead_tile": _dead_tile_rays}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays", list(BRUTE_RAY_SETS))
+@pytest.mark.parametrize("case", list(BRUTE_SETS))
+def test_brute_kernel_matches_plain_on_card(case, rays, cuda_device):
+    """Kernel C, any hit and the closest-hit flag, equals its plain version on the card, tests included."""
+    nq, n_sph, keep = BRUTE_SETS[case]
+    scene = make_terrain_scene(nq)
+    tri_p = scene.tri_p[:keep] if keep else scene.tri_p
+    sc, sr = _spheres(n_sph) if n_sph else (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    cs = cuda_scene_from_wide_bvh(build_wide_bvh(tri_p), sc, sr, len(tri_p), cuda_device)
+    assert cs.brute and cs.s_real == len(tri_p) and cs.n_spheres == n_sph
+    o, d, t_lo, t_hi = (torch.from_numpy(x).to(cuda_device) for x in BRUTE_RAY_SETS[rays](scene))
+    for any_hit in (True, False):
+        before = ic.KERNELS["C"].launches
+        got = ic.brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert ic.KERNELS["C"].launches == before + 1
+        want = ic.brute_plain(cs, o, d, t_lo, t_hi, any_hit=any_hit)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (any_hit, g, w)
+    if rays == "dead_tile":  # the dead tile kept its initial outputs; the live one was tested
+        assert (got[3][: ic.BRUTE_TILE] == 0).all() and (got[3][ic.BRUTE_TILE :] >= n_sph).all()
 
 
 GROUP_SETS = {

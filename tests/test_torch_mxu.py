@@ -63,6 +63,18 @@ def test_tables_equal_pallas_scene(name):
 
 
 @pytest.mark.parametrize("name", list(SCENES))
+def test_packed_rows_equal_table(name):
+    """Kernel E's (B1*B2*K, 40) rows are the table's columns 0-9 of each of the four forms; 10-15 are zero."""
+    _, _, cs = _setup(name)
+    coef = cs.mxu_coef.numpy()
+    rows = cs.mxu_rows.numpy()
+    assert rows.shape == (coef.shape[0], 4 * ic.MXU_FEATURES) and rows.flags.c_contiguous
+    for j in range(4):
+        np.testing.assert_array_equal(rows[:, 10 * j : 10 * j + 10], coef[:, j, :10])
+    assert not coef[:, :, 10:].any()
+
+
+@pytest.mark.parametrize("name", list(SCENES))
 def test_plain_matches_pallas_mxu(name):
     scene, ps, cs = _setup(name)
     rays = _rays(scene)
