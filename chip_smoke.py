@@ -92,8 +92,248 @@ LINE_CASES = {
     "A_blocked_camera": "terrain512_camera_blocked", "A_blocked_bounce": "terrain512_bounce_blocked",
     "A_single": "terrain8_camera_random", "C_t450_spheres": "terrain15_spheres70_shadow_random",
 }
+# kernel G's rows of the kernels line: terrain 512's binary BVH (phase 10)
+# and the scene past the cluster tree's capacity (phase 11)
+G_CASES = {
+    "G": "terrain512_camera_random_binary_bvh", "G_any_hit": "terrain512_shadow_random_binary_bvh",
+    "G_past_capacity": "terrain2897_camera_random", "G_any_hit_past_capacity": "terrain2897_shadow_random",
+}
+PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past 512*128*256
 SPHERE_SCENE = (15, 70)  # a brute-mode terrain near BRUTE_MAX_TRIS, with spheres built in code
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
+
+
+# ---------------------------------------------------------------------------
+# COLLADA documents written in code (the corpus of .dae files is not in the
+# repository); tests/test_torch_collada.py and tests/test_torch_cli.py use
+# the same writer
+# ---------------------------------------------------------------------------
+
+
+def _nums(values) -> str:
+    import numpy as np
+
+    return " ".join(f"{float(v):.9g}" for v in np.asarray(values, np.float64).ravel())
+
+
+def _transforms(ops) -> str:
+    """<translate>/<rotate>/<scale>/<matrix> elements: ops [(kind, values), ...].
+
+    The loader composes a node's elements in document order, each applied
+    after the ones before it (``collada.py:parse_node``): list them in the
+    order they act on a point (scale, rotate, translate).
+    """
+    return "".join(f"<{kind}>{_nums(vals)}</{kind}>" for kind, vals in ops)
+
+
+class DaeWriter:
+    """A COLLADA 1.4 document with the subset ``scene/collada.py`` reads.
+
+    Materials: ``{"kind": "diffuse", "albedo": rgb}`` (profile_COMMON
+    lambert), or a CGL technique: ``emission`` (radiance), ``mirror``
+    (reflectance), ``microfacet`` (alpha, eta, k), ``refraction``
+    (transmittance, roughness, ior), ``glass`` (transmittance, reflectance,
+    roughness, ior).  Lights: ``ambient``, ``directional``, ``point``,
+    ``spot`` (falloff_angle, falloff_exponent) and ``area``, in the CGL
+    profile or technique_common.  Every node takes a list of transforms and
+    may hold child nodes (``group``).
+    """
+
+    def __init__(self, up_axis: str = "Y_UP"):
+        self.up_axis = up_axis
+        self.libs = {k: [] for k in ("cameras", "lights", "effects", "materials", "geometries")}
+        self.nodes = []
+        self._n = 0
+
+    def _id(self, kind: str) -> str:
+        self._n += 1
+        return f"{kind}{self._n}"
+
+    def _material(self, mat) -> str:
+        eid, mid = self._id("effect"), self._id("material")
+        kind = mat["kind"]
+        if kind == "diffuse":
+            body = (f"<profile_COMMON><technique sid=\"common\"><lambert><diffuse><color>"
+                    f"{_nums(mat['albedo'])} 1</color></diffuse></lambert></technique></profile_COMMON>")
+        else:
+            fields = "".join(f"<{k}>{_nums(v)}</{k}>" for k, v in mat.items() if k != "kind")
+            body = f"<extra><technique profile=\"CGL\"><{kind}>{fields}</{kind}></technique></extra>"
+        self.libs["effects"].append(f"<effect id=\"{eid}\">{body}</effect>")
+        self.libs["materials"].append(f"<material id=\"{mid}\"><instance_effect url=\"#{eid}\"/></material>")
+        return mid
+
+    def _node(self, inner: str, transforms=(), parent=None) -> str:
+        node = f"<node id=\"{self._id('node')}\">{_transforms(transforms)}{inner}</node>"
+        (self.nodes if parent is None else parent).append(node)
+        return node
+
+    def _geometry_node(self, gid, material, transforms, parent):
+        bind = ""
+        if material is not None:
+            mid = self._material(material)
+            bind = (f"<bind_material><technique_common><instance_material symbol=\"m\" target=\"#{mid}\"/>"
+                    f"</technique_common></bind_material>")
+        self._node(f"<instance_geometry url=\"#{gid}\">{bind}</instance_geometry>", transforms, parent)
+
+    def camera(self, xfov=None, yfov=None, aspect_ratio=None, znear=0.01, zfar=1000.0, transforms=(), parent=None):
+        cid = self._id("camera")
+        persp = "".join(f"<{k}>{v:.9g}</{k}>" for k, v in (("xfov", xfov), ("yfov", yfov), ("aspect_ratio", aspect_ratio),
+                                                        ("znear", znear), ("zfar", zfar)) if v is not None)
+        self.libs["cameras"].append(
+            f"<camera id=\"{cid}\"><optics><technique_common><perspective>{persp}</perspective>"
+            f"</technique_common></optics></camera>")
+        self._node(f"<instance_camera url=\"#{cid}\"/>", transforms, parent)
+
+    def light(self, kind, color, transforms=(), cgl=True, parent=None, **params):
+        lid = self._id("light")
+        fields = f"<color>{_nums(color)}</color>" + "".join(f"<{k}>{v:.9g}</{k}>" for k, v in params.items())
+        tech = (f"<extra><technique profile=\"CGL\"><{kind}>{fields}</{kind}></technique></extra>" if cgl
+                else f"<technique_common><{kind}>{fields}</{kind}></technique_common>")
+        self.libs["lights"].append(f"<light id=\"{lid}\">{tech}</light>")
+        self._node(f"<instance_light url=\"#{lid}\"/>", transforms, parent)
+
+    def mesh(self, vertices, polygons, material=None, transforms=(), normals=None, triangles=False, parent=None):
+        """polygons: vertex index lists (all of 3 with triangles=True); normals (V, 3) share the indices."""
+        import numpy as np
+
+        gid = self._id("geom")
+        verts = np.asarray(vertices, np.float64).reshape(-1, 3)
+        src = (f"<source id=\"{gid}-pos\"><float_array count=\"{verts.size}\">{_nums(verts)}</float_array></source>")
+        inputs = f"<input semantic=\"VERTEX\" source=\"#{gid}-vtx\" offset=\"0\"/>"
+        stride = 1
+        if normals is not None:
+            nrm = np.asarray(normals, np.float64).reshape(-1, 3)
+            src += f"<source id=\"{gid}-nrm\"><float_array count=\"{nrm.size}\">{_nums(nrm)}</float_array></source>"
+            inputs += f"<input semantic=\"NORMAL\" source=\"#{gid}-nrm\" offset=\"1\"/>"
+            stride = 2
+        flat = np.concatenate([np.asarray(p, np.int64).ravel() for p in polygons])
+        idx = " ".join(map(str, np.repeat(flat, stride)))
+        if triangles:
+            prim = f"<triangles count=\"{len(polygons)}\">{inputs}<p>{idx}</p></triangles>"
+        else:
+            vcount = " ".join(str(len(p)) for p in polygons)
+            prim = f"<polylist count=\"{len(polygons)}\">{inputs}<vcount>{vcount}</vcount><p>{idx}</p></polylist>"
+        self.libs["geometries"].append(
+            f"<geometry id=\"{gid}\"><mesh>{src}<vertices id=\"{gid}-vtx\"><input semantic=\"POSITION\" "
+            f"source=\"#{gid}-pos\"/></vertices>{prim}</mesh></geometry>")
+        self._geometry_node(gid, material, transforms, parent)
+
+    def sphere(self, radius, material=None, transforms=(), parent=None):
+        gid = self._id("geom")
+        self.libs["geometries"].append(
+            f"<geometry id=\"{gid}\"><extra><technique profile=\"CGL\"><sphere><radius>{radius:.9g}</radius>"
+            f"</sphere></technique></extra></geometry>")
+        self._geometry_node(gid, material, transforms, parent)
+
+    def group(self, transforms=()):
+        """A node whose children are added by passing the returned list as ``parent``."""
+        children = []
+        self.nodes.append((transforms, children))
+        return children
+
+    def document(self) -> str:
+        def render(node):
+            if isinstance(node, str):
+                return node
+            transforms, children = node
+            return f"<node id=\"{self._id('node')}\">{_transforms(transforms)}{''.join(map(render, children))}</node>"
+
+        libs = "".join(f"<library_{k}>{''.join(v)}</library_{k}>" for k, v in self.libs.items())
+        nodes = "".join(render(n) for n in self.nodes)
+        return ("<?xml version=\"1.0\" encoding=\"utf-8\"?>"
+                "<COLLADA xmlns=\"http://www.collada.org/2005/11/COLLADASchema\" version=\"1.4.1\">"
+                f"<asset><up_axis>{self.up_axis}</up_axis></asset>{libs}"
+                f"<library_visual_scenes><visual_scene id=\"scene\">{nodes}</visual_scene></library_visual_scenes>"
+                "<scene><instance_visual_scene url=\"#scene\"/></scene></COLLADA>")
+
+    def write(self, path) -> Path:
+        Path(path).write_text(self.document())
+        return Path(path)
+
+
+def cornell_box(light_kinds=("area", "spot", "point", "directional"), spheres=True) -> DaeWriter:
+    """A Cornell box open toward +z: diffuse walls (quads, one wall as triangles), a microfacet
+    (gold) block, an emitting ceiling panel, mirror and glass spheres, and the lights
+    ``light_kinds``; a camera looking in."""
+    w = DaeWriter()
+    white, red, green = ({"kind": "diffuse", "albedo": c} for c in ((0.73, 0.73, 0.73), (0.63, 0.065, 0.05),
+                                                                   (0.14, 0.45, 0.091)))
+    quad = [[0, 1, 2, 3]]
+
+    def wall(corners, mat, parent=None, triangles=False):
+        polys = [[0, 1, 2], [0, 2, 3]] if triangles else quad
+        w.mesh(corners, polys, mat, parent=parent, triangles=triangles)
+
+    wall([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], white)  # floor
+    wall([[-1, 2, -1], [-1, 2, 1], [1, 2, 1], [1, 2, -1]], white)  # ceiling
+    wall([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], white, triangles=True)  # back
+    wall([[-1, 0, -1], [-1, 0, 1], [-1, 2, 1], [-1, 2, -1]], red)  # left
+    wall([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]], green)  # right
+    # a gold block, nested: the child scales it, the group turns and places it
+    block = w.group([("rotate", (0, 1, 0, 20)), ("translate", (-0.35, 0.0, -0.3))])
+    cube = [[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1], [-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1]]
+    # no bottom face: one on the floor's plane would have no defined closest hit
+    faces = [[4, 7, 6, 5], [0, 4, 5, 1], [1, 5, 6, 2], [2, 6, 7, 3], [3, 7, 4, 0]]
+    w.mesh(cube, faces, {"kind": "microfacet", "alpha": 0.25, "eta": (0.143, 0.375, 1.442),
+                         "k": (3.983, 2.386, 1.603)},
+           transforms=[("scale", (0.25, 0.35, 0.25))], parent=block)
+    # an emitting panel on the ceiling: what -H (hemisphere direct light) sees
+    w.mesh([[0.35, 1.995, -0.75], [0.35, 1.995, -0.45], [0.75, 1.995, -0.45], [0.75, 1.995, -0.75]], quad,
+           {"kind": "emission", "radiance": (5.0, 4.6, 4.0)})
+    if spheres:
+        w.sphere(0.3, {"kind": "mirror", "reflectance": (0.95, 0.95, 0.95)}, [("translate", (0.45, 0.3, -0.35))])
+        w.sphere(0.25, {"kind": "glass", "transmittance": (1, 1, 1), "reflectance": (1, 1, 1), "roughness": 0,
+                        "ior": 1.5}, [("translate", (0.3, 0.25, 0.45))])
+    if "area" in light_kinds:  # facing down, just under the ceiling, 0.5 x 0.5
+        w.light("area", (6, 6, 6), [("scale", (0.5, 0.5, 0.5)), ("rotate", (1, 0, 0, -90)),
+                                    ("translate", (0, 1.98, 0))])
+    if "spot" in light_kinds:  # down and toward the back wall
+        w.light("spot", (3, 2.6, 2), [("rotate", (1, 0, 0, -70)), ("translate", (0.6, 1.7, 0.6))],
+                falloff_angle=40.0, falloff_exponent=2.0)
+    if "point" in light_kinds:
+        w.light("point", (0.6, 0.6, 0.8), [("translate", (-0.5, 1.5, 0.7))], cgl=False)
+    if "directional" in light_kinds:  # a sun above and in front of the open side
+        w.light("directional", (0.5, 0.45, 0.4), [("rotate", (1, 0, 0, 150)), ("rotate", (0, 1, 0, 20))],
+                cgl=False)
+    if "ambient" in light_kinds:
+        w.light("ambient", (0.05, 0.05, 0.06), cgl=False)
+    w.camera(xfov=50.0, yfov=40.0, znear=0.01, zfar=100.0, transforms=[("rotate", (0, 1, 0, 180))])
+    return w
+
+
+
+def terrain_dae(n_quads: int) -> DaeWriter:
+    """Terrain ``n_quads`` (``make_terrain_scene``'s heightfield, z up) as four polylists by quadrant:
+    diffuse, microfacet (copper), mirror and glass; a directional sun, a 4 x 4 area light facing
+    down from z = 6, and a camera (a <matrix>) looking down at it from above one corner."""
+    import numpy as np
+
+    from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
+
+    tri_p = make_terrain_scene(n_quads).tri_p
+    verts, inverse = np.unique(tri_p.reshape(-1, 3), axis=0, return_inverse=True)
+    tris = inverse.reshape(-1, 3)
+    centre = tri_p.mean(axis=1)
+    quadrant = (centre[:, 0] > 0).astype(np.int64) + 2 * (centre[:, 1] > 0)
+    mats = [
+        {"kind": "diffuse", "albedo": (0.55, 0.45, 0.32)},
+        {"kind": "microfacet", "alpha": 0.3, "eta": (0.2, 0.92, 1.1), "k": (3.9, 2.45, 2.14)},
+        {"kind": "mirror", "reflectance": (0.9, 0.9, 0.9)},
+        {"kind": "glass", "transmittance": (1, 1, 1), "reflectance": (1, 1, 1), "roughness": 0, "ior": 1.5},
+    ]
+    w = DaeWriter(up_axis="Z_UP")
+    for q, mat in enumerate(mats):
+        w.mesh(verts, tris[quadrant == q], mat)
+    w.light("directional", (1.3, 1.1, 0.65), [("rotate", (1, 0, 0, 140)), ("rotate", (0, 0, 1, 40))])
+    w.light("area", (4, 4, 3.6), [("scale", (4, 4, 4)), ("translate", (0, 0, 6))])
+    view = np.array([0.612, 0.5, 0.612])  # from the target toward the camera
+    view /= np.linalg.norm(view)
+    x = np.cross([0.0, 0.0, 1.0], view)
+    x /= np.linalg.norm(x)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2] = x, np.cross(view, x), -view  # (0, 0, -1) -> view
+    w.camera(xfov=35.0, yfov=20.0, znear=0.01, zfar=1000.0, transforms=[("matrix", m)])
+    return w
 
 
 def phase(title, t0, **numbers):
@@ -152,8 +392,8 @@ def main() -> int:
     ptxas = _build.ptxas_report(_build.build_log)
     phase("build", t0, library=so.name, compiled_now=bool(_build.build_log),
           nvcc_seconds=f"{_build.build_seconds:.3f}", ptxas=json.dumps(ptxas))
-    redesigned = {k: v for k, v in ptxas.items() if k.startswith(("brute_kernel", "mxu_walk_kernel"))}
-    assert len(redesigned) == 3 or not _build.build_log, f"ptxas did not report C's and E's kernels: {ptxas}"
+    redesigned = {k: v for k, v in ptxas.items() if k.startswith(("brute_kernel", "mxu_walk_kernel", "bvh_walk_kernel"))}
+    assert len(redesigned) == 5 or not _build.build_log, f"ptxas did not report C's, E's and G's kernels: {ptxas}"
     print("[ptxas] " + " ".join(f"{k.replace(' ', '')}={json.dumps(v)}" for k, v in redesigned.items()), flush=True)
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -164,7 +404,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {key: 0.0 for key in "ABCDEF"}
+    errs = {key: 0.0 for key in "ABCDEFG"}
     times = {}
     bounds = {}
     for nq in (8, SPHERE_SCENE[0], 40, 256, 512):
@@ -476,7 +716,198 @@ def main() -> int:
     phase("kernel_bench", t0, rows=len(art["rows"]), lanes=BENCH_LANES, cases=len(cases),
           launches=json.dumps(bench_launches), artifact=bench_out.name, **report)
 
-    # -- 8. results --------------------------------------------------------
+
+    # -- 8. dae_small: a Cornell box file through the command line -------
+    import contextlib
+    import io
+
+    from lens_flare_tpu_torch import cli
+    from lens_flare_tpu_torch.ops.intersect_cuda import bvh_walk_plain
+    from lens_flare_tpu_torch.utils.image import load_png
+
+    build_dir = ROOT / "lens_flare_tpu_torch" / "_build"
+
+    def run_cli(argv):
+        """cli.main on ``argv``, its output echoed and returned: (seconds, stdout)."""
+        buf = io.StringIO()
+        t_cli = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(argv) == 0
+        seconds = time.perf_counter() - t_cli
+        out = buf.getvalue()
+        print(out.replace("\r", "\n").strip().splitlines()[-1], flush=True)
+        return seconds, out
+
+    def cli_numbers(out):
+        import re
+
+        render_s = float(re.search(r"Rendering complete: ([0-9.]+) sec", out).group(1))
+        rays = int(re.search(r"Rays traced: (\d+)", out).group(1))
+        load_s = float(re.search(r"parse \+ build ([0-9.]+) sec", out).group(1))
+        bvh_s = float(re.search(r"BVH build ([0-9.]+) sec", out).group(1))
+        return render_s, rays, load_s, bvh_s
+
+    t0 = time.perf_counter()
+    cornell = cornell_box().write(build_dir / "cornell.dae")
+    small_png = build_dir / "cornell_320x240.png"
+    dae_small_args = ["-r", "320", "240", "-s", "16", "-m", "5"]
+    ic.reset_launch_counts()
+    cli_s, out = run_cli([*dae_small_args, "-f", str(small_png), "--device", "cuda", str(cornell)])
+    torch.cuda.synchronize()
+    ds_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert ds_launches["C"] > 0 and ds_launches["A"] > 0, f"the Cornell box skipped C or A: {ds_launches}"
+    render_s, ds_rays, load_s, _ = cli_numbers(out)
+    # the same frame through Renderer.load: its PNG is the command line's, and
+    # a 96 x 72 cell of it (the box's centre) agrees with the CPU render
+    kw = dict(width=320, height=240, ns_aa=16, max_ray_depth=5, indirect=True, seed=0)
+    rg = Renderer(device="cuda", **kw)
+    rg.load(cornell)
+    hdr_small, _ = rg.render(progress=False)
+    png_px = load_png(small_png)
+    want_px = np.clip(np.round(img.to_color(hdr_small.cpu().numpy())[::-1] * 255.0), 0, 255).astype(np.uint8)
+    assert png_px.shape == (240, 320, 3) and np.array_equal(png_px, want_px), "the PNG is not the frame's"
+    cell = (112, 84, 96, 72)
+    rcpu = Renderer(device="cpu", **kw)
+    rcpu.load(cornell)
+    want, _ = rcpu.render(cell=cell, progress=False)
+    x0, y0, dx, dy = cell
+    got = hdr_small.cpu().double()[y0 : y0 + dy, x0 : x0 + dx]
+    want = want.double()[y0 : y0 + dy, x0 : x0 + dx]
+    ok = ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(dim=-1).double().mean().item()
+    rel = ((got - want).abs().sum() / want.abs().sum()).item()
+    assert torch.isfinite(got).all() and got.sum() > 0 and ok >= 0.99 and rel < 1e-3, (ok, rel)
+    phase("dae_small", t0, tris=rg.scene.num_triangles, spheres=rg.scene.num_spheres,
+          lights=len(rg.scene.lights.light_type), width=320, height=240, spp=16, depth=5,
+          cli_s=f"{cli_s:.4f}", load_s=f"{load_s:.4f}", render_s=f"{render_s:.4f}", rays_traced=ds_rays,
+          cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}",
+          launches=json.dumps(ds_launches), png=small_png.name)
+
+    # -- 9. dae_1080p: terrain 256 as a COLLADA file, at full width --------
+    from lens_flare_tpu_torch.lens.aperture import polygon_mask
+
+    t0 = time.perf_counter()
+    t_write = time.perf_counter()
+    terrain_file = terrain_dae(256).write(build_dir / "terrain256.dae")
+    write_s = time.perf_counter() - t_write
+    ap_png, ghost_png = build_dir / "aperture.png", build_dir / "ghost_aperture.png"
+    img.save_png(ap_png, polygon_mask(256, 5, rotation=0.3))
+    img.save_png(ghost_png, polygon_mask(64, 6))
+    big_png = build_dir / "terrain256_1080p.png"
+    ic.reset_launch_counts()
+    cli_s, out = run_cli(["-r", "1920", "1080", "-s", "1", "-m", "4", "-x", str(ap_png), "-y", str(ghost_png),
+                          "-i", "1.5", "-n", "30", "-f", str(big_png), "--device", "cuda", str(terrain_file)])
+    torch.cuda.synchronize()
+    d1_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert d1_launches["D"] > 0 and d1_launches["B"] > 0, f"the 1080p file skipped D or B: {d1_launches}"
+    render_s, d1_rays, load_s, bvh_s = cli_numbers(out)
+    frame = load_png(big_png)
+    assert frame.shape == (1080, 1920, 3) and frame.max() > 0 and frame.std() > 0, "the 1080p PNG is blank"
+    phase("dae_1080p", t0, tris=131072, polylists=4, width=1920, height=1080, spp=1, depth=4, flare="on",
+          write_s=f"{write_s:.4f}", parse_build_s=f"{load_s:.4f}", bvh_build_s=f"{bvh_s:.4f}",
+          frame_s=f"{render_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=d1_rays,
+          mrays_traced_per_s=f"{d1_rays / render_s / 1e6:.3f}", png_mean=f"{frame.mean():.3f}",
+          launches=json.dumps(d1_launches), png=big_png.name)
+
+    # -- 10. g_kernel: G against its plain version on terrain 512 ----------
+    def g_check(bv, rays, any_hit):
+        """G's outputs against bvh_walk_plain's, every one bit for bit; (outputs, visits)."""
+        got = ic.bvh_walk(bv, *rays, any_hit=any_hit)
+        torch.cuda.synchronize()
+        visits = {}
+        want = bvh_walk_plain(bv, *rays, any_hit=any_hit, visits=visits)
+        names = ("t", "prim", "b1", "b2", "found", "tests")
+        diff = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+        assert not diff, f"G differs from bvh_walk_plain in {diff} (any_hit={any_hit})"
+        return got, visits
+
+    t0 = time.perf_counter()
+    rw = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda")
+    rw.load_flat_scene(make_terrain_scene(512))
+    rb = Renderer(width=1920, height=1080, max_ray_depth=4, device="cuda", use_wide_tree=False)
+    rb.load_flat_scene(make_terrain_scene(512))
+    bv = rb.bundle.bvh
+    assert rb.bundle.cscene is None and bv is not None
+    gen.manual_seed(1)
+    g_rays = bk.random_rays(rb, LANES, gen)
+    report = {}
+    for kind_rays, any_hit in (("camera", False), ("shadow", True)):
+        args = g_rays[kind_rays]
+        got, visits = g_check(bv, args, any_hit)
+        # the same hits as the cluster walk (A or B) on the same rays
+        ref = ic.intersect(rw.bundle.cscene, *args, any_hit=any_hit)
+        same_hit = (got[4] == ref[4]).double().mean().item()
+        assert same_hit >= 0.999, f"G's hits differ from the cluster walk's on {1 - same_hit:.2%} of lanes"
+        if not any_hit:
+            both = got[4] & ref[4]
+            assert (got[1][both] == ref[1][both]).double().mean().item() >= 0.999
+            t_rel = ((got[0][both] - ref[0][both]).abs() / ref[0][both]).max().item()
+            assert t_rel <= 1e-5, t_rel
+        label = "G" if not any_hit else "G_any_hit"
+        times[label] = (bk.cuda_ms(lambda: ic.bvh_walk(bv, *args, any_hit=any_hit), 20),
+                        bk.cuda_ms(lambda: bvh_walk_plain(bv, *args, any_hit=any_hit), 2))
+        bounds[label] = bk.bvh_bound(bv, args, got, visits)
+        report[kind_rays] = (f"exact=True,hits={int(got[4].sum())},vs_cluster_walk={same_hit:.5f},"
+                             f"tests={int(got[5].sum())},nodes={int(visits['nodes'].sum())}")
+        print(f"[timing] kernel={label} tris=524288 lanes={LANES} ms={times[label][0]:.4f} "
+              f"plain_ms={times[label][1]:.4f} bound_ms={bounds[label][0]:.5f} bound_by={bounds[label][1]}",
+              flush=True)
+    phase("g_kernel", t0, tris=524288, bvh_nodes=bv.node_box.shape[0], bvh_depth=bv.max_depth,
+          bvh_build_s=f"{rb.stats.bvh_build_time:.3f}", lanes=LANES, **report)
+    del rw, rb, bv, g_rays
+
+    # -- 11. past_capacity: 16,785,218 triangles through kernel G ----------
+    from lens_flare_tpu_torch.accel.wide import MAX_TRIS
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t_gen = time.perf_counter()
+    big = make_terrain_scene(PAST_CAPACITY_QUADS)
+    gen_s = time.perf_counter() - t_gen
+    assert big.num_triangles > MAX_TRIS, big.num_triangles
+    rp = Renderer(width=1920, height=1080, ns_aa=1, max_ray_depth=1, seed=0, device="cuda")
+    t_build = time.perf_counter()
+    rp.load_flat_scene(big)
+    build_s = time.perf_counter() - t_build
+    assert rp.bundle.cscene is None, "a scene past capacity did not take the binary BVH"
+    scene_mb = (torch.cuda.memory_allocated() - mem0) / 2**20
+    rp.render(progress=False)  # warm-up
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    t_frame = time.perf_counter()
+    hdr_big, counts_big = rp.render(progress=False)
+    torch.cuda.synchronize()
+    frame_big_s = time.perf_counter() - t_frame
+    pc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert pc_launches["G"] > 0 and sum(pc_launches.values()) == pc_launches["G"], pc_launches
+    assert hdr_big.shape == (1080, 1920, 3) and torch.isfinite(hdr_big).all() and hdr_big.sum() > 0
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    bv = rp.bundle.bvh
+    gen.manual_seed(2)
+    p_rays = bk.random_rays(rp, LANES, gen)
+    report = {}
+    for kind_rays, any_hit in (("camera", False), ("shadow", True)):
+        args = p_rays[kind_rays]
+        got, visits = g_check(bv, args, any_hit)
+        label = "G_past_capacity" if not any_hit else "G_any_hit_past_capacity"
+        times[label] = (bk.cuda_ms(lambda: ic.bvh_walk(bv, *args, any_hit=any_hit), 20),
+                        bk.cuda_ms(lambda: bvh_walk_plain(bv, *args, any_hit=any_hit), 1))
+        bounds[label] = bk.bvh_bound(bv, args, got, visits)
+        report[kind_rays] = f"exact=True,hits={int(got[4].sum())},tests={int(got[5].sum())}"
+        print(f"[timing] kernel={label} tris={big.num_triangles} lanes={LANES} ms={times[label][0]:.4f} "
+              f"plain_ms={times[label][1]:.4f} bound_ms={bounds[label][0]:.5f} bound_by={bounds[label][1]}",
+              flush=True)
+    png_big = build_dir / "past_capacity_1080p.png"
+    img.save_hdr_png(png_big, hdr_big.cpu().numpy(), flip_y=True)
+    phase("past_capacity", t0, tris=big.num_triangles, width=1920, height=1080, spp=1, depth=1,
+          scene_gen_s=f"{gen_s:.3f}", build_s=f"{build_s:.3f}", bvh_build_s=f"{rp.stats.bvh_build_time:.3f}",
+          bvh_nodes=bv.node_box.shape[0], bvh_depth=bv.max_depth, frame_s=f"{frame_big_s:.4f}",
+          rays_traced=rp.stats.total_rays, isects_per_ray=f"{rp.stats.isects_per_ray:.2f}",
+          scene_device_mib=f"{scene_mb:.1f}", peak_device_mib=f"{peak_mb:.1f}",
+          launches=json.dumps(pc_launches), lanes=LANES, **report, png=png_big.name)
+    del rp, big, bv, p_rays, hdr_big
+
+    # -- 12. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],
@@ -484,6 +915,8 @@ def main() -> int:
     count.update({label: c2_launches["B"] for label in ("B_t256", "B_blocked_t256")})
     count["A_single"] = small_launches["A"]  # the small frame's closest hits
     count["C_t450_spheres"] = 0  # no path traces this scene: only phase 2's checks launch C on it
+    # G's main path is the scene past capacity (phase 11); phase 10 forces it on terrain 512
+    count.update({label: pc_launches["G"] for label in G_CASES})
     kernels = [
         {
             "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNEL_SOURCE,
@@ -493,7 +926,7 @@ def main() -> int:
             # no single PyTorch call computes a cluster-tree traversal
             "library_ms": None,
         }
-        for label, case in LINE_CASES.items()
+        for label, case in {**LINE_CASES, **G_CASES}.items()
     ]
     print(bk.nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
-"""ctypes loader for the native wide cluster-tree builder.
+"""ctypes loader for the native builders (binary SAH BVH and wide cluster tree).
 
-Counterpart of ``lens_flare_tpu/accel/native/__init__.py`` (its wide-tree
-half).  ``builder.cpp`` is compiled with g++ at first use into
+Counterpart of ``lens_flare_tpu/accel/native/__init__.py``.  ``builder.cpp``
+is compiled with g++ at first use into
 ``lens_flare_tpu_torch/_build/``, under a name that carries a hash of the
 source and flags, so an edited source is never served from a stale build.
 """
@@ -61,6 +61,11 @@ def get_lib():
             return None
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.lf_build_bvh.restype = ctypes.c_int
+        lib.lf_build_bvh.argtypes = [
+            f32p, f32p, ctypes.c_int, ctypes.c_int,
+            f32p, f32p, i32p, i32p, i32p, i32p, i32p, i32p,
+        ]
         lib.lf_build_wide.restype = ctypes.c_int
         lib.lf_build_wide.argtypes = [
             f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -68,6 +73,40 @@ def get_lib():
         ]
         _LIB = lib
         return _LIB
+
+
+def build_bvh_native(box_min: np.ndarray, box_max: np.ndarray, max_leaf: int = 4):
+    """Binary SAH BVH via the C++ builder; returns a FlatBVH, or None without a build or primitives."""
+    lib = get_lib()
+    n = len(box_min)
+    if lib is None or n == 0:
+        return None
+    from ..bvh import FlatBVH
+
+    cap = max(2 * n, 1)
+    node_min = np.zeros((cap, 3), np.float32)
+    node_max = np.zeros((cap, 3), np.float32)
+    node_left = np.zeros(cap, np.int32)
+    node_right = np.zeros(cap, np.int32)
+    node_start = np.zeros(cap, np.int32)
+    node_count = np.zeros(cap, np.int32)
+    prim_order = np.zeros(n, np.int32)
+    depth = np.zeros(1, np.int32)
+    m = lib.lf_build_bvh(
+        np.ascontiguousarray(box_min, np.float32), np.ascontiguousarray(box_max, np.float32),
+        n, max_leaf, node_min, node_max, node_left, node_right, node_start, node_count,
+        prim_order, depth,
+    )
+    return FlatBVH(
+        node_min=node_min[:m].copy(),
+        node_max=node_max[:m].copy(),
+        node_left=node_left[:m].copy(),
+        node_right=node_right[:m].copy(),
+        node_start=node_start[:m].copy(),
+        node_count=node_count[:m].copy(),
+        prim_order=prim_order,
+        max_depth=int(depth[0]),
+    )
 
 
 def build_wide_native(tri_p: np.ndarray, b1: int, b2: int, k: int):

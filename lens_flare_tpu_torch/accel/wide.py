@@ -85,17 +85,28 @@ MAX_TRIS = 512 * 128 * 256
 
 
 def check_capacity(n_tris: int) -> None:
-    """Raise for a scene the cluster tree cannot hold (more than ``MAX_TRIS`` triangles).
-
-    The JAX package sends such scenes to its XLA binary-BVH walk
-    (``lens_flare_tpu/renderer.py:169-176``); the port has no such walk yet
-    (ROADMAP Queue 2, item 6).
-    """
+    """Raise for a scene the cluster tree cannot hold (more than ``MAX_TRIS`` triangles)."""
     if n_tris > MAX_TRIS:
         raise ValueError(
-            f"{n_tris:,} triangles: the cluster tree holds at most {MAX_TRIS:,} (512*128*256), and the "
-            "binary-BVH walk for larger scenes is not ported yet (ROADMAP Queue 2, item 6)"
+            f"{n_tris:,} triangles: the cluster tree holds at most {MAX_TRIS:,} (512*128*256); "
+            "such scenes take the binary-BVH walk (kernel G, use_wide_tree=None or False)"
         )
+
+
+def takes_wide_tree(n_tris: int, use_wide_tree: bool | None = None) -> bool:
+    """Whether a scene of ``n_tris`` triangles is traced on the cluster tree (kernels A-D).
+
+    The counterpart of the JAX ``Renderer``'s ``use_pallas`` choice
+    (``lens_flare_tpu/renderer.py:167-176``): None takes the cluster tree up
+    to its capacity and the binary-BVH walk (kernel G, the JAX package's XLA
+    walk) past it; False forces the binary walk; True forces the cluster
+    tree and raises past its capacity.
+    """
+    if use_wide_tree is None:
+        return n_tris <= MAX_TRIS
+    if use_wide_tree:
+        check_capacity(n_tris)
+    return bool(use_wide_tree)
 
 
 def build_wide_bvh(tri_p: np.ndarray, b1: int | None = None, b2: int | None = None, k: int | None = None) -> WideBVH:

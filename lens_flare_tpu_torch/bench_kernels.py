@@ -239,6 +239,36 @@ def bound(cs, key, any_hit, rays, out, tests=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+# kernel G (the binary-BVH walk): per lane o, d, t_lo, t_hi in; t, prim,
+# b1, b2, tests and the found byte out; per node its box (24 B) and links
+# (16 B); per primitive tested its row and its prim_order entry
+G_LANE_BYTES = 32 + 21
+G_NODE_BYTES = 24 + 16
+G_SPHERE_BYTES = 16
+BOX_TEST_FLOP = 25  # per axis 2 sub, 2 mul, min, max; 4 reductions; 3 compares
+
+
+def bvh_bound(bv, rays, out, visits):
+    """(bound_ms, bound_by) of one kernel G call, as :func:`bound` for the cluster walks.
+
+    ``visits``: the plain version's record of the same call
+    (``bvh_walk_plain(..., visits=)``): the nodes popped and primitives
+    tested by any lane, each read once, and each lane's interior nodes,
+    whose two child boxes it tests.  FLOPs: the call's tests times the FLOP
+    of a closest-hit slot test, plus the box tests.
+    """
+    o = rays[0]
+    tests = out[5]
+    ids = bv.prim_order[visits["prims"]].long()
+    n_tri = int((ids < bv.num_tris).sum())
+    nbytes = (o.shape[0] * G_LANE_BYTES + int(visits["nodes"].sum()) * G_NODE_BYTES
+              + n_tri * (TRI_ROW_BYTES + 4) + (ids.numel() - n_tri) * (G_SPHERE_BYTES + 4))
+    box_tests = o.shape[0] + 2 * float(visits["interior"].sum(dtype=torch.float64))
+    flops = float(tests.sum(dtype=torch.float64)) * FLOP_PER_TEST["closest"] + box_tests * BOX_TEST_FLOP
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 @dataclass
 class Case:
     """One timed call of kernel E or F, kept so that a caller can check it at the bench's shape."""

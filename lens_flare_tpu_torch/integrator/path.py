@@ -6,22 +6,28 @@ tape lane for lane):
 
 - pinhole, thin-lens and bokeh-mask camera rays, the closest-hit trace
   (kernel D with its shading rows on shade scenes, else kernel A and the row
-  gather) and hit finalization;
-- next-event estimation over the static light-slot plan, one widened
-  any-hit shadow wavefront per vertex (``direct_lighting``, ``:430-577``);
-- Russian-roulette indirect bounces (``_indirect``, ``:704-826``), with no
-  bounce sorting or compaction (both are off by default in the reference);
+  gather; kernel G and the row gather on binary-BVH scenes) and hit
+  finalization, with face-forward normals except on transmissive BSDFs;
+- next-event estimation over the static light-slot plan (or the generic
+  per-lane light sampler), one widened any-hit shadow wavefront per vertex
+  (``direct_lighting``, ``:430-577``), or the uniform-hemisphere estimator
+  of ``-H`` (``_direct_hemisphere``, ``:580-630``);
+- Russian-roulette indirect bounces (``_indirect``, ``:704-826``) with the
+  emission picked up through delta lobes, and no bounce sorting or
+  compaction (both are off by default in the reference);
 - per-pixel sample batches with the 95% CI stop (``render_wavefront``), and
   ``render_batch``, the building block of the Renderer's host-repacked
   adaptive render.
 
-Ported BSDF families: diffuse and emission.  Ported lights: directional
-and point.  ``make_settings`` refuses anything else.  PyTorch runs eagerly:
-the bounce ``scan`` and the sample loops are Python loops.
+Every BSDF family and light type of the JAX package is ported except the
+environment light, which ``make_settings`` refuses (ROADMAP Queue 1, item
+4).  PyTorch runs eagerly: the bounce ``scan`` and the sample loops are
+Python loops.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -30,15 +36,15 @@ import torch
 
 from .. import _rng
 from ..ops.intersect import SceneArrays, finalize_hit
-from ..ops.intersect_cuda import CudaScene, intersect
+from ..ops.intersect_cuda import BvhArrays, CudaScene, bvh_walk, intersect
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
-from ..scene.collada import BSDF_DIFFUSE, BSDF_MICROFACET
-from .lights import PORTED_LIGHT_TYPES, LightArrays, sample_light_static
+from ..scene.collada import BSDF_DIFFUSE, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
+from .lights import LightArrays, LightSample, refuse_env, sample_light_static
 from .shading import (
-    PORTED_FAMILIES,
     BSDFArrays,
     eval_f,
     get_emission,
+    is_delta,
     local_to_world,
     make_coord_space,
     norm3,
@@ -52,46 +58,41 @@ SHADOW_BIAS = 1e-4
 
 
 class RenderSettings(NamedTuple):
-    """Integrator knobs (the ported subset of the reference's)."""
+    """Integrator knobs (the reference's CLI surface, main.cpp:24-39)."""
 
-    ns_aa: int = 1
-    max_ray_depth: int = 1
-    ns_area_light: int = 1
-    samples_per_batch: int = 64
-    max_tolerance: float = 0.05
+    ns_aa: int = 1  # -s
+    max_ray_depth: int = 1  # -m
+    ns_area_light: int = 1  # -l
+    samples_per_batch: int = 64  # -a
+    max_tolerance: float = 0.05  # -a
+    direct_hemisphere_sample: bool = False  # -H
     indirect: bool = True
     use_thin_lens: bool = False  # thin-lens camera (bokeh mask when the bundle has one)
     light_slots: tuple = ()  # light row per NEE slot
     light_slot_types: tuple = ()  # LT_* code per NEE slot
     total_light_samples: int = 1
+    # the LT_* and BSDF_* codes in the scene's tables (None: every family);
+    # BSDF families absent from the scene are left out of the shading math
+    light_types: tuple | None = None
+    bsdf_families: tuple | None = None
 
 
-def make_settings(
-    light_table, ns_aa=1, max_ray_depth=1, ns_area_light=1, bsdf_table=None,
-    direct_hemisphere_sample=False, **kw,
-) -> RenderSettings:
-    """Settings with the static NEE slot plan from the host light table.
+def make_settings(light_table, ns_aa=1, max_ray_depth=1, ns_area_light=1, bsdf_table=None, **kw) -> RenderSettings:
+    """Settings with the static NEE slot plan from the host light table (``path.py:123-163``).
 
-    Raises NotImplementedError for features this slice does not port, naming
-    the ROADMAP item that will: nothing is silently dropped.
+    The scene's light types and BSDF families specialize the sampling; a
+    caller's stale ``light_types`` or ``bsdf_families`` that misses a code in
+    the tables raises a ValueError.  The environment light raises
+    NotImplementedError (ROADMAP Queue 1, item 4).
     """
-    if direct_hemisphere_sample:
-        raise NotImplementedError("hemisphere direct lighting (-H) is not ported yet (ROADMAP Queue 1, item 5)")
-    lights = {int(t) for t in light_table.light_type} - set(PORTED_LIGHT_TYPES)
-    if lights:
-        raise NotImplementedError(
-            f"light types {sorted(lights)} are not ported yet (ROADMAP Queue 1, item 4)"
-        )
-    if bsdf_table is not None:
-        fams = {int(t) for t in bsdf_table.bsdf_type} - set(PORTED_FAMILIES)
-        if fams:
-            raise NotImplementedError(
-                f"BSDF families {sorted(fams)} are not ported yet (ROADMAP Queue 1, item 4)"
-            )
+    refuse_env(light_table.light_type)
     slots = []
     for li in range(len(light_table.light_type)):
         slots.extend([li] * (1 if light_table.is_delta[li] else ns_area_light))
-    return RenderSettings(
+    kw.setdefault("light_types", tuple(sorted({int(t) for t in light_table.light_type})))
+    if bsdf_table is not None:
+        kw.setdefault("bsdf_families", tuple(sorted({int(t) for t in bsdf_table.bsdf_type})))
+    settings = RenderSettings(
         ns_aa=ns_aa,
         max_ray_depth=max_ray_depth,
         ns_area_light=ns_area_light,
@@ -100,6 +101,15 @@ def make_settings(
         total_light_samples=max(len(slots), 1),
         **kw,
     )
+    if settings.light_types is not None:
+        missing = {int(t) for t in light_table.light_type} - set(settings.light_types)
+        if missing:
+            raise ValueError(f"light_types {settings.light_types} misses scene light codes {sorted(missing)}")
+    if bsdf_table is not None and settings.bsdf_families is not None:
+        missing = {int(t) for t in bsdf_table.bsdf_type} - set(settings.bsdf_families)
+        if missing:
+            raise ValueError(f"bsdf_families {settings.bsdf_families} misses scene BSDF codes {sorted(missing)}")
+    return settings
 
 
 @dataclass
@@ -149,8 +159,9 @@ class SceneBundle(NamedTuple):
     scene: SceneArrays
     bsdfs: BSDFArrays
     lights: LightArrays
-    cscene: CudaScene  # cluster tree for the trace kernels
+    cscene: CudaScene | None  # cluster tree for kernels A-D (None: the binary BVH)
     bokeh: BokehMask | None = None  # aperture-shaped depth of field
+    bvh: BvhArrays | None = None  # binary BVH for kernel G, when there is no cluster tree
 
 
 def _offset_origin(p, n, w):
@@ -167,35 +178,48 @@ def _trace_stats(t_hi, tests):
     return torch.stack([rays, tests.sum(dtype=torch.float64), zero])
 
 
-def _orient_normals(d, hit):
-    """Face-forward shading normals (no ported family is transmissive)."""
-    backface = (hit.n * d).sum(dim=-1) > 0
-    flip = backface & hit.hit
+def _orient_normals(bundle: SceneBundle, d, hit):
+    """Face-forward shading normals, except on refraction and glass (``path.py:342-358``).
+
+    A backfacing normal is flipped toward the ray; transmissive BSDFs keep
+    the raw normal, whose side tells entering from exiting.
+    """
+    t = bundle.bsdfs.bsdf_type[hit.bsdf.long()]
+    transmissive = (t == BSDF_REFRACTION) | (t == BSDF_GLASS)
+    backface = (hit.n[:, 0] * d[:, 0] + hit.n[:, 1] * d[:, 1] + hit.n[:, 2] * d[:, 2]) > 0
+    flip = backface & ~transmissive & hit.hit
     return hit._replace(n=torch.where(flip[:, None], -hit.n, hit.n))
 
 
 def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
-    """Closest hit, routed as the JAX package's ``trace_closest`` (``path.py:279-302``).
+    """Closest hit, routed as the JAX package's ``trace_closest`` (``path.py:279-305``).
 
-    Shade scenes take kernel D, whose shading rows replace the row gather,
-    except for ``coherent`` (camera) wavefronts on stream scenes with
-    ``stream_shade``, which keep kernel A and the gather, as the reference
-    does.  Every other scene takes kernel A (C's closest hit is forced only
-    by tests).  Returns (Hit, stats).
+    Binary-BVH scenes take kernel G and the row gather, as the JAX package's
+    XLA walk.  Shade scenes take kernel D, whose shading rows replace the
+    row gather, except for ``coherent`` (camera) wavefronts on stream scenes
+    with ``stream_shade``, which keep kernel A and the gather, as the
+    reference does.  Every other scene takes kernel A (C's closest hit is
+    forced only by tests).  Returns (Hit, stats).
     """
     cs = bundle.cscene
-    if cs.shade and not (coherent and cs.stream):
+    if cs is None:
+        t, prim, b1, b2, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi)
+        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
+    elif cs.shade and not (coherent and cs.stream):
         t, prim, b1, b2, found, tests, rows = intersect(cs, o, d, t_lo, t_hi, return_shade=True)
         hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
     else:
         t, prim, b1, b2, found, tests = intersect(cs, o, d, t_lo, t_hi)
         hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
-    return _orient_normals(d, hit), _trace_stats(t_hi, tests)
+    return _orient_normals(bundle, d, hit), _trace_stats(t_hi, tests)
 
 
 def trace_occluded(bundle: SceneBundle, o, d, t_lo, t_hi):
-    """Any-hit shadow query through kernel B (or C on tiny scenes). Returns (occluded, stats)."""
-    _, _, _, _, found, tests = intersect(bundle.cscene, o, d, t_lo, t_hi, any_hit=True)
+    """Any-hit shadow query through kernel B (C on tiny scenes, G on binary-BVH ones). Returns (occluded, stats)."""
+    if bundle.cscene is None:
+        _, _, _, _, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi, any_hit=True)
+    else:
+        _, _, _, _, found, tests = intersect(bundle.cscene, o, d, t_lo, t_hi, any_hit=True)
     return found, _trace_stats(t_hi, tests)
 
 
@@ -212,16 +236,20 @@ def _nee_active(bundle: SceneBundle, bsdf_id, hit_mask):
 
 
 def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p, n, w_out_w, bsdf_id, active=None, counted=None, frame=None):
-    """NEE at a batch of shading points over the static slot plan.
+    """NEE at a batch of shading points (pathtracer.cpp:142-213).
 
-    All slots are traced as one widened shadow wavefront of S*N rays.
-    Returns ((N, 3) radiance, stats).
+    All slots are traced as one widened shadow wavefront of S*N rays, each
+    slot's light sampled from static row values (``light_slot_types``).
+    ``-H`` takes the uniform-hemisphere estimator instead.  Returns
+    ((N, 3) radiance, stats).
     """
     if frame is not None:
         o2w, w_out = frame
     else:
         o2w = make_coord_space(n)
         w_out = world_to_local(o2w, w_out_w)
+    if settings.direct_hemisphere_sample:
+        return _direct_hemisphere(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active=active, counted=counted)
     n_pts = hit_p.shape[0]
     n_slots = len(settings.light_slots)
     if n_slots == 0:
@@ -234,10 +262,7 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
         sample_light_static(bundle.lights, row, code, hit_p, u_tape[:, 2 * s : 2 * s + 2])
         for s, (row, code) in enumerate(zip(settings.light_slots, settings.light_slot_types))
     ]
-    ls_rad = torch.cat([p.radiance for p in parts])
-    ls_wi = torch.cat([p.wi for p in parts])
-    ls_dist = torch.cat([p.dist for p in parts])
-    ls_pdf = torch.cat([p.pdf for p in parts])
+    ls_rad, ls_wi, ls_dist, ls_pdf = (torch.cat([getattr(x, f) for x in parts]) for f in LightSample._fields)
 
     wi_obj = world_to_local(rep(o2w), ls_wi)
     facing = wi_obj[:, 2] >= 0  # pathtracer.cpp:186
@@ -250,7 +275,7 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
         live = live & rep(active)
         skipped = would_trace.sum(dtype=torch.float64) - live.sum(dtype=torch.float64)
     cos_theta = wi_obj[:, 2] / torch.clamp_min(norm3(wi_obj), 1e-30)
-    f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi_obj, rep(w_out))
+    f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi_obj, rep(w_out), families=settings.bsdf_families)
     contrib = f * ls_rad * (cos_theta / torch.clamp_min(ls_pdf, 1e-30))[:, None]
 
     occ, stats = trace_occluded(
@@ -265,6 +290,52 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
     out = contrib.view(n_slots, n_pts, 3).sum(dim=0) / settings.total_light_samples
     stats = stats + torch.stack([torch.zeros_like(skipped), torch.zeros_like(skipped), skipped])
     return out, stats
+
+
+def _direct_hemisphere(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active=None, counted=None):
+    """Uniform-hemisphere direct estimator of ``-H`` (pathtracer.cpp:86-140, ``path.py:580-630``).
+
+    Each of the S samples traces a closest-hit ray from the shading point
+    (no origin offset, as the reference) and picks up the emission it hits.
+    """
+    num_samples = settings.total_light_samples
+    n_pts = hit_p.shape[0]
+    dev = hit_p.device
+
+    def rep(x):
+        return x.repeat((num_samples,) + (1,) * (x.dim() - 1))
+
+    u = u_tape.reshape(n_pts, num_samples, 2).transpose(0, 1).reshape(-1, 2)  # (S*N, 2)
+    theta = torch.arccos(torch.clamp(u[:, 0], -1.0, 1.0))
+    phi = 2.0 * math.pi * u[:, 1]
+    wi = torch.stack(
+        [torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi), torch.cos(theta)], dim=-1
+    )
+    wi_world = local_to_world(rep(o2w), wi)
+    skipped = torch.zeros((), dtype=torch.float64, device=dev)
+    real = rep(counted) if counted is not None else None
+    if active is not None:
+        live = rep(active)
+        if real is not None:
+            live = live & real
+            skipped = (real & ~live).sum(dtype=torch.float64)
+        else:
+            skipped = (~live).sum(dtype=torch.float64)
+        t_hi = torch.where(live, 1e30, 0.0)
+    elif real is not None:
+        t_hi = torch.where(real, 1e30, 0.0)
+    else:
+        t_hi = torch.full((num_samples * n_pts,), 1e30, device=dev)
+    hit, stats = trace_closest(
+        bundle, rep(hit_p).contiguous(), wi_world.contiguous(),
+        torch.full((num_samples * n_pts,), EPS_F, device=dev), t_hi.contiguous(),
+    )
+    stats = stats + torch.stack([torch.zeros_like(skipped), torch.zeros_like(skipped), skipped])
+    emission = get_emission(bundle.bsdfs, hit.bsdf)
+    f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi, rep(w_out), families=settings.bsdf_families)
+    contrib = f * emission * (wi[:, 2] / (1.0 / (2.0 * math.pi)))[:, None]
+    contrib = torch.where(hit.hit[:, None], contrib, 0.0)
+    return contrib.view(num_samples, n_pts, 3).sum(dim=0) / num_samples, stats
 
 
 def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, keys, px, py, width, height, valid=None):
@@ -344,7 +415,7 @@ def _indirect(bundle: SceneBundle, settings: RenderSettings, tape, o, d, hit, va
         depth_remaining = settings.max_ray_depth - (bounce - 1)
         cont = active & (depth_remaining > 1) & (u_b[:, 0] >= (1.0 - CPDF))
 
-        bs = sample_f(bundle.bsdfs, cur_hit.bsdf, w_out, u_b[:, 1:4])
+        bs = sample_f(bundle.bsdfs, cur_hit.bsdf, w_out, u_b[:, 1:4], families=settings.bsdf_families)
         cont = cont & bs.valid & (bs.pdf > 0)
         wi_world = local_to_world(o2w, bs.wi)
         safe_t = torch.where(cur_hit.hit, cur_hit.t, 0.0)
@@ -360,8 +431,11 @@ def _indirect(bundle: SceneBundle, settings: RenderSettings, tape, o, d, hit, va
         cos_theta = torch.abs(bs.wi[:, 2]) / torch.clamp_min(norm3(bs.wi), 1e-30)
         step = bs.f * (cos_theta / (bs.pdf * CPDF))[:, None]
         throughput = torch.where(cont[:, None], throughput * step, throughput)
-        # (the reference's emission pickup through delta lobes returns with
-        # the mirror/glass families: no ported family is a delta lobe)
+        # emission seen through a delta lobe (mirror, refraction, glass):
+        # NEE cannot sample such a path, so the emitter it hits is added
+        # here, for delta chains only (``path.py:792-802``)
+        emit = get_emission(bundle.bsdfs, nxt.bsdf)
+        L = L + torch.where((cont & is_delta(bundle.bsdfs, cur_hit.bsdf))[:, None], throughput * emit, 0.0)
 
         nxt_p = hit_p + wi_world * nxt.t[:, None]
         o2w_n = make_coord_space(nxt.n)

@@ -1,10 +1,16 @@
-"""BSDF tables, shading frames, evaluation and sampling (diffuse and emission).
+"""BSDF tables, shading frames, evaluation and sampling of every BSDF family.
 
-Counterpart of ``lens_flare_tpu/integrator/shading.py``.  This slice ports
-the diffuse and emission families; a scene with any other family is refused
-by :func:`lens_flare_tpu_torch.integrator.path.make_settings` (ROADMAP
-Queue 1, item 4).  Conventions are the reference's: directions in the local
-frame have +z along the normal, and ``eval_f`` takes wi negated.
+Counterpart of ``lens_flare_tpu/integrator/shading.py``: the six families
+of the reference (``bsdf.h:119-288``) - diffuse, emission, mirror,
+microfacet (Beckmann NDF, Smith shadowing, conductor Fresnel), refraction
+and glass (Schlick Fresnel) - evaluated for every lane and selected by
+``bsdf_type`` masks.  ``families`` (the BSDF codes a scene's table holds,
+``RenderSettings.bsdf_families``) leaves out the families no lane can hit,
+as the JAX package specializes them away.  Conventions are the reference's:
+directions in the local frame have +z along the normal, ``eval_f`` takes wi
+negated (pointing into the surface), ``sample_f`` returns wi pointing away
+from it.  Material rows are gathered by index (the JAX package's one-hot
+``ops/lookup.py`` products give the same rows).
 """
 
 from __future__ import annotations
@@ -15,22 +21,44 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..scene.collada import BSDF_DIFFUSE, BSDF_EMISSION
-
-PORTED_FAMILIES = (BSDF_DIFFUSE, BSDF_EMISSION)
+from ..scene.collada import (
+    BSDF_DIFFUSE,
+    BSDF_EMISSION,
+    BSDF_GLASS,
+    BSDF_MICROFACET,
+    BSDF_MIRROR,
+    BSDF_REFRACTION,
+)
 
 
 class BSDFArrays(NamedTuple):
     bsdf_type: torch.Tensor  # (B,) int32
-    albedo: torch.Tensor  # (B, 3)
-    radiance: torch.Tensor  # (B, 3)
+    albedo: torch.Tensor  # (B, 3) diffuse reflectance
+    radiance: torch.Tensor  # (B, 3) emission
+    reflectance: torch.Tensor  # (B, 3) mirror/glass
+    transmittance: torch.Tensor  # (B, 3) refraction/glass
+    eta: torch.Tensor  # (B, 3) microfacet conductor eta
+    k: torch.Tensor  # (B, 3) microfacet conductor k
+    alpha: torch.Tensor  # (B,) microfacet roughness
+    roughness: torch.Tensor  # (B,)
+    ior: torch.Tensor  # (B,) refraction/glass
 
 
 def bsdf_to_device(table, device) -> BSDFArrays:
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
     return BSDFArrays(
         bsdf_type=torch.as_tensor(np.asarray(table.bsdf_type, np.int32), device=device),
-        albedo=torch.as_tensor(np.asarray(table.albedo, np.float32), device=device),
-        radiance=torch.as_tensor(np.asarray(table.radiance, np.float32), device=device),
+        albedo=f32(table.albedo),
+        radiance=f32(table.radiance),
+        reflectance=f32(table.reflectance),
+        transmittance=f32(table.transmittance),
+        eta=f32(table.eta),
+        k=f32(table.k),
+        alpha=f32(table.alpha),
+        roughness=f32(table.roughness),
+        ior=f32(table.ior),
     )
 
 
@@ -42,6 +70,10 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
 def make_coord_space(n: torch.Tensor) -> torch.Tensor:
@@ -79,11 +111,70 @@ def get_emission(bsdfs: BSDFArrays, b: torch.Tensor) -> torch.Tensor:
     return torch.where(is_em, bsdfs.radiance[b], 0.0)
 
 
-def eval_f(bsdfs: BSDFArrays, b: torch.Tensor, wi_neg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """BSDF::f(-wi, wo) -> (N, 3): albedo / pi for diffuse rows, 0 for emitters."""
+def is_delta(bsdfs: BSDFArrays, b: torch.Tensor) -> torch.Tensor:
+    """Delta lobes: mirror, refraction and glass."""
+    t = bsdfs.bsdf_type[b.long()]
+    return (t == BSDF_MIRROR) | (t == BSDF_REFRACTION) | (t == BSDF_GLASS)
+
+
+def _has(families, code) -> bool:
+    return families is None or code in families
+
+
+def eval_f(bsdfs: BSDFArrays, b: torch.Tensor, wi_neg: torch.Tensor, wo: torch.Tensor, families=None) -> torch.Tensor:
+    """BSDF::f(-wi, wo) -> (N, 3).
+
+    Diffuse albedo / pi (bsdf.cpp:52-61), the microfacet lobe, and 0 for
+    emitters and the delta families.
+    """
     b = b.long()
-    f_diffuse = bsdfs.albedo[b] / math.pi  # bsdf.cpp:52-61
-    return torch.where((bsdfs.bsdf_type[b] == BSDF_DIFFUSE)[:, None], f_diffuse, 0.0)
+    wi = -wi_neg
+    t = bsdfs.bsdf_type[b]
+    f = torch.where((t == BSDF_DIFFUSE)[:, None], bsdfs.albedo[b] / math.pi, 0.0)
+    if _has(families, BSDF_MICROFACET):
+        f_micro = _microfacet_f(bsdfs.alpha[b], bsdfs.eta[b], bsdfs.k[b], wi, wo)
+        f = torch.where((t == BSDF_MICROFACET)[:, None], f_micro, f)
+    return f
+
+
+def _microfacet_f(alpha_rows, eta, k, wi, wo):
+    """Beckmann NDF x Smith shadowing x conductor Fresnel (``shading.py:119-136``)."""
+    valid = (wi[:, 2] > 0) & (wo[:, 2] > 0)
+    h = wi + wo
+    h = h / torch.clamp_min(norm3(h), 1e-30)[:, None]
+    alpha = torch.clamp_min(alpha_rows, 1e-4)
+    cos_h = torch.clamp(h[:, 2], 1e-6, 1.0)
+    tan2 = (1.0 - cos_h * cos_h) / (cos_h * cos_h)
+    D = torch.exp(-tan2 / (alpha * alpha)) / (math.pi * alpha * alpha * cos_h**4)
+    G = _smith_g1(wi, alpha) * _smith_g1(wo, alpha)
+    F = fresnel_conductor(torch.abs(wi[:, 2]), eta, k)
+    denom = 4.0 * torch.clamp_min(wo[:, 2] * wi[:, 2], 1e-6)
+    f = F * (G * D / denom)[:, None]
+    return torch.where(valid[:, None], f, 0.0)
+
+
+def _smith_g1(w, alpha):
+    cos_t = torch.abs(w[:, 2])
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    a = cos_t / torch.clamp_min(alpha * sin_t, 1e-12)
+    g = (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a)
+    return torch.where((a >= 1.6) | (sin_t == 0.0), 1.0, g)
+
+
+def fresnel_conductor(cos_i, eta, k):
+    """Per-channel conductor Fresnel (CS184 approximation): cos_i (N,), eta/k (N, 3)."""
+    c = cos_i[:, None]
+    c2 = c * c
+    e2k2 = eta * eta + k * k
+    rs = (e2k2 - 2 * eta * c + c2) / (e2k2 + 2 * eta * c + c2)
+    rp = (e2k2 * c2 - 2 * eta * c + 1) / (e2k2 * c2 + 2 * eta * c + 1)
+    return (rs + rp) / 2
+
+
+def fresnel_schlick(cos_i, ior):
+    """Schlick dielectric reflectance (the glass BSDF's coin)."""
+    r0 = ((1.0 - ior) / (1.0 + ior)) ** 2
+    return r0 + (1.0 - r0) * (1.0 - torch.abs(cos_i)) ** 5
 
 
 class BSDFSample(NamedTuple):
@@ -93,13 +184,21 @@ class BSDFSample(NamedTuple):
     valid: torch.Tensor  # (N,) bool
 
 
-def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tensor) -> BSDFSample:
-    """One importance sample per lane; u (N, 3) uniforms (u[:, 2] is unused here).
+def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tensor, families=None) -> BSDFSample:
+    """One importance sample per lane (``shading.py:178-316``); u (N, 3) uniforms.
 
-    Diffuse: cosine-weighted hemisphere (sampler.cpp:58-68).  Emission rows
-    take the same direction with f = 0 (bsdf.cpp:95-101).
+    u[:, 0:2] drive the direction, u[:, 2] glass's reflect/refract coin.
+    Diffuse (and emitters, with f = 0) sample the cosine-weighted
+    hemisphere (sampler.cpp:58-68); mirror reflects with f = R / cos;
+    refraction bends by Snell (no sample under total internal reflection);
+    glass picks reflection with the Schlick probability; microfacet samples
+    the Beckmann half vector.
     """
     b = b.long()
+    t = bsdfs.bsdf_type[b]
+    n = wo.shape[0]
+    ones = torch.ones(n, device=wo.device)
+
     xi1, xi2 = u[:, 0], u[:, 1]
     r = torch.sqrt(xi1)
     phi = 2.0 * math.pi * xi2
@@ -107,5 +206,72 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
     wi = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z_cos], dim=-1)
     pdf = z_cos / math.pi
     f = bsdfs.albedo[b] / math.pi
-    f = torch.where((bsdfs.bsdf_type[b] == BSDF_EMISSION)[:, None], 0.0, f)
-    return BSDFSample(f=f, wi=wi, pdf=pdf, valid=pdf > 0)
+    valid = pdf > 0
+
+    def sel(code, vec_f, vec_wi, vec_pdf, vec_valid):
+        m = t == code
+        return (
+            torch.where(m[:, None], vec_f, f),
+            torch.where(m[:, None], vec_wi, wi),
+            torch.where(m, vec_pdf, pdf),
+            torch.where(m, vec_valid, valid),
+        )
+
+    if _has(families, BSDF_MIRROR) or _has(families, BSDF_GLASS):
+        reflectance = bsdfs.reflectance[b]
+        wi_mirr = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], dim=-1)
+        cos_mirr = torch.clamp_min(torch.abs(wi_mirr[:, 2]), 1e-6)
+    if _has(families, BSDF_MIRROR):
+        f_mirr = reflectance / cos_mirr[:, None]
+        f, wi, pdf, valid = sel(BSDF_MIRROR, f_mirr, wi_mirr, ones, torch.abs(wo[:, 2]) > 1e-6)
+
+    if _has(families, BSDF_REFRACTION) or _has(families, BSDF_GLASS):
+        transmittance = bsdfs.transmittance[b]
+        ior = bsdfs.ior[b]
+        entering = wo[:, 2] > 0
+        eta_ratio = torch.where(entering, 1.0 / ior, ior)  # eta_i / eta_t
+        sin2_t = eta_ratio**2 * torch.clamp_min(1.0 - wo[:, 2] ** 2, 0.0)
+        tir = sin2_t > 1.0
+        cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+        wi_refr = torch.stack(
+            [-eta_ratio * wo[:, 0], -eta_ratio * wo[:, 1], torch.where(entering, -cos_t, cos_t)], dim=-1
+        )
+        cos_refr = torch.clamp_min(torch.abs(wi_refr[:, 2]), 1e-6)
+        f_refr = transmittance / cos_refr[:, None] / (eta_ratio**2)[:, None]
+    if _has(families, BSDF_REFRACTION):
+        f, wi, pdf, valid = sel(BSDF_REFRACTION, f_refr, wi_refr, ones, ~tir)
+
+    if _has(families, BSDF_GLASS):
+        R = fresnel_schlick(wo[:, 2], bsdfs.ior[b])
+        R_eff = torch.where(tir, 1.0, R)
+        choose_reflect = u[:, 2] < R_eff
+        f_glass_reflect = R_eff[:, None] * reflectance / cos_mirr[:, None]
+        f_glass_refract = (1.0 - R_eff)[:, None] * transmittance / cos_refr[:, None] / (eta_ratio**2)[:, None]
+        wi_glass = torch.where(choose_reflect[:, None], wi_mirr, wi_refr)
+        f_glass = torch.where(choose_reflect[:, None], f_glass_reflect, f_glass_refract)
+        pdf_glass = torch.where(choose_reflect, R_eff, 1.0 - R_eff)
+        f, wi, pdf, valid = sel(BSDF_GLASS, f_glass, wi_glass, pdf_glass, pdf_glass > 0)
+
+    if _has(families, BSDF_MICROFACET):
+        alpha = torch.clamp_min(bsdfs.alpha[b], 1e-4)
+        theta_h = torch.arctan(
+            torch.sqrt(torch.clamp_min(-(alpha**2) * torch.log(torch.clamp_min(1.0 - xi1, 1e-12)), 0.0))
+        )
+        phi_h = 2.0 * math.pi * xi2
+        sin_h, cos_h = torch.sin(theta_h), torch.cos(theta_h)
+        h = torch.stack([sin_h * torch.cos(phi_h), sin_h * torch.sin(phi_h), cos_h], dim=-1)
+        wo_dot_h = dot3(wo, h)
+        wi_mf = 2.0 * wo_dot_h[:, None] * h - wo
+        # p(theta) = 2 sin / (alpha^2 cos^3) e^{-tan^2/alpha^2}; p(phi) = 1/2pi
+        tan2_h = (sin_h / torch.clamp_min(cos_h, 1e-6)) ** 2
+        p_theta = (2.0 * sin_h / (alpha**2 * torch.clamp_min(cos_h, 1e-6) ** 3)) * torch.exp(-tan2_h / alpha**2)
+        p_phi = 1.0 / (2.0 * math.pi)
+        pdf_h = p_theta * p_phi / torch.clamp_min(sin_h, 1e-9)
+        pdf_mf = pdf_h / torch.clamp_min(4.0 * wo_dot_h, 1e-9)
+        valid_mf = (wi_mf[:, 2] > 0) & (wo[:, 2] > 0) & (pdf_mf > 1e-9)
+        f_mf = _microfacet_f(bsdfs.alpha[b], bsdfs.eta[b], bsdfs.k[b], wi_mf, wo)
+        f, wi, pdf, valid = sel(BSDF_MICROFACET, f_mf, wi_mf, pdf_mf, valid_mf)
+
+    if _has(families, BSDF_EMISSION):
+        f = torch.where((t == BSDF_EMISSION)[:, None], 0.0, f)
+    return BSDFSample(f=f, wi=wi, pdf=pdf, valid=valid)

@@ -2,7 +2,8 @@
 
 Counterpart of ``lens_flare_tpu/lens/aperture.py`` (``CameraApertureTexture``,
 ``camera.h:18-88``), which cannot be imported here: its package's
-``__init__`` pulls in JAX.  PIL is imported only by :meth:`load`.
+``__init__`` pulls in JAX.  PNG files are read by the port's own
+:func:`lens_flare_tpu_torch.utils.image.load_png`, not by PIL.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..utils.image import load_png
 
 
 @dataclass
@@ -32,10 +35,7 @@ class ApertureTexture:
     @classmethod
     def load(cls, path) -> "ApertureTexture":
         """Grayscale PNG -> texture: red channel scaled to [0, 1] (camera.h:26-83)."""
-        from PIL import Image
-
-        with Image.open(path) as im:
-            arr = np.asarray(im)
+        arr = load_png(path)
         red = arr if arr.ndim == 2 else arr[..., 0]
         if red.dtype == np.uint8:
             return cls.from_array(red.astype(np.float32) / 255.0)

@@ -26,6 +26,14 @@
 //                          warp per ray)
 //   _sphere_pass (:840) runs at the end of every kernel.
 //
+// and one kernel that replaces XLA code, not a Pallas kernel:
+//
+//   G  lf_bvh_walk      <- lens_flare_tpu/ops/intersect.py:152 _make_traverse
+//                          (intersect_rays :262, occluded_rays :331): the
+//                          binary-BVH stack walk the JAX package takes past
+//                          the cluster tree's capacity (one ray per thread,
+//                          closest hit and any hit: two instances)
+//
 // Every kernel walks the same two-level cluster tree (accel/wide.py: B1 top
 // boxes, B1*B2 child boxes, K triangles per child) from global memory.  The
 // TPU walked a 512-2048-lane tile in lockstep and culled whole clusters per
@@ -1064,4 +1072,166 @@ extern "C" int lf_tree_group(const float* o, const float* d, const float* t_lo,
   err = cudaGetLastError();
   const cudaError_t freed = cudaFreeAsync(scratch, st);
   return (int)(err != cudaSuccess ? err : freed);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel G: the binary-BVH walk (lens_flare_tpu/ops/intersect.py:152-259)
+// ---------------------------------------------------------------------------
+//
+// One ray per thread, its stack of node ids in local memory.  The tree is
+// accel/bvh.py's FlatBVH: node boxes (M, 8) [min.xyz | max.xyz | pad],
+// links (M, 4) [left, right, start, count] with count > 0 at leaves,
+// prim_order (P,) over triangles then spheres; triangle rows (T, 12)
+// [p0 | e1 | e2 | pad] in scene order, spheres (S, 8) [center | radius | pad].
+// Every step follows the plain version (ops/intersect.py:bvh_walk_plain):
+// - a leaf tests its up to 4 primitives in order, each against
+//   [t_lo, min(t_hi, best_t)], the winner on strictly smaller t, and each
+//   counts as a test (spheres too); any hit stops after the leaf that hit;
+// - an interior node slab-tests both children under the same clip and
+//   pushes the far one first (near = smaller entry t, left on ties);
+// - Moller-Trumbore multiplies by the reciprocal of det (0 where det == 0),
+//   the sphere quadratic divides by 2a; misses keep t = 1e30, prim = -1.
+// A ray with a NaN among o, d, t_lo, t_hi misses the root, as the plain
+// version's NaN-propagating min/max make it.
+
+#define BVH_INF 1e30f
+#define BVH_MAX_LEAF 4
+#define BVH_MAX_STACK 64
+#define BVH_THREADS 128
+
+namespace {
+
+__device__ __forceinline__ bool bvh_box(const float* __restrict__ boxes, int node, const Ray& r,
+                                        float t_lo, float t_hi, float& t_entry) {
+  const float4 p = __ldg(reinterpret_cast<const float4*>(boxes) + 2 * (size_t)node);
+  const float4 q = __ldg(reinterpret_cast<const float4*>(boxes) + 2 * (size_t)node + 1);
+  const float mn[3] = {p.x, p.y, p.z};
+  const float mx[3] = {p.w, q.x, q.y};
+  float t_min = 0.0f, t_max = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = (mn[a] - r.o[a]) * r.inv[a];
+    const float t2 = (mx[a] - r.o[a]) * r.inv[a];
+    const float lo = fminf(t1, t2), hi = fmaxf(t1, t2);
+    t_min = a == 0 ? lo : fmaxf(t_min, lo);
+    t_max = a == 0 ? hi : fminf(t_max, hi);
+  }
+  t_entry = t_min;
+  return (t_min <= t_max) && (t_max >= t_lo) && (t_min <= t_hi);
+}
+
+__device__ __forceinline__ bool bvh_triangle(const float* __restrict__ tri, int p, const Ray& r,
+                                             float limit, float& t, float& b1, float& b2) {
+  const MT m = mt_terms4(tri + 12 * (size_t)p, r);
+  const float inv_det = m.det != 0.0f ? 1.0f / m.det : 0.0f;
+  t = m.tt_n * inv_det;
+  b1 = m.bb1_n * inv_det;
+  b2 = m.bb2_n * inv_det;
+  return (m.det != 0.0f) && (t >= r.t_lo) && (t <= limit) && (b1 >= 0.0f) && (b1 <= 1.0f) &&
+         (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
+}
+
+__device__ __forceinline__ bool bvh_sphere(const float* __restrict__ sph, int s, const Ray& r,
+                                           float limit, float& t) {
+  const float4 c = __ldg(reinterpret_cast<const float4*>(sph) + 2 * (size_t)s);
+  const float ocx = r.o[0] - c.x, ocy = r.o[1] - c.y, ocz = r.o[2] - c.z;
+  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - c.w * c.w;
+  const float disc = b * b - 4.0f * a * cc;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t1 = (-b - sq) / (2.0f * a);
+  const float t2 = (-b + sq) / (2.0f * a);
+  const bool t1_ok = (t1 >= r.t_lo) && (t1 <= limit);
+  const bool t2_ok = (t2 >= r.t_lo) && (t2 <= limit);
+  t = t1_ok ? t1 : t2;
+  return (disc >= 0.0f) && (t1_ok || t2_ok);
+}
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BVH_THREADS)
+    bvh_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ t_lo, const float* __restrict__ t_hi,
+                    const float* __restrict__ boxes, const int* __restrict__ links,
+                    const int* __restrict__ prim_order, const float* __restrict__ tri,
+                    const float* __restrict__ sph, int n, int num_tris, float* __restrict__ out_t,
+                    int* __restrict__ out_prim, float* __restrict__ out_b1,
+                    float* __restrict__ out_b2, unsigned char* __restrict__ out_found,
+                    int* __restrict__ out_tests) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, t_lo, t_hi, i);
+  float best_t = BVH_INF, best_b1 = 0.0f, best_b2 = 0.0f;
+  int best_p = -1, tests = 0, sp = 0;
+  bool found = false;
+  int stack[BVH_MAX_STACK];
+  float t_entry;
+  if (r.finite && bvh_box(boxes, 0, r, r.t_lo, r.t_hi, t_entry)) stack[sp++] = 0;
+  while (sp > 0 && !(ANY_HIT && found)) {
+    const int node = stack[--sp];
+    const int4 link = __ldg(reinterpret_cast<const int4*>(links) + node);
+    if (link.w > 0) {
+      const int count = link.w < BVH_MAX_LEAF ? link.w : BVH_MAX_LEAF;
+      for (int s = 0; s < count; ++s) {
+        const int p = __ldg(prim_order + link.z + s);
+        const float limit = fminf(r.t_hi, best_t);
+        const bool is_tri = p < num_tris;
+        float t, b1 = 0.0f, b2 = 0.0f;
+        const bool valid = is_tri ? bvh_triangle(tri, p, r, limit, t, b1, b2)
+                                  : bvh_sphere(sph, p - num_tris, r, limit, t);
+        ++tests;
+        if (valid && t < best_t) {
+          best_t = t;
+          best_p = p;
+          if (is_tri) {
+            best_b1 = b1;
+            best_b2 = b2;
+          }
+        }
+        found = found || valid;
+      }
+    } else {
+      const float limit = fminf(r.t_hi, best_t);
+      const int left = link.x, right = link.y;
+      float l_t = 0.0f, r_t = 0.0f;
+      const bool l_ok = left >= 0 && bvh_box(boxes, left, r, r.t_lo, limit, l_t);
+      const bool r_ok = right >= 0 && bvh_box(boxes, right, r, r.t_lo, limit, r_t);
+      const bool near_left = l_t <= r_t;
+      const int far = near_left ? right : left, near = near_left ? left : right;
+      const bool far_ok = near_left ? r_ok : l_ok, near_ok = near_left ? l_ok : r_ok;
+      if (far_ok && sp < BVH_MAX_STACK) stack[sp++] = far;
+      if (near_ok && sp < BVH_MAX_STACK) stack[sp++] = near;
+    }
+  }
+  out_t[i] = best_t;
+  out_prim[i] = best_p;
+  out_b1[i] = best_b1;
+  out_b2[i] = best_b2;
+  out_found[i] = found ? 1 : 0;
+  out_tests[i] = tests;
+}
+
+}  // namespace
+
+// Kernel G: boxes (M, 8), links (M, 4) int, tri (max(T, 1), 12) and sph
+// (max(S, 1), 8), 16-byte aligned (the wrapper checks, and that the tree's
+// depth fits BVH_MAX_STACK); out_found is one byte per ray.
+extern "C" int lf_bvh_walk(const float* o, const float* d, const float* t_lo, const float* t_hi,
+                           const float* boxes, const int* links, const int* prim_order,
+                           const float* tri, const float* sph, int n, int num_tris, int any_hit,
+                           float* out_t, int* out_prim, float* out_b1, float* out_b2,
+                           unsigned char* out_found, int* out_tests, void* stream) {
+  if (n > 0) {
+    const int grid = (n + BVH_THREADS - 1) / BVH_THREADS;
+    if (any_hit)
+      bvh_walk_kernel<true><<<grid, BVH_THREADS, 0, (cudaStream_t)stream>>>(
+          o, d, t_lo, t_hi, boxes, links, prim_order, tri, sph, n, num_tris, out_t, out_prim,
+          out_b1, out_b2, out_found, out_tests);
+    else
+      bvh_walk_kernel<false><<<grid, BVH_THREADS, 0, (cudaStream_t)stream>>>(
+          o, d, t_lo, t_hi, boxes, links, prim_order, tri, sph, n, num_tris, out_t, out_prim,
+          out_b1, out_b2, out_found, out_tests);
+  }
+  return (int)cudaGetLastError();
 }

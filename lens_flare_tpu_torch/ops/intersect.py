@@ -1,11 +1,15 @@
 """Scene tables on the device and hit finalization.
 
 Counterpart of ``lens_flare_tpu/ops/intersect.py``: ``SceneArrays``,
-``Hit``, ``scene_to_device`` (``:64``) and ``finalize_hit`` (``:282``).
-The port traces every ray through the cluster-tree kernels of
-:mod:`lens_flare_tpu_torch.ops.intersect_cuda`, so the scene carries no
-binary BVH.  ``finalize_hit`` gathers the winner's shading row here, unless
-kernel D already returned it.
+``Hit``, ``scene_to_device`` (``:64``) and ``finalize_hit`` (``:282``),
+with :func:`bvh_to_device`, which uploads a binary BVH for kernel G.  The
+XLA traversal ``_make_traverse`` (``:152-259``) is kernel G and its plain
+version ``bvh_walk_plain``, both in
+:mod:`lens_flare_tpu_torch.ops.intersect_cuda` beside kernels A-F.
+Scenes the cluster tree holds trace through kernels A-D; scenes past its
+capacity, or a renderer asked for it, walk the binary BVH.
+``finalize_hit`` gathers the winner's shading row here, unless kernel D
+already returned it.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .intersect_cuda import BvhArrays
 
 
 class SceneArrays(NamedTuple):
@@ -56,6 +62,41 @@ def scene_to_device(flat_scene, device) -> SceneArrays:
         sph_center=f32(np.asarray(flat_scene.sph_center).reshape(-1, 3)),
         sph_radius=f32(flat_scene.sph_radius),
         sph_bsdf=torch.as_tensor(np.asarray(flat_scene.sph_bsdf, np.int32), device=device),
+    )
+
+
+def bvh_to_device(flat_scene, bvh, device) -> BvhArrays:
+    """Upload a ``FlatBVH`` over ``flat_scene``'s triangles then spheres.
+
+    Edges are float32 differences of float32 corners, as the JAX package's
+    ``scene_to_device`` takes them (``intersect.py:75-77``).
+    """
+    tri_p = np.asarray(flat_scene.tri_p, np.float32)
+    n_t, n_s = len(tri_p), len(flat_scene.sph_center)
+    tri = np.zeros((max(n_t, 1), 12), np.float32)
+    if n_t:
+        tri[:n_t, 0:3] = tri_p[:, 0]
+        tri[:n_t, 3:6] = tri_p[:, 1] - tri_p[:, 0]
+        tri[:n_t, 6:9] = tri_p[:, 2] - tri_p[:, 0]
+    sph = np.zeros((max(n_s, 1), 8), np.float32)
+    if n_s:
+        sph[:n_s, 0:3] = np.asarray(flat_scene.sph_center, np.float32).reshape(-1, 3)
+        sph[:n_s, 3] = np.asarray(flat_scene.sph_radius, np.float32)
+    box = np.zeros((bvh.num_nodes, 8), np.float32)
+    box[:, 0:3] = bvh.node_min
+    box[:, 3:6] = bvh.node_max
+    link = np.stack([bvh.node_left, bvh.node_right, bvh.node_start, bvh.node_count], axis=1)
+    order = np.asarray(bvh.prim_order, np.int32)
+    if order.size == 0:
+        order = np.zeros(1, np.int32)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return BvhArrays(
+        node_box=t(box, np.float32), node_link=t(link, np.int32), prim_order=t(order, np.int32),
+        tri=t(tri, np.float32), sph=t(sph, np.float32),
+        num_tris=n_t, n_spheres=n_s, max_depth=int(bvh.max_depth),
     )
 
 

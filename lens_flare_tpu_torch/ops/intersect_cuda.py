@@ -13,19 +13,25 @@ triangles' rows (S_pad, 12) for kernel C.  The TPU layouts of
 (16, B_nodes*128) coefficient lanes) were VMEM workarounds and are not
 carried over.
 
-Six kernels (``csrc/intersect.cu``), each with a plain PyTorch version
-beside it that computes the same function with the same arithmetic:
+Seven kernels (``csrc/intersect.cu``), each with a plain PyTorch version
+that computes the same function with the same arithmetic:
 
-==  =====================  ===========================================  ==========================
+==  =====================  ===========================================  ==================================
 id  kernel                 replaces (intersect_pallas.py)               plain version
-==  =====================  ===========================================  ==========================
+==  =====================  ===========================================  ==================================
 A   lf_tree_closest        _make_kernel(any_hit=False) :214, :1392      :func:`tree_plain`
 B   lf_tree_any_hit        _make_kernel(any_hit=True)  :214, :1392      :func:`tree_plain`
 C   lf_brute               _make_brute_kernel :877, :1292               :func:`brute_plain`
 D   lf_tree_closest_shade  _make_kernel(shade=True)    :214, :1392      ``tree_plain(shade=True)``
 E   lf_tree_closest_mxu    _make_kernel(mxu=True)      :214, :559       ``tree_plain(mxu=True)``
 F   lf_tree_group          _make_kernel(top_batch>1)   :214, :699       ``tree_plain(top_batch=tb)``
-==  =====================  ===========================================  ==========================
+G   lf_bvh_walk            (XLA) ops/intersect.py:152 _make_traverse    :func:`bvh_walk_plain`
+==  =====================  ===========================================  ==================================
+
+G walks the binary SAH BVH (``accel/bvh.py``) one ray per thread: the JAX
+package's XLA fallback, which the port takes for scenes past the cluster
+tree's capacity (``accel/wide.py:MAX_TRIS``) or when a renderer asks for it
+(``Renderer(use_wide_tree=False)``), through :func:`bvh_walk`.
 
 E (the coefficient walk) and F (the top-batched group walk, closest hit,
 any hit and shade) are reached only when a caller asks for them
@@ -49,6 +55,7 @@ kernel's count in :data:`KERNELS`.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,6 +79,9 @@ MXU_FEATURES = 10  # [1 | o-c | d | d x (o-c)]; the table pads to 16
 # and neither number is a memory limit of the card.
 STREAM_THRESHOLD_BYTES = 10 * 2**20
 SHADE_THRESHOLD_BYTES = 12 * 2**20
+BVH_INF = 1e30  # the binary walk's "no hit" distance (ops/intersect.py:26)
+BVH_MAX_LEAF = 4  # primitive slots scanned per leaf (intersect_rays' max_leaf)
+BVH_MAX_STACK = 64  # traversal stack entries per ray (intersect_rays' max_stack)
 
 
 @dataclass
@@ -106,6 +116,10 @@ KERNELS = {
     "F": KernelInfo(
         "tree_group_walk", "lf_tree_group",
         "lens_flare_tpu/ops/intersect_pallas.py:214",
+    ),
+    "G": KernelInfo(
+        "bvh_walk", "lf_bvh_walk",
+        "lens_flare_tpu/ops/intersect.py:152",
     ),
 }
 KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
@@ -652,6 +666,165 @@ def brute_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# the binary-BVH walk (kernel G's plain version)
+# ---------------------------------------------------------------------------
+
+
+class BvhArrays(NamedTuple):
+    """A binary BVH (``accel/bvh.py:FlatBVH``) and its primitives, as kernel G reads them."""
+
+    node_box: torch.Tensor  # (M, 8) float32 [min.xyz | max.xyz | pad 2]
+    node_link: torch.Tensor  # (M, 4) int32 [left, right, start, count]; count > 0 iff leaf
+    prim_order: torch.Tensor  # (max(P, 1),) int32 primitive ids (triangles, then spheres)
+    tri: torch.Tensor  # (max(T, 1), 12) float32 [p0 | e1 | e2 | pad] in scene order
+    sph: torch.Tensor  # (max(S, 1), 8) float32 [center | radius | pad]
+    num_tris: int
+    n_spheres: int
+    max_depth: int  # levels of the tree: the most stack entries a walk needs
+
+
+def check_bvh_depth(max_depth: int) -> None:
+    """Kernel G and its plain version hold at most BVH_MAX_STACK node ids per ray.
+
+    A walk of a tree ``max_depth`` levels deep keeps at most ``max_depth``
+    entries on its stack (one pending far child per level, plus the node).
+    """
+    if max_depth > BVH_MAX_STACK:
+        raise ValueError(
+            f"the binary BVH is {max_depth} levels deep; kernel G's stack holds {BVH_MAX_STACK} entries"
+        )
+
+
+def _bvh_box(box, o, inv, t_lo, t_hi):
+    """Slab test (``intersect.py:_ray_box``) of rays against their own boxes (L, 8) -> (hit, t_entry)."""
+    t_min = t_max = None
+    for a in range(3):
+        t1 = (box[:, a] - o[:, a]) * inv[:, a]
+        t2 = (box[:, 3 + a] - o[:, a]) * inv[:, a]
+        lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        t_min = lo if t_min is None else torch.maximum(t_min, lo)
+        t_max = hi if t_max is None else torch.minimum(t_max, hi)
+    return (t_min <= t_max) & (t_max >= t_lo) & (t_min <= t_hi), t_min
+
+
+def _bvh_sphere(sph, o, d, t_lo, limit):
+    """Sphere quadratic (``intersect.py:_sph_test``) of rays against their own spheres (L, 8) -> (valid, t)."""
+    ocx, ocy, ocz = o[:, 0] - sph[:, 0], o[:, 1] - sph[:, 1], o[:, 2] - sph[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = ocx * ocx + ocy * ocy + ocz * ocz - sph[:, 3] * sph[:, 3]
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    t1_ok = (t1 >= t_lo) & (t1 <= limit)
+    t2_ok = (t2 >= t_lo) & (t2 <= limit)
+    return (disc >= 0) & (t1_ok | t2_ok), torch.where(t1_ok, t1, t2)
+
+
+def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visits: dict | None = None):
+    """Plain version of kernel G: the binary-BVH stack walk of ``_make_traverse``.
+
+    Returns (t, prim, b1, b2, found, tests), the XLA walk's outputs: t is
+    BVH_INF and prim -1 on a miss; b1, b2 are the last triangle winner's.
+    Per ray: the root's slab test, then pop a node; a leaf tests its up to
+    BVH_MAX_LEAF primitives in order against [t_lo, min(t_hi, best_t)]
+    (each a test, the winner on strictly smaller t); an interior node
+    slab-tests both children under the same clip and pushes the far one
+    first, so the near one pops first (near = the smaller entry t, left on
+    ties).  Any hit stops once a leaf found a hit.  The reciprocal of d is
+    NaN-safe (1e-12 clamp).  Lanes run in lockstep, one node per live lane
+    per step; a lane's stack holds BVH_MAX_STACK entries.
+
+    ``visits``: an optional dict that receives, for the bound of a call,
+    ``nodes`` (M,) and ``prims`` (P,) masks of the nodes popped and the
+    primitives tested, and ``interior`` (N,) each lane's interior nodes.
+    """
+    check_bvh_depth(bv.max_depth)
+    n = o.shape[0]
+    dev = o.device
+    inv = _safe_inv(d)
+    best_t = torch.full((n,), BVH_INF, dtype=torch.float32, device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_b1 = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_b2 = torch.zeros(n, dtype=torch.float32, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    tests = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, BVH_MAX_STACK), dtype=torch.int64, device=dev)
+    root, _ = _bvh_box(bv.node_box[:1].expand(n, 8), o, inv, t_lo, t_hi)
+    sp = root.to(torch.int64)
+    n_tri, n_prim = bv.num_tris, bv.prim_order.shape[0]
+    if visits is not None:
+        visits["nodes"] = torch.zeros(bv.node_box.shape[0], dtype=torch.bool, device=dev)
+        visits["prims"] = torch.zeros(n_prim, dtype=torch.bool, device=dev)
+        visits["interior"] = torch.zeros(n, dtype=torch.int32, device=dev)
+    while True:
+        alive = (sp > 0) & ~found if any_hit else sp > 0
+        lanes = alive.nonzero()[:, 0]
+        if lanes.numel() == 0:
+            break
+        sp_l = sp[lanes] - 1
+        node = stack[lanes, sp_l]
+        left, right, start, count = bv.node_link[node].long().unbind(1)
+        ol, dl, il, lo, hi = o[lanes], d[lanes], inv[lanes], t_lo[lanes], t_hi[lanes]
+        bt, bp, b1, b2 = best_t[lanes], best_p[lanes], out_b1[lanes], out_b2[lanes]
+        fd, ts = found[lanes], tests[lanes]
+        is_leaf = count > 0
+        for s in range(BVH_MAX_LEAF):
+            ok = is_leaf & (s < count)
+            slot = torch.clamp(start + s, max=n_prim - 1)
+            p = bv.prim_order[slot].long()
+            is_tri = p < n_tri
+            limit = torch.minimum(hi, bt)
+            valid = torch.zeros_like(ok)
+            t = torch.full_like(bt, BVH_INF)
+            tb1 = tb2 = torch.zeros_like(bt)
+            if n_tri:
+                det, tt_n, bb1_n, bb2_n = _mt_terms(bv.tri[torch.clamp(p, max=n_tri - 1)], ol, dl)
+                inv_det = torch.where(det != 0, 1.0 / det, 0.0)
+                t, tb1, tb2 = tt_n * inv_det, bb1_n * inv_det, bb2_n * inv_det
+                valid = (
+                    (det != 0) & (t >= lo) & (t <= limit)
+                    & (tb1 >= 0) & (tb1 <= 1) & (tb2 >= 0) & (tb2 <= 1) & (tb1 + tb2 <= 1)
+                )
+            if bv.n_spheres:
+                sv, st = _bvh_sphere(bv.sph[torch.clamp(p - n_tri, 0, bv.n_spheres - 1)], ol, dl, lo, limit)
+                valid = torch.where(is_tri, valid, sv)
+                t = torch.where(is_tri, t, st)
+            valid = valid & ok
+            better = valid & (t < bt)
+            bt = torch.where(better, t, bt)
+            bp = torch.where(better, p.to(torch.int32), bp)
+            b1 = torch.where(better & is_tri, tb1, b1)
+            b2 = torch.where(better & is_tri, tb2, b2)
+            fd = fd | valid
+            ts = ts + ok.to(torch.int32)
+            if visits is not None:
+                visits["prims"][slot[ok]] = True
+        limit = torch.minimum(hi, bt)
+        interior = ~is_leaf
+        l_ok, l_t = _bvh_box(bv.node_box[left.clamp_min(0)], ol, il, lo, limit)
+        r_ok, r_t = _bvh_box(bv.node_box[right.clamp_min(0)], ol, il, lo, limit)
+        l_ok = l_ok & interior & (left >= 0)
+        r_ok = r_ok & interior & (right >= 0)
+        near_left = l_t <= r_t
+        far, far_ok = torch.where(near_left, right, left), torch.where(near_left, r_ok, l_ok)
+        near, near_ok = torch.where(near_left, left, right), torch.where(near_left, l_ok, r_ok)
+        stack[lanes, sp_l] = torch.where(far_ok, far, stack[lanes, sp_l])
+        sp_l = sp_l + far_ok.long()
+        top = torch.clamp(sp_l, max=BVH_MAX_STACK - 1)
+        stack[lanes, top] = torch.where(near_ok, near, stack[lanes, top])
+        sp[lanes] = sp_l + near_ok.long()
+        best_t[lanes], best_p[lanes], out_b1[lanes], out_b2[lanes] = bt, bp, b1, b2
+        found[lanes], tests[lanes] = fd, ts
+        if visits is not None:
+            visits["nodes"][node] = True
+            visits["interior"][lanes] += interior.to(torch.int32)
+    return best_t, best_p, out_b1, out_b2, found, tests
+
+
+# ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, kernel on the card
 # ---------------------------------------------------------------------------
 
@@ -749,6 +922,53 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 
     if shade:
         return out_t, out_slot, out_bary, out_tests, out_rows
     return out_t, out_slot, out_bary, out_tests
+
+
+def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
+    """Kernel G (CUDA tensors) or :func:`bvh_walk_plain` (CPU tensors).
+
+    ``bv``: a :class:`BvhArrays`.  Returns (t, prim, b1, b2,
+    found, tests), the contract of the JAX package's ``intersect_rays`` /
+    ``occluded_rays`` walk (t = 1e30 and prim = -1 on a miss).
+    """
+    check_bvh_depth(bv.max_depth)
+    _check_rays(bv, o, d, t_lo, t_hi)
+    if o.device.type == "cpu":
+        return bvh_walk_plain(bv, o, d, t_lo, t_hi, any_hit=any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"no kernel for device {o.device}")
+    n_nodes = bv.node_box.shape[0]
+    _check_float4_rows(
+        ("node_box", bv.node_box, (n_nodes, 8)), ("tri", bv.tri, (max(bv.num_tris, 1), 12)),
+        ("sph", bv.sph, (max(bv.n_spheres, 1), 8)),
+    )
+    link = bv.node_link
+    if (tuple(link.shape) != (n_nodes, 4) or link.dtype != torch.int32 or not link.is_contiguous()
+            or link.data_ptr() % 16 or bv.prim_order.dtype != torch.int32 or not bv.prim_order.is_contiguous()):
+        raise ValueError("node_link must be a contiguous, 16-byte aligned int32 (M, 4), prim_order contiguous int32")
+    from ._build import load_library
+
+    lib = load_library()
+    n = o.shape[0]
+    dev = o.device
+    o, d, t_lo, t_hi = (x.contiguous() for x in (o, d, t_lo, t_hi))
+    out_t = torch.empty(n, dtype=torch.float32, device=dev)
+    out_prim = torch.empty(n, dtype=torch.int32, device=dev)
+    out_b1 = torch.empty(n, dtype=torch.float32, device=dev)
+    out_b2 = torch.empty(n, dtype=torch.float32, device=dev)
+    out_found = torch.empty(n, dtype=torch.bool, device=dev)
+    out_tests = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.lf_bvh_walk(
+        o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+        bv.node_box.data_ptr(), link.data_ptr(), bv.prim_order.data_ptr(), bv.tri.data_ptr(),
+        bv.sph.data_ptr(), n, bv.num_tris, int(any_hit),
+        out_t.data_ptr(), out_prim.data_ptr(), out_b1.data_ptr(), out_b2.data_ptr(),
+        out_found.data_ptr(), out_tests.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"kernel lf_bvh_walk failed to launch: cudaError {rc}")
+    KERNELS["G"].launches += 1
+    return out_t, out_prim, out_b1, out_b2, out_found, out_tests
 
 
 def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, **kw):

@@ -1,13 +1,16 @@
 """Render controller: scene setup, tiled wavefront rendering, file output.
 
-Counterpart of ``lens_flare_tpu/renderer.py``.  The film is traced as
+Counterpart of ``lens_flare_tpu/renderer.py``.  A scene comes from a
+COLLADA file (:meth:`Renderer.load`) or is handed over built
+(:meth:`Renderer.load_flat_scene`).  The film is traced as
 ``tile_pixels``-lane wavefronts in 32x32 pixel-block order (the reference's
 tile size), every ray through the CUDA kernels of ``ops/intersect_cuda.py``
-on a CUDA device (their plain PyTorch versions on the CPU).  With
-``ns_aa > samples_per_batch`` the render is adaptive: converged pixels leave
-the wavefront between stages and the active set is repacked.  Not ported
-yet (ROADMAP Queue 1, item 6): COLLADA loading, checkpoints, env maps and
-multi-device rendering.
+on a CUDA device (their plain PyTorch versions on the CPU): the cluster
+tree's kernels A-D, or kernel G's binary-BVH walk past the tree's capacity
+or when ``use_wide_tree`` is False.  With ``ns_aa > samples_per_batch`` the
+render is adaptive: converged pixels leave the wavefront between stages and
+the active set is repacked.  Not ported yet: checkpoints and env maps
+(ROADMAP Queue 1, items 6b and 4) and multi-device rendering (item 9).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from . import _rng
-from .accel.wide import build_wide_bvh, check_capacity
+from .accel.bvh import build_bvh
+from .accel.wide import build_wide_bvh, takes_wide_tree
 from .integrator.lights import lights_to_device
 from .integrator.path import (
     BokehMask,
@@ -34,10 +38,10 @@ from .integrator.path import (
 )
 from .integrator.shading import bsdf_to_device
 from .lens.aperture import ApertureTexture
-from .ops.intersect import scene_to_device, shade_rows
+from .ops.intersect import bvh_to_device, scene_to_device, shade_rows
 from .ops.intersect_cuda import CudaScene
-from .scene.build import FlatScene
-from .scene.camera import Camera, camera_params, generate_rays
+from .scene.build import FlatScene, load_scene
+from .scene.camera import Camera, camera_params, generate_rays, place_from_scene_info
 from .utils import image as img
 
 
@@ -63,7 +67,14 @@ def blocked_order(xs: np.ndarray, ys: np.ndarray, width: int, bs: int = 32) -> n
 
 @dataclass
 class Renderer:
-    """Offline renderer on one device (``"cuda"`` or ``"cpu"``)."""
+    """Offline renderer on one device (``"cuda"`` or ``"cpu"``).
+
+    ``use_wide_tree`` is the counterpart of the JAX ``Renderer``'s
+    ``use_pallas`` (``renderer.py:83``): None traces on the cluster tree
+    (kernels A-D) up to its capacity and walks the binary BVH (kernel G, the
+    JAX package's XLA walk) past it; False always walks the binary BVH; True
+    always takes the cluster tree, and raises past its capacity.
+    """
 
     width: int = 800
     height: int = 600
@@ -85,15 +96,40 @@ class Renderer:
     bokeh: ApertureTexture | None = None
     flare_intensity: float = 0.0
     flare_radius: float = 0.0
+    camera_settings: str | None = None  # a Camera.dump_settings file applied by load()
     tile_pixels: int = 1 << 16  # wavefront width per launch
     seed: int = 0
     device: str = "cuda"
+    use_wide_tree: bool | None = None  # None: by scene size (accel/wide.py:takes_wide_tree)
 
     scene: FlatScene = None
     camera: Camera = None
     bundle: SceneBundle = None
     settings: RenderSettings = None
     stats: RenderStats = field(default_factory=RenderStats)
+
+    def load(self, dae_path) -> None:
+        """Load a COLLADA scene and place the camera as the reference does (``renderer.py:99-115``).
+
+        With ``camera_settings`` the file's intrinsics and pose are restored,
+        but the frame stays ``width`` x ``height`` (main.cpp:187-194).
+        """
+        scene, info = load_scene(dae_path)
+        self.scene = scene
+        self.camera = Camera()
+        self.camera.configure(info.camera, self.width, self.height)
+        place_from_scene_info(self.camera, info, scene.bbox_min, scene.bbox_max)
+        if self.camera_settings:
+            self.camera.load_settings(self.camera_settings)
+            self.camera.screen_w, self.camera.screen_h = self.width, self.height
+        self.camera.lens_radius = self.lens_radius
+        self.camera.focal_distance = self.focal_distance
+        self._build()
+
+    def set_frame_size(self, width: int, height: int) -> None:
+        self.width, self.height = width, height
+        if self.camera is not None:
+            self.camera.set_screen_size(width, height)
 
     def load_flat_scene(self, scene: FlatScene, camera: Camera | None = None) -> None:
         """Use an already-built FlatScene (procedural scenes, tests)."""
@@ -111,14 +147,25 @@ class Renderer:
         self._build()
 
     def _build(self) -> None:
-        # any number of spheres; the cluster tree has a capacity
-        check_capacity(self.scene.num_triangles)
+        # any number of spheres; the route is decided before any build
+        wide = takes_wide_tree(self.scene.num_triangles, self.use_wide_tree)
         # check the scene against the ported feature set before building
         self.update_settings()
-        t0 = time.perf_counter()
-        wb = build_wide_bvh(self.scene.tri_p)
-        self.stats.bvh_build_time = time.perf_counter() - t0
         dev = torch.device(self.device)
+        t0 = time.perf_counter()
+        cscene = bvh = None
+        if wide:
+            wb = build_wide_bvh(self.scene.tri_p)
+        else:
+            flat_bvh = build_bvh(*self.scene.primitive_bboxes())  # SAH, as the JAX Renderer's default
+        self.stats.bvh_build_time = time.perf_counter() - t0
+        if wide:
+            cscene = CudaScene.from_wide_bvh(
+                wb, self.scene.sph_center, self.scene.sph_radius, self.scene.num_triangles, dev,
+                shade_rows=shade_rows(self.scene) if self.scene.num_triangles else None,
+            )
+        else:
+            bvh = bvh_to_device(self.scene, flat_bvh, dev)
         bokeh = None
         if self.lens_radius > 0 and (self.bokeh is not None or self.bokeh_path):
             tex = self.bokeh if self.bokeh is not None else ApertureTexture.load(self.bokeh_path)
@@ -127,11 +174,9 @@ class Renderer:
             scene=scene_to_device(self.scene, dev),
             bsdfs=bsdf_to_device(self.scene.bsdfs, dev),
             lights=lights_to_device(self.scene.lights, dev),
-            cscene=CudaScene.from_wide_bvh(
-                wb, self.scene.sph_center, self.scene.sph_radius, self.scene.num_triangles, dev,
-                shade_rows=shade_rows(self.scene) if self.scene.num_triangles else None,
-            ),
+            cscene=cscene,
             bokeh=bokeh,
+            bvh=bvh,
         )
 
     def update_settings(self) -> None:

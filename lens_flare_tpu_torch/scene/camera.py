@@ -2,7 +2,9 @@
 
 Counterpart of ``lens_flare_tpu/scene/camera.py``.  :class:`Camera` is a
 copy of the JAX package's NumPy host class (orbit placement, the FOV
-fix-up, world -> screen projection and ``params()``, ``camera.py:42-240``);
+fix-up, ``set_screen_size``, world -> screen projection, the settings files
+and ``params()``, ``camera.py:42-240``), with ``place_from_scene_info``
+(``:243``), the placement a loaded COLLADA scene gets;
 the device half holds ``CameraParams`` as tensors, pinhole, thin-lens and
 bokeh ray generation (``camera.py:242-306``) and
 :func:`project_world_to_screen` (``:309``).  Matrix products are written
@@ -74,6 +76,14 @@ class Camera:
             self.v_fov = 2 * math.degrees(math.atan(math.tan(math.radians(self.h_fov) / 2) / self.ar))
         self.screen_dist = screen_h / (2.0 * math.tan(math.radians(self.v_fov) / 2))
 
+    def set_screen_size(self, screen_w: int, screen_h: int) -> None:
+        """A new frame size at the same screen distance: the FOVs follow (camera.cpp:88-96)."""
+        self.screen_w = screen_w
+        self.screen_h = screen_h
+        self.ar = screen_w / screen_h
+        self.h_fov = 2 * math.degrees(math.atan(screen_w / (2 * self.screen_dist)))
+        self.v_fov = 2 * math.degrees(math.atan(screen_h / (2 * self.screen_dist)))
+
     def place(self, target_pos, phi, theta, r, min_r, max_r) -> None:
         """Orbit placement around ``target_pos`` (camera.cpp:94-106)."""
         self.target_pos = np.asarray(target_pos, dtype=np.float64)
@@ -119,6 +129,35 @@ class Camera:
         ns_y = ((pos_image[1] / edge_y) + 1) / 2.0
         return float(ns_x), float(ns_y)
 
+    def dump_settings(self, filename) -> None:
+        """Write the camera in the reference's text format (camera.cpp:208-225)."""
+        with open(filename, "w") as f:
+            f.write(f"{self.h_fov} {self.v_fov} {self.ar} {self.n_clip} {self.f_clip}\n")
+            f.write(" ".join(str(v) for v in self.pos) + " ")
+            f.write(" ".join(str(v) for v in self.target_pos) + " \n")
+            f.write(f"{self.phi} {self.theta} {self.r} {self.min_r} {self.max_r}\n")
+            f.write(" ".join(str(self.c2w[i // 3, i % 3]) for i in range(9)) + " \n")
+            f.write(f"{self.screen_w} {self.screen_h} {self.screen_dist}\n")
+            f.write(f"{self.focal_distance} {self.lens_radius}\n")
+
+    def load_settings(self, filename) -> None:
+        """Read a file of :meth:`dump_settings` (camera.cpp:227-242)."""
+        with open(filename) as f:
+            vals = f.read().split()
+        it = iter(vals)
+
+        def nxt():
+            return float(next(it))
+
+        self.h_fov, self.v_fov, self.ar, self.n_clip, self.f_clip = (nxt() for _ in range(5))
+        self.pos = np.array([nxt() for _ in range(3)])
+        self.target_pos = np.array([nxt() for _ in range(3)])
+        self.phi, self.theta, self.r, self.min_r, self.max_r = (nxt() for _ in range(5))
+        self.c2w = np.array([nxt() for _ in range(9)]).reshape(3, 3)
+        self.screen_w, self.screen_h = int(nxt()), int(nxt())
+        self.screen_dist = nxt()
+        self.focal_distance, self.lens_radius = nxt(), nxt()
+
     def params(self, dtype=np.float32) -> CameraParams:
         """The traced camera state as NumPy values (``camera_params`` puts it on a device)."""
         return CameraParams(
@@ -131,6 +170,30 @@ class Camera:
             lens_radius=dtype(self.lens_radius),
             focal_distance=dtype(self.focal_distance),
         )
+
+
+def place_from_scene_info(camera: Camera, scene_info, bbox_min, bbox_max) -> None:
+    """Orbit placement from the scene's bbox (application.cpp:278-301).
+
+    The COLLADA camera's transform only gives the view direction, and, as in
+    the reference, as a point transform of (0, 0, -1) (application.cpp:252-253
+    uses Vector4D(v, 1)); the position comes from the bbox orbit.
+    """
+    transform = scene_info.camera.transform
+    c_dir = transform @ np.array([0.0, 0.0, -1.0, 1.0])
+    c_dir = c_dir[:3] / np.linalg.norm(c_dir[:3])
+
+    target = (np.asarray(bbox_min) + np.asarray(bbox_max)) / 2.0
+    extent = np.asarray(bbox_max) - np.asarray(bbox_min)
+    canonical = np.linalg.norm(extent) / 2.0 * 1.5
+    camera.place(
+        target,
+        math.acos(c_dir[1]),
+        math.atan2(c_dir[0], c_dir[2]),
+        canonical * 2.0,
+        canonical / 10.0,
+        canonical * 20.0,
+    )
 
 
 def camera_params(camera: Camera, device) -> CameraParams:

@@ -32,7 +32,7 @@ from lens_flare_tpu.renderer import Renderer as JaxRenderer
 from lens_flare_tpu.scene.camera import generate_rays as j_generate_rays
 from lens_flare_tpu.scene.procedural import make_terrain_scene
 from lens_flare_tpu_torch import _rng
-from lens_flare_tpu_torch.accel.wide import check_capacity
+from lens_flare_tpu_torch.accel.wide import MAX_TRIS, check_capacity, takes_wide_tree
 from lens_flare_tpu_torch.convert import (
     camera_params_from_numpy,
     cuda_scene_from_wide_bvh,
@@ -202,20 +202,35 @@ def test_render_many_spheres_matches_jax():
 
 
 def test_triangle_limit_is_named():
-    """Past 512*128*256 triangles the renderer names the limit and the missing walk, before any build."""
+    """Past 512*128*256 triangles a scene routes to kernel G's binary BVH; up to it, to the cluster tree.
+
+    The decision is the renderer's first step, taken before any build, so
+    a stand-in scene of 16,777,217 triangles checks it without building one.
+    """
+    assert MAX_TRIS == 16_777_216
+    assert takes_wide_tree(16_777_216) and not takes_wide_tree(16_777_217)
+    assert not takes_wide_tree(128, use_wide_tree=False) and takes_wide_tree(128, use_wide_tree=True)
     check_capacity(16_777_216)
-    with pytest.raises(ValueError, match=r"16,777,217 triangles.*16,777,216.*Queue 2, item 6"):
+    with pytest.raises(ValueError, match=r"16,777,217 triangles.*16,777,216.*kernel G"):
         check_capacity(16_777_217)
-    r = Renderer(device="cpu", **KW)
+    with pytest.raises(ValueError, match="kernel G"):
+        takes_wide_tree(16_777_217, use_wide_tree=True)
+    r = Renderer(device="cpu", use_wide_tree=True, **KW)
     r.scene = SimpleNamespace(num_triangles=16_777_217)  # what _build reads first
-    with pytest.raises(ValueError, match="Queue 2, item 6"):
+    with pytest.raises(ValueError, match="kernel G"):
         r._build()
 
 
 def test_unported_features_raise():
+    """What stays unported raises, naming its ROADMAP item: the environment light, and the CLI's -e,
+    --lens-model realistic and --upsample."""
+    from lens_flare_tpu_torch import cli
+
     scene = make_terrain_scene(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(device="cpu", direct_hemisphere_sample=True, **KW).load_flat_scene(scene)
-    scene.lights.light_type[1] = 3  # LT_AREA
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    scene.lights.light_type[1] = 4  # LT_ENV
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
         Renderer(device="cpu", **KW).load_flat_scene(scene)
+    for flags, item in ((["-e", "sky.exr"], "item 4"), (["--lens-model", "realistic"], "item 7"),
+                        (["--upsample", "1"], "item 10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
+            cli.main(["--device", "cpu", *flags, "scene.dae"])

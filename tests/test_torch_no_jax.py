@@ -4,9 +4,11 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``flax``, ``optax``, ``orbax``, ``PIL`` and the JAX package
 ``lens_flare_tpu`` itself (the port keeps its own copies of the host
 modules it needs), then imports the port, renders a 16x12 frame of the
-port's 128-triangle terrain with the flare on the CPU, writes its PNGs and
-runs the kernel bench on the CPU at a tiny size.  Any import of a refused
-package fails the run.
+port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
+runs the kernel bench on the CPU at a tiny size, and runs the port's
+command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
+with ``-x``/``-y`` aperture PNGs, which the port reads without PIL.  Any
+import of a refused package fails the run.
 """
 
 import subprocess
@@ -49,6 +51,19 @@ SCRIPT = textwrap.dedent(
     assert hdr.shape == (12, 16, 3) and torch.isfinite(hdr).all()
     art = bench_kernels.main(["--device", "cpu", "--n", "256", "--scenes", "8,40", "--out", sys.argv[2]])
     assert any(r.get("check") == "top_batch2_parity" for r in art["rows"])
+
+    import pathlib
+    import chip_smoke
+    from lens_flare_tpu_torch import cli
+    from lens_flare_tpu_torch.utils.image import load_png, save_png
+
+    d = pathlib.Path(sys.argv[3])
+    dae = chip_smoke.cornell_box().write(d / "cornell.dae")
+    save_png(d / "ap.png", polygon_mask(32, 5))
+    save_png(d / "ghost.png", polygon_mask(16, 6))
+    rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "3", "-x", str(d / "ap.png"), "-y", str(d / "ghost.png"),
+                   "-i", "1.5", "-n", "10", "-f", str(d / "cornell.png"), "--device", "cpu", str(dae)])
+    assert rc == 0 and load_png(d / "cornell.png").shape == (12, 16, 3)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("rendered", float(hdr.mean()))
@@ -59,7 +74,7 @@ SCRIPT = textwrap.dedent(
 def test_port_renders_without_jax(tmp_path):
     out = tmp_path / "frame.png"
     res = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(out), str(tmp_path / "bench.json")],
+        [sys.executable, "-c", SCRIPT, str(out), str(tmp_path / "bench.json"), str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-4000:]
@@ -68,3 +83,4 @@ def test_port_renders_without_jax(tmp_path):
     assert png.startswith(b"\x89PNG\r\n\x1a\n") and len(png) > 100
     assert (tmp_path / "frame_rate.png").exists()
     assert (tmp_path / "bench.json").exists()
+    assert (tmp_path / "cornell.png").read_bytes().startswith(b"\x89PNG")
