@@ -46,7 +46,30 @@ raises, so the script exits non-zero and prints no result):
    exact-fit trees with primary and bounce rays; F at top_batch 2 and 4 on
    the bounce and shadow wavefronts) held exactly against its plain
    version, tests included, on the bench's own scenes and rays, with the
-   bench's time beside the plain version's.
+   bench's time beside the plain version's;
+8. dae_small: a Cornell-box COLLADA file through the command line (C, A),
+   its PNG held to the frame and a cell of it to the CPU render;
+9. dae_1080p: terrain 256 as a COLLADA file at 1920x1080 with aperture
+   PNGs and the flare (D, B);
+10. g_kernel: kernel G against its plain version on terrain 512's binary BVH;
+11. past_capacity: 16,785,218 triangles, past the cluster tree, through G;
+12. diff_small (BASELINE config 5): the Cornell box at 320x240, 4 spp,
+    depth 2, camera on the emitter; the render and its gradients in the
+    emitter's BSDF row, the area light's row and a wall's albedo, through A
+    and C, held to the CPU's plain path (1e-4 of their peak), then
+    ``recover_emitter`` (80 steps from (2, 2, 2)) to the true colour;
+13. diff_cell: a 512x512 cell of terrain 256's 1080p frame (262,144 lanes,
+    1 spp, depth 4, D and B), the gradients in the area light's row and the
+    diffuse albedo, each held to a central difference along itself (1e-4
+    relative for the light row, 1e-3 for the albedo); forward and backward
+    seconds and peak device memory;
+14. lens_design: ``optimize_lens`` at 128x128 from a perturbed curvature,
+    its forward model and gradient held to the CPU's (1e-6 and 5e-6 of
+    their peak), 35 steps, and a run
+    checkpointed at 30 and resumed to 35 giving the same losses and lens;
+15. render_resume: the small frame (tiled) and config2_small (adaptive),
+    each interrupted after its first tile or stage and resumed from its
+    checkpoint, bit-equal to the uninterrupted render.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -334,6 +357,98 @@ def terrain_dae(n_quads: int) -> DaeWriter:
     m[:3, 0], m[:3, 1], m[:3, 2] = x, np.cross(view, x), -view  # (0, 0, -1) -> view
     w.camera(xfov=35.0, yfov=20.0, znear=0.01, zfar=1000.0, transforms=[("matrix", m)])
     return w
+
+
+def aim_at_emitter(renderer) -> None:
+    """Point a loaded renderer's camera from low in the box at light 0 (the Cornell box's area light),
+    so that the emitter is in view, as ``tests/test_diff_render.py`` places it."""
+    import numpy as np
+
+    scene, cam = renderer.scene, renderer.camera
+    lightp = np.asarray(scene.lights.position[0], np.float64)
+    centre = (np.asarray(scene.bbox_min) + np.asarray(scene.bbox_max)) / 2.0
+    cam.pos = centre - np.array([0.0, 0.4, 0.0]) * (scene.bbox_max[1] - scene.bbox_min[1])
+    cam.target_pos = lightp
+    d2c = cam.pos - lightp
+    d2c /= np.linalg.norm(d2c)
+    sx = np.array([1.0, 0.0, 0.0])
+    cam.c2w = np.stack([sx, np.cross(d2c, sx), d2c], axis=1)
+
+
+def diff_case(path, device, width, height, n_samples, depth, cell=None, aim=False, **renderer_kw):
+    """``render_image``'s inputs for a COLLADA file on ``device``: the renderer (``r``) and its bundle,
+    settings, camera, the pixels of ``cell`` (x0, y0, width, height; the whole film by default), a key
+    and a loss window.  ``aim``: the camera on the emitter (``aim_at_emitter``)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from lens_flare_tpu_torch import _rng
+    from lens_flare_tpu_torch.integrator.path import make_settings
+    from lens_flare_tpu_torch.renderer import Renderer
+    from lens_flare_tpu_torch.scene.camera import camera_params
+
+    r = Renderer(device=device, width=width, height=height, **renderer_kw)
+    r.load(path)
+    if aim:
+        aim_at_emitter(r)
+    x0, y0, dx, dy = cell or (0, 0, width, height)
+    ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
+    window = np.random.default_rng(11).uniform(size=(dx * dy, 3)).astype(np.float32)
+    dev = torch.device(device)
+    return SimpleNamespace(
+        r=r, bundle=r.bundle, cam=camera_params(r.camera, dev), width=width, height=height, n=n_samples,
+        settings=make_settings(r.scene.lights, bsdf_table=r.scene.bsdfs, ns_aa=n_samples, max_ray_depth=depth,
+                               indirect=depth > 1, samples_per_batch=n_samples, max_tolerance=0.0),
+        px=torch.as_tensor(xs.ravel(), device=dev), py=torch.as_tensor(ys.ravel(), device=dev),
+        key=_rng.prng_key(3, device=dev), window=torch.as_tensor(window, device=dev),
+    )
+
+
+def emitter_params(scene) -> dict:
+    """The Cornell box's rows that the gradients are taken in, as ``{name: (group, field, row)}``: the
+    emitter's BSDF radiance row, the area light's light-table row and a wall's albedo."""
+    import numpy as np
+
+    radiance, albedo = np.asarray(scene.bsdfs.radiance), np.asarray(scene.bsdfs.albedo)
+    wall = next(b for b in range(len(albedo))
+                if np.linalg.norm(albedo[b]) > 0.1 and np.linalg.norm(radiance[b]) == 0.0)
+    return {
+        "emitter": ("bsdfs", "radiance", int(np.argmax(np.linalg.norm(radiance, axis=1)))),
+        "light": ("lights", "radiance", int(np.argmax(np.linalg.norm(np.asarray(scene.lights.radiance), axis=1)))),
+        "albedo": ("bsdfs", "albedo", wall),
+    }
+
+
+def diff_render(c, bundle):
+    """``render_image`` of a ``diff_case`` with ``bundle`` in place of its own."""
+    from lens_flare_tpu_torch.diff.render import render_image
+
+    return render_image(bundle, c.settings, c.cam, c.px, c.py, c.width, c.height, c.key, c.n)
+
+
+def diff_grads(c, params):
+    """(image, {name: gradient of sum(window * image) in the row}, forward s, backward s) of a ``diff_case``,
+    each row of ``params`` (``{name: (group, field, row)}``) made a leaf."""
+    import torch
+
+    from lens_flare_tpu_torch.diff.render import replace_row
+
+    bundle, leaves = c.bundle, {}
+    for name, (group, field, row) in params.items():
+        leaves[name] = getattr(getattr(bundle, group), field)[row].detach().clone().requires_grad_(True)
+        bundle = replace_row(bundle, group, field, row, leaves[name])
+    t_f = time.perf_counter()
+    image = diff_render(c, bundle)
+    loss = torch.sum(c.window * image)
+    if image.is_cuda:
+        torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    loss.backward()
+    if image.is_cuda:
+        torch.cuda.synchronize()
+    return image.detach(), {k: v.grad for k, v in leaves.items()}, t_b - t_f, time.perf_counter() - t_b
 
 
 def phase(title, t0, **numbers):
@@ -907,7 +1022,199 @@ def main() -> int:
           launches=json.dumps(pc_launches), lanes=LANES, **report, png=png_big.name)
     del rp, big, bv, p_rays, hdr_big
 
-    # -- 12. results -------------------------------------------------------
+    # -- 12. diff_small: gradients of the Cornell box through kernels A and C
+    from lens_flare_tpu_torch import renderer as rmod
+    from lens_flare_tpu_torch.ab_walk import frame_profile
+    from lens_flare_tpu_torch.diff import render as dr
+    from lens_flare_tpu_torch.diff.optimize import LENS_FIELDS, OptimizeConfig, ghost_image, optimize_lens
+    from lens_flare_tpu_torch.lens.prescription import reference_prescription
+    from lens_flare_tpu_torch.scene.build import LT_AREA
+    from lens_flare_tpu_torch.scene.collada import BSDF_DIFFUSE
+
+    def max_rel(got, want):
+        return ((got.cpu().double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+    t0 = time.perf_counter()
+    dgpu = diff_case(cornell, "cuda", 320, 240, 4, 2, aim=True)
+    dcpu = diff_case(cornell, "cpu", 320, 240, 4, 2, aim=True)
+    sc = dgpu.r.scene
+    small_params = emitter_params(sc)
+    emit_row, light_row = small_params["emitter"][2], small_params["light"][2]
+    diff_grads(dgpu, small_params)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ic.reset_launch_counts()
+    img_gpu, g_gpu, fwd_s, bwd_s = diff_grads(dgpu, small_params)
+    dsm_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert dsm_launches["A"] > 0 and dsm_launches["C"] > 0, f"diff_small skipped A or C: {dsm_launches}"
+    peak_small = (torch.cuda.max_memory_allocated() - mem0) / 2**20  # above what the phase started with
+    img_cpu, g_cpu, _, _ = diff_grads(dcpu, small_params)
+    # the kernels give the plain versions' hits bit for bit; the shading math
+    # rounds in another order and the gathers' backward adds with atomics
+    assert torch.isfinite(img_gpu).all() and img_gpu.max() > 1.0, "the emitter is not in view"
+    img_err = max_rel(img_gpu, img_cpu)
+    grad_err = {k: max_rel(g_gpu[k], g_cpu[k]) for k in small_params}
+    assert img_err <= 1e-4 and max(grad_err.values()) <= 1e-4, (img_err, grad_err)
+    assert all(g.abs().max() > 1e-4 for g in g_cpu.values())
+    true_color = (0.9, 0.55, 0.2)
+    target = diff_render(dgpu, dr.set_emitter_color(dgpu.bundle, emit_row, light_row, true_color))
+    t_rec = time.perf_counter()
+    color, rec_losses = dr.recover_emitter(
+        dgpu.bundle, dgpu.settings, dgpu.cam, dgpu.px, dgpu.py, 320, 240, target, emit_row, light_row,
+        init_color=(2.0, 2.0, 2.0), n_samples=4, steps=80, learning_rate=0.2, key=dgpu.key)
+    rec_s = (time.perf_counter() - t_rec) / 80
+    color = color.cpu().numpy()
+    assert rec_losses[-1] < rec_losses[0] * 1e-3, rec_losses[::20]
+    assert np.abs(color - np.asarray(true_color)).max() <= 0.05, color
+    phase("diff_small", t0, tris=sc.num_triangles, spheres=sc.num_spheres, width=320, height=240, spp=4, depth=2,
+          forward_s=f"{fwd_s:.4f}", backward_s=f"{bwd_s:.4f}", peak_device_mib=f"{peak_small:.1f}",
+          image_vs_cpu_maxrel=f"{img_err:.3g}", grads_vs_cpu_maxrel=json.dumps({k: float(f"{v:.3g}") for k, v in
+                                                                                grad_err.items()}),
+          recover_first_loss=f"{rec_losses[0]:.6g}", recover_last_loss=f"{rec_losses[-1]:.6g}",
+          recovered_color=json.dumps([round(float(x), 5) for x in color]), recover_s_per_step=f"{rec_s:.4f}",
+          launches=json.dumps(dsm_launches))
+    del dcpu, img_cpu
+
+    # -- 13. diff_cell: a 512x512 cell of the 1080p terrain file through D and B
+    t0 = time.perf_counter()
+    cell = ((1920 - 512) // 2, (1080 - 512) // 2, 512, 512)
+    dcell = diff_case(terrain_file, "cuda", 1920, 1080, 1, 4, cell=cell)
+    assert dcell.bundle.cscene.shade, "the 131,072-triangle file did not take the shade tree"
+    sc = dcell.r.scene
+    area_row = int(np.flatnonzero(sc.lights.light_type == LT_AREA)[0])
+    diffuse_row = int(np.flatnonzero(sc.bsdfs.bsdf_type == BSDF_DIFFUSE)[0])
+    cell_params = {"light": ("lights", "radiance", area_row), "albedo": ("bsdfs", "albedo", diffuse_row)}
+    diff_grads(dcell, cell_params)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ic.reset_launch_counts()
+    img_cell, g_cell, fwd_s, bwd_s = diff_grads(dcell, cell_params)
+    dcl_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert dcl_launches["D"] > 0 and dcl_launches["B"] > 0, f"diff_cell skipped D or B: {dcl_launches}"
+    peak_cell = (torch.cuda.max_memory_allocated() - mem0) / 2**20  # above what the phase started with
+    assert img_cell.shape == (512 * 512, 3) and torch.isfinite(img_cell).all() and img_cell.sum() > 0
+    # central differences along each gradient: the estimator is linear in the
+    # light row and a polynomial in the albedo (RR does not read it); sound
+    # runs read <= 1.9e-6 (light) and <= 5.5e-6 (albedo, the float32 loss's
+    # rounding over the difference and the backward's atomic sums)
+    fd_err = {}
+    with torch.no_grad():
+        for name, (group, field, row) in cell_params.items():
+            g = g_cell[name]
+            assert torch.isfinite(g).all() and g.norm() > 0, (name, g)
+            eps = 0.1 if name == "light" else 0.02
+            base = getattr(getattr(dcell.bundle, group), field)[row]
+            step = eps * g / g.norm()
+            hi, lo = (torch.sum(dcell.window * diff_render(dcell, dr.replace_row(dcell.bundle, group, field, row, v)))
+                      for v in (base + step, base - step))
+            fd = ((hi - lo) / (2 * eps)).item()
+            fd_err[name] = abs(fd - g.norm().item()) / g.norm().item()
+    assert fd_err["light"] <= 1e-4 and fd_err["albedo"] <= 1e-3, fd_err
+    # where a step's time goes: one forward + backward under torch.profiler
+    prof = frame_profile(lambda: diff_grads(dcell, cell_params))
+    print(f"[diff_cell_profile] step_s={prof['frame_s']:.4f} traced_s={prof['traced_s']:.4f} "
+          f"device_kernel_ms={prof['kernel_ms']:.3f} kernel_launches={prof['kernel_launches']} "
+          f"busy_share={prof['busy_share_traced']:.4f} D_ms={prof['D_ms']:.3f} B_ms={prof['B_ms']:.3f} "
+          f"top_kernels={json.dumps([[n[:60], round(ms, 3), c] for n, ms, c in prof['top_kernels'][:5]])}",
+          flush=True)
+    phase("diff_cell", t0, tris=sc.num_triangles, frame="1920x1080", cell=json.dumps(cell), lanes=512 * 512, spp=1,
+          depth=4, forward_s=f"{fwd_s:.4f}", backward_s=f"{bwd_s:.4f}", peak_device_mib=f"{peak_cell:.1f}",
+          grad_light=json.dumps([round(float(x), 4) for x in g_cell["light"]]),
+          grad_albedo=json.dumps([round(float(x), 4) for x in g_cell["albedo"]]),
+          fd_along_grad_relerr=json.dumps({k: float(f"{v:.3g}") for k, v in fd_err.items()}),
+          launches=json.dumps(dcl_launches))
+    del dcell, img_cell, g_cell
+
+    # -- 14. lens_design: optimize_lens at 128x128, checkpointed and resumed -
+    t0 = time.perf_counter()
+    cfg = OptimizeConfig()
+    ghost_tex = torch.tensor(polygon_mask(64, 6), device="cuda")
+    axis, angle = torch.tensor([0.6, 0.55], device="cuda"), 0.35
+    target = ghost_image(reference_prescription(device="cuda"), ghost_tex, axis, angle, cfg.width, cfg.height)
+
+    def perturbed(device):
+        lens = reference_prescription(device=device)
+        lens.curvatures = lens.curvatures * torch.tensor([1.03] + [1.0] * 9, device=device)
+        return lens
+
+    # the forward model and its gradient in every field, on the card and the CPU
+    lens_err = {}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        lens = perturbed(device)
+        for f in LENS_FIELDS:
+            getattr(lens, f).requires_grad_(True)
+        image = ghost_image(lens, ghost_tex.to(device), axis.to(device), angle, cfg.width, cfg.height)
+        torch.sum((image - target.to(device)) ** 2).backward()
+        outs[device] = (image.detach(), {f: getattr(lens, f).grad for f in LENS_FIELDS})
+    lens_err["image"] = max_rel(outs["cuda"][0], outs["cpu"][0])
+    lens_err.update({f: max_rel(outs["cuda"][1][f], outs["cpu"][1][f]) for f in LENS_FIELDS})
+    # sound runs read 1.4e-7 (image) and <= 5.0e-7 (gradients) of each peak
+    assert lens_err["image"] <= 1e-6 and max(lens_err.values()) <= 5e-6, lens_err
+    run = dict(target=target, ghost_tex=ghost_tex, axis_ray=axis, angle=angle, init_lens=perturbed("cuda"),
+               device="cuda")
+    t_opt = time.perf_counter()
+    lens_full, full = optimize_lens(config=OptimizeConfig(steps=35, log_every=0), **run)
+    ms_step = (time.perf_counter() - t_opt) / 35 * 1e3
+    assert full[-1] < full[0], full
+    ck_dir = build_dir / "lens_checkpoints"
+    for old in ck_dir.glob("*"):
+        old.unlink()
+    _, first = optimize_lens(config=OptimizeConfig(steps=30, log_every=0, checkpoint_dir=str(ck_dir),
+                                                   checkpoint_every=10), **run)
+    lens_resumed, rest = optimize_lens(config=OptimizeConfig(steps=35, log_every=0, checkpoint_dir=str(ck_dir)), **run)
+    assert first == full[:30] and rest == full[30:], (first[-2:], rest, full[28:])
+    assert all(torch.equal(getattr(lens_resumed, f), getattr(lens_full, f)) for f in LENS_FIELDS)
+    phase("lens_design", t0, width=cfg.width, height=cfg.height, ghosts=39, steps=35, resumed_at=30,
+          ms_per_step=f"{ms_step:.3f}", first_loss=f"{full[0]:.6g}", last_loss=f"{full[-1]:.6g}",
+          resumed_losses_equal=True, vs_cpu_maxrel=json.dumps({k: float(f"{v:.3g}") for k, v in lens_err.items()}),
+          curvature0=f"{float(lens_full.curvatures[0]):.7g}")
+
+    # -- 15. render_resume: interrupted renders resume bit for bit ----------
+    class Interrupted(Exception):
+        pass
+
+    def interrupted(r, call, after, path):
+        """Render with a checkpoint, raising in ``call`` after ``after`` calls, as a crash would."""
+        orig, calls = getattr(rmod, call), []
+
+        def stop(*args, **kw):
+            calls.append(1)
+            if len(calls) > after:
+                raise Interrupted
+            return orig(*args, **kw)
+
+        setattr(rmod, call, stop)
+        try:
+            r.render(progress=False, checkpoint_path=path)
+            raise AssertionError("the render was not interrupted")
+        except Interrupted:
+            pass
+        finally:
+            setattr(rmod, call, orig)
+
+    t0 = time.perf_counter()
+    report = {}
+    for name, r, call, after, kernels in (("tiled_small_frame", rs, "render_wavefront", 1, "AC"),
+                                          ("adaptive_config2_small", rs2, "render_batch", 2, "DB")):
+        path = build_dir / f"{name}.npz"
+        path.unlink(missing_ok=True)
+        want, want_counts = r.render(progress=False)
+        interrupted(r, call, after, path)
+        with np.load(path) as ck:
+            at = int(ck["next_tile"]) if "next_tile" in ck else int(ck["stage"])
+        assert at == 1, at
+        ic.reset_launch_counts()
+        got, got_counts = r.render(progress=False, checkpoint_path=path)
+        torch.cuda.synchronize()
+        rr_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+        assert all(rr_launches[k] > 0 for k in kernels), (name, rr_launches)
+        assert torch.equal(got, want) and torch.equal(got_counts, want_counts), f"{name}: the resumed render differs"
+        report[name] = f"resumed_at={at},bit_equal=True,launches={rr_launches[kernels[0]]}+{rr_launches[kernels[1]]}"
+    phase("render_resume", t0, **report)
+
+    # -- 16. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

@@ -15,6 +15,8 @@ its layout so each module's counterpart sits at the same path:
 - ``integrator``  wavefront path tracing: BSDFs, lights, NEE, bounces
 - ``lens``        aperture masks, the paraxial lens, ghost splatting
 - ``flare``       FFT starburst, falloff glow, the compositing pipeline
+- ``diff``        differentiable rendering (emitter recovery) and paraxial
+                  lens design with Adam and resumable checkpoints
 - ``utils``       image transforms, PNG input and output
 - ``renderer``    the tiled wavefront ``Renderer`` (``load`` a COLLADA file)
 - ``cli``         the command line (``python -m lens_flare_tpu_torch.cli``)

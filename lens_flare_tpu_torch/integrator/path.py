@@ -178,6 +178,11 @@ def _trace_stats(t_hi, tests):
     return torch.stack([rays, tests.sum(dtype=torch.float64), zero])
 
 
+def _detach(*tensors):
+    """The tensors cut from the autograd graph (``path.py:244-246``)."""
+    return tuple(t.detach() for t in tensors)
+
+
 def _orient_normals(bundle: SceneBundle, d, hit):
     """Face-forward shading normals, except on refraction and glass (``path.py:342-358``).
 
@@ -200,22 +205,41 @@ def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
     with ``stream_shade``, which keep kernel A and the gather, as the
     reference does.  Every other scene takes kernel A (C's closest hit is
     forced only by tests).  Returns (Hit, stats).
+
+    Differentiability contract, as the JAX package's (``path.py:262-276``):
+    the trace is a visibility oracle with no gradient.  ``o``, ``d``,
+    ``t_lo``, ``t_hi`` and the shading tables are detached before the
+    kernels (or their plain versions, whose loops would otherwise record a
+    graph) and ``finalize_hit``, so the hit (t, prim, barycentrics, normal,
+    bsdf row) is a constant of the backward pass.  Autograd of a rendered
+    pixel flows through the shading chain only: emitter radiance, albedos
+    and light radiance get the exact gradient of the fixed-RNG estimator,
+    whose discrete hit structure is piecewise constant in them
+    (``tests/test_torch_diff.py`` checks it by central differences).  The
+    cluster tree and the binary BVH are built from NumPy and never
+    require a gradient.
     """
+    o, d, t_lo, t_hi = _detach(o, d, t_lo, t_hi)
+    scene = SceneArrays(*_detach(*bundle.scene))
     cs = bundle.cscene
     if cs is None:
         t, prim, b1, b2, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi)
-        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
+        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found)
     elif cs.shade and not (coherent and cs.stream):
         t, prim, b1, b2, found, tests, rows = intersect(cs, o, d, t_lo, t_hi, return_shade=True)
-        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
+        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
     else:
         t, prim, b1, b2, found, tests = intersect(cs, o, d, t_lo, t_hi)
-        hit = finalize_hit(bundle.scene, o, d, t, prim, b1, b2, found)
+        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found)
     return _orient_normals(bundle, d, hit), _trace_stats(t_hi, tests)
 
 
 def trace_occluded(bundle: SceneBundle, o, d, t_lo, t_hi):
-    """Any-hit shadow query through kernel B (C on tiny scenes, G on binary-BVH ones). Returns (occluded, stats)."""
+    """Any-hit shadow query through kernel B (C on tiny scenes, G on binary-BVH ones). Returns (occluded, stats).
+
+    The rays are detached, as in :func:`trace_closest`.
+    """
+    o, d, t_lo, t_hi = _detach(o, d, t_lo, t_hi)
     if bundle.cscene is None:
         _, _, _, _, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi, any_hit=True)
     else:
@@ -276,7 +300,12 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
         skipped = would_trace.sum(dtype=torch.float64) - live.sum(dtype=torch.float64)
     cos_theta = wi_obj[:, 2] / torch.clamp_min(norm3(wi_obj), 1e-30)
     f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi_obj, rep(w_out), families=settings.bsdf_families)
-    contrib = f * ls_rad * (cos_theta / torch.clamp_min(ls_pdf, 1e-30))[:, None]
+    # lanes that are not live get factors of 0, live lanes the same values:
+    # a missed vertex lies ~3e38 away (the kernels' miss distance), its light
+    # sample's pdf is NaN, and the masked forward is finite, but a NaN factor
+    # turns the backward's zero cotangents into NaN (0 * NaN)
+    weight = torch.where(live, cos_theta / torch.clamp_min(ls_pdf, 1e-30), 0.0)
+    contrib = torch.where(live[:, None], f, 0.0) * ls_rad * weight[:, None]
 
     occ, stats = trace_occluded(
         bundle,

@@ -10,7 +10,7 @@ as the JAX package specializes them away.  Conventions are the reference's:
 directions in the local frame have +z along the normal, ``eval_f`` takes wi
 negated (pointing into the surface), ``sample_f`` returns wi pointing away
 from it.  Material rows are gathered by index (the JAX package's one-hot
-``ops/lookup.py`` products give the same rows).
+``ops/lookup.py`` products give the same rows), through :func:`rows`.
 """
 
 from __future__ import annotations
@@ -104,11 +104,24 @@ def local_to_world(o2w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rows(table: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``table[b]`` for a material table (B, C) or (B,) and int64 lane indices (N,).
+
+    The same rows.  The backward, a material parameter's gradient, sums
+    each row's lanes with ``embedding``'s segmented reduction; ``table[b]``'s
+    backward on CUDA accumulates the lanes that share a row one after
+    another, and a scene's few rows are shared by every lane.
+    """
+    if table.dim() == 1:
+        return torch.nn.functional.embedding(b, table[:, None])[:, 0]
+    return torch.nn.functional.embedding(b, table)
+
+
 def get_emission(bsdfs: BSDFArrays, b: torch.Tensor) -> torch.Tensor:
     """Radiance for emission BSDFs, 0 otherwise."""
     b = b.long()
     is_em = (bsdfs.bsdf_type[b] == BSDF_EMISSION)[:, None]
-    return torch.where(is_em, bsdfs.radiance[b], 0.0)
+    return torch.where(is_em, rows(bsdfs.radiance, b), 0.0)
 
 
 def is_delta(bsdfs: BSDFArrays, b: torch.Tensor) -> torch.Tensor:
@@ -130,9 +143,9 @@ def eval_f(bsdfs: BSDFArrays, b: torch.Tensor, wi_neg: torch.Tensor, wo: torch.T
     b = b.long()
     wi = -wi_neg
     t = bsdfs.bsdf_type[b]
-    f = torch.where((t == BSDF_DIFFUSE)[:, None], bsdfs.albedo[b] / math.pi, 0.0)
+    f = torch.where((t == BSDF_DIFFUSE)[:, None], rows(bsdfs.albedo, b) / math.pi, 0.0)
     if _has(families, BSDF_MICROFACET):
-        f_micro = _microfacet_f(bsdfs.alpha[b], bsdfs.eta[b], bsdfs.k[b], wi, wo)
+        f_micro = _microfacet_f(rows(bsdfs.alpha, b), rows(bsdfs.eta, b), rows(bsdfs.k, b), wi, wo)
         f = torch.where((t == BSDF_MICROFACET)[:, None], f_micro, f)
     return f
 
@@ -205,7 +218,7 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
     z_cos = torch.sqrt(torch.clamp_min(1.0 - xi1, 0.0))
     wi = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z_cos], dim=-1)
     pdf = z_cos / math.pi
-    f = bsdfs.albedo[b] / math.pi
+    f = rows(bsdfs.albedo, b) / math.pi
     valid = pdf > 0
 
     def sel(code, vec_f, vec_wi, vec_pdf, vec_valid):
@@ -218,7 +231,7 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
         )
 
     if _has(families, BSDF_MIRROR) or _has(families, BSDF_GLASS):
-        reflectance = bsdfs.reflectance[b]
+        reflectance = rows(bsdfs.reflectance, b)
         wi_mirr = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], dim=-1)
         cos_mirr = torch.clamp_min(torch.abs(wi_mirr[:, 2]), 1e-6)
     if _has(families, BSDF_MIRROR):
@@ -226,8 +239,8 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
         f, wi, pdf, valid = sel(BSDF_MIRROR, f_mirr, wi_mirr, ones, torch.abs(wo[:, 2]) > 1e-6)
 
     if _has(families, BSDF_REFRACTION) or _has(families, BSDF_GLASS):
-        transmittance = bsdfs.transmittance[b]
-        ior = bsdfs.ior[b]
+        transmittance = rows(bsdfs.transmittance, b)
+        ior = rows(bsdfs.ior, b)
         entering = wo[:, 2] > 0
         eta_ratio = torch.where(entering, 1.0 / ior, ior)  # eta_i / eta_t
         sin2_t = eta_ratio**2 * torch.clamp_min(1.0 - wo[:, 2] ** 2, 0.0)
@@ -242,7 +255,7 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
         f, wi, pdf, valid = sel(BSDF_REFRACTION, f_refr, wi_refr, ones, ~tir)
 
     if _has(families, BSDF_GLASS):
-        R = fresnel_schlick(wo[:, 2], bsdfs.ior[b])
+        R = fresnel_schlick(wo[:, 2], rows(bsdfs.ior, b))
         R_eff = torch.where(tir, 1.0, R)
         choose_reflect = u[:, 2] < R_eff
         f_glass_reflect = R_eff[:, None] * reflectance / cos_mirr[:, None]
@@ -253,7 +266,7 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
         f, wi, pdf, valid = sel(BSDF_GLASS, f_glass, wi_glass, pdf_glass, pdf_glass > 0)
 
     if _has(families, BSDF_MICROFACET):
-        alpha = torch.clamp_min(bsdfs.alpha[b], 1e-4)
+        alpha = torch.clamp_min(rows(bsdfs.alpha, b), 1e-4)
         theta_h = torch.arctan(
             torch.sqrt(torch.clamp_min(-(alpha**2) * torch.log(torch.clamp_min(1.0 - xi1, 1e-12)), 0.0))
         )
@@ -269,7 +282,7 @@ def sample_f(bsdfs: BSDFArrays, b: torch.Tensor, wo: torch.Tensor, u: torch.Tens
         pdf_h = p_theta * p_phi / torch.clamp_min(sin_h, 1e-9)
         pdf_mf = pdf_h / torch.clamp_min(4.0 * wo_dot_h, 1e-9)
         valid_mf = (wi_mf[:, 2] > 0) & (wo[:, 2] > 0) & (pdf_mf > 1e-9)
-        f_mf = _microfacet_f(bsdfs.alpha[b], bsdfs.eta[b], bsdfs.k[b], wi_mf, wo)
+        f_mf = _microfacet_f(rows(bsdfs.alpha, b), rows(bsdfs.eta, b), rows(bsdfs.k, b), wi_mf, wo)
         f, wi, pdf, valid = sel(BSDF_MICROFACET, f_mf, wi_mf, pdf_mf, valid_mf)
 
     if _has(families, BSDF_EMISSION):

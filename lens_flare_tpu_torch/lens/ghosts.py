@@ -7,12 +7,16 @@ Counterpart of ``lens_flare_tpu/lens/ghosts.py`` (``draw_ghost`` ->
 - :func:`splat_ghosts` is the exact method (the reference's edge functions,
   vertex sort, half-pixel offsets and floor-indexed nearest fetch), used
   for small films;
+- ``smooth=True`` is its differentiable variant for lens design
+  (:mod:`lens_flare_tpu_torch.diff.optimize`): sigmoid edge weights and a
+  bilinear texture fetch, so pixels have useful gradients in the
+  prescription; autograd gives the backward;
 - :func:`splat_ghosts_fast` resamples one precomputed canonical ghost card
   per ghost with two separable matrix products (bilinear), used from
   2^18 pixels up (1080p).
 
-The differentiable soft-edge variant and the subsampled ghost buffer are
-not ported yet (ROADMAP Queue 1, item 8).
+The subsampled ghost buffer (``splat_ghosts(scale=)``, the JAX renderer's
+``flare_ghost_scale``) is not ported yet (ROADMAP Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -32,21 +36,28 @@ def _sort3_by_y(vx, vy, vu, vv):
     return vx, vy, vu, vv
 
 
-def _raster_triangle(tex, width, height, vx, vy, vu, vv, color, xs, ys):
-    """One textured triangle -> (P, 3) additive contribution at pixels (xs, ys)."""
+def _raster_triangle(tex, width, height, vx, vy, vu, vv, color, xs, ys, smooth=False, smooth_eps=0.05):
+    """One textured triangle -> (P, 3) additive contribution at pixels (xs, ys).
+
+    Vertex values of shape (G,) instead of () give G triangles at once,
+    -> (G, P, 3).  ``smooth=True``: the differentiable variant
+    (``ghosts.py:88-109``), a sigmoid of the smallest edge function over
+    ``smooth_eps`` in place of the inside test and a bilinear fetch in
+    place of the nearest one.
+    """
     vx, vy, vu, vv = _sort3_by_y(vx, vy, vu, vv)
-    x0, x1, x2 = (v - 0.5 for v in vx)  # pixel centers as integer coords
-    y0, y1, y2 = (v - 0.5 for v in vy)
-    u0, u1, u2 = vu
-    v0, v1, v2 = vv
+    x0, x1, x2 = (v[..., None] - 0.5 for v in vx)  # pixel centers as integer coords
+    y0, y1, y2 = (v[..., None] - 0.5 for v in vy)
+    u0, u1, u2 = (v[..., None] for v in vu)
+    v0, v1, v2 = (v[..., None] for v in vv)
 
     min_x = torch.clamp_min(torch.floor(torch.minimum(torch.minimum(x0, x1), x2)), 0.0)
     max_x = torch.clamp_max(torch.ceil(torch.maximum(torch.maximum(x0, x1), x2)), width - 1.0)
     min_y = torch.clamp_min(torch.floor(y0), 0.0)
     max_y = torch.clamp_max(torch.ceil(y2), height - 1.0)
 
-    x = xs.to(torch.float32)
-    y = ys.to(torch.float32)
+    x = xs.to(x0.dtype)
+    y = ys.to(y0.dtype)
     in_box = (x >= min_x) & (x < max_x) & (y >= min_y) & (y < max_y)
 
     alpha = (-(y1 - y0) * (x - x0) + (x1 - x0) * (y - y0)) / (
@@ -61,38 +72,69 @@ def _raster_triangle(tex, width, height, vx, vy, vu, vv, color, xs, ys):
     v = v2 * alpha + v0 * beta + v1 * gamma
 
     h_a, w_a = tex.shape
+    if smooth:
+        soft_inside = torch.sigmoid(torch.minimum(torch.minimum(alpha, beta), gamma) / smooth_eps)
+        # NaN from a degenerate triangle: index 0, the weight stays NaN as in JAX
+        x0f = torch.clamp(u - 0.5, 0.0, w_a - 1.001)
+        y0f = torch.clamp(v - 0.5, 0.0, h_a - 1.001)
+        xi = torch.floor(torch.nan_to_num(x0f.detach(), nan=0.0)).to(torch.int64)
+        yi = torch.floor(torch.nan_to_num(y0f.detach(), nan=0.0)).to(torch.int64)
+        fx = x0f - xi
+        fy = y0f - yi
+        xj = torch.clamp_max(xi + 1, w_a - 1)
+        yj = torch.clamp_max(yi + 1, h_a - 1)
+        sample = (
+            tex[yi, xi] * (1 - fx) * (1 - fy)
+            + tex[yi, xj] * fx * (1 - fy)
+            + tex[yj, xi] * (1 - fx) * fy
+            + tex[yj, xj] * fx * fy
+        )
+        weight = torch.where(in_box, sample * soft_inside, 0.0)
+        return weight[..., None] * color[..., None, :]
+
     flat_idx = torch.floor(v) * w_a + u  # pixels[int(floor(v) * w_a + u)]
     # clamp before the cast (same indices as cast-then-clip; NaN from a
     # degenerate triangle, where inside is False, maps to 0)
     flat_idx = torch.clamp(torch.nan_to_num(flat_idx, nan=0.0), 0, h_a * w_a - 1).to(torch.int64)
     sample = tex.reshape(-1)[flat_idx]
     weight = torch.where(in_box & inside, sample, 0.0)
-    return weight[:, None] * color
+    return weight[..., None] * color[..., None, :]
 
 
 def ghost_corners(r1, r2, axis_ray, width, height):
-    """Quad corners [ul, ll, ur, lr] and intensity of one ghost (draw_ghost:433-498)."""
+    """Quad corners [ul, ll, ur, lr] and intensity of one ghost (draw_ghost:433-498).
+
+    r1, r2 of shape (G,) give G ghosts: corners (G, 4), intensities (G,).
+    """
     angle = torch.atan((axis_ray[1] - 0.5) / (axis_ray[0] - 0.5))
     shift_amt = -(r1 + r2) / 2.0 * 0.4
     scale_amt = torch.abs(r2 - r1) * 0.2
     gb_mid_x = torch.ceil(axis_ray[0] * width)
     gb_mid_y = torch.ceil(axis_ray[1] * height)
     ca, sa = torch.cos(angle), torch.sin(angle)
-    base = torch.tensor([[-1.0, 1.0], [-1.0, -1.0], [1.0, 1.0], [1.0, -1.0]], device=axis_ray.device)
-    sxy = base * scale_amt
-    rx = ca * sxy[:, 0] - sa * sxy[:, 1] + shift_amt * ca
-    ry = sa * sxy[:, 0] + ca * sxy[:, 1] + shift_amt * sa
+    base = torch.tensor([[-1.0, 1.0], [-1.0, -1.0], [1.0, 1.0], [1.0, -1.0]], dtype=r1.dtype, device=axis_ray.device)
+    sx = base[:, 0] * scale_amt[..., None]
+    sy = base[:, 1] * scale_amt[..., None]
+    rx = ca * sx - sa * sy + shift_amt[..., None] * ca
+    ry = sa * sx + ca * sy + shift_amt[..., None] * sa
     intensity = 10.0 / torch.clamp_min(scale_amt * scale_amt, 1e-12)
     return gb_mid_x + rx, gb_mid_y + ry, intensity
 
 
-def splat_eval(tex, r1s, r2s, colors, axis_ray, width, height, xs, ys):
-    """Additive ghost field at pixel coords (P,) -> (P, 3)."""
+def splat_eval(tex, r1s, r2s, colors, axis_ray, width, height, xs, ys, smooth=False):
+    """Additive ghost field at pixel coords (P,) -> (P, 3); ``smooth`` as in :func:`_raster_triangle`."""
     h_a, w_a = tex.shape
     dev = tex.device
-    uv_u = torch.tensor([0.0, 0.0, 1.0 * w_a], device=dev)
-    uv_v = torch.tensor([0.0, 1.0 * h_a, 0.0], device=dev)
-    buf = torch.zeros((xs.shape[0], 3), device=dev)
+    uv_u = torch.tensor([0.0, 0.0, 1.0 * w_a], dtype=tex.dtype, device=dev)
+    uv_v = torch.tensor([0.0, 1.0 * h_a, 0.0], dtype=tex.dtype, device=dev)
+    buf = torch.zeros((xs.shape[0], 3), dtype=tex.dtype, device=dev)
+    if smooth:
+        # every ghost at once, (G, P) per triangle, summed over the ghosts
+        cx, cy, intensity = ghost_corners(r1s, r2s, axis_ray, width, height)
+        col = colors * intensity[:, None]
+        t1 = _raster_triangle(tex, width, height, cx[:, [0, 1, 2]].T, cy[:, [0, 1, 2]].T, uv_u, uv_v, col, xs, ys, True)
+        t2 = _raster_triangle(tex, width, height, cx[:, [3, 1, 2]].T, cy[:, [3, 1, 2]].T, uv_u, uv_v, col, xs, ys, True)
+        return buf + (t1 + t2).sum(dim=0)
     for g in range(r1s.shape[0]):
         cx, cy, intensity = ghost_corners(r1s[g], r2s[g], axis_ray, width, height)
         col = colors[g] * intensity
@@ -104,13 +146,13 @@ def splat_eval(tex, r1s, r2s, colors, axis_ray, width, height, xs, ys):
     return buf
 
 
-def splat_ghosts(tex, r1s, r2s, colors, axis_ray, width, height):
-    """Exact ghost buffer (generate_ghost_buffer) -> (H, W, 3)."""
+def splat_ghosts(tex, r1s, r2s, colors, axis_ray, width, height, smooth=False):
+    """Exact ghost buffer (generate_ghost_buffer) -> (H, W, 3); ``smooth``: the differentiable variant."""
     ys, xs = torch.meshgrid(
         torch.arange(height, device=tex.device), torch.arange(width, device=tex.device), indexing="ij"
     )
     return splat_eval(
-        tex, r1s, r2s, colors, axis_ray, width, height, xs.reshape(-1), ys.reshape(-1)
+        tex, r1s, r2s, colors, axis_ray, width, height, xs.reshape(-1), ys.reshape(-1), smooth
     ).reshape(height, width, 3)
 
 

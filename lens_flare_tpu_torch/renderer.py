@@ -9,14 +9,21 @@ on a CUDA device (their plain PyTorch versions on the CPU): the cluster
 tree's kernels A-D, or kernel G's binary-BVH walk past the tree's capacity
 or when ``use_wide_tree`` is False.  With ``ns_aa > samples_per_batch`` the
 render is adaptive: converged pixels leave the wavefront between stages and
-the active set is repacked.  Not ported yet: checkpoints and env maps
-(ROADMAP Queue 1, items 6b and 4) and multi-device rendering (item 9).
+the active set is repacked.  ``render(checkpoint_path=)`` persists the
+film after each tile (the adaptive render: its accumulators and active set
+after each stage) with a fingerprint of the render, and an interrupted
+render resumes from it.  Not ported yet: env maps (ROADMAP Queue 1, item
+4) and multi-device rendering (item 9).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
 import time
+import zipfile
+import zlib
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -194,11 +201,62 @@ class Renderer:
             use_thin_lens=self.lens_radius > 0,
         )
 
-    def render(self, cell=None, progress: bool = True):
+    def _checkpoint_fingerprint(self, cell) -> str:
+        """Identity of a render for resuming (``renderer.py:257-291``).
+
+        A checkpoint resumes only into a render of the same scene, camera,
+        film, cell, seed and sampling plan: the hash covers everything that
+        changes a pixel's estimate, the light and BSDF tables included.
+        """
+        parts = [
+            self.seed, self.width, self.height, cell, self.ns_aa,
+            self.samples_per_batch, self.max_tolerance, self.max_ray_depth,
+            self.ns_area_light, self.direct_hemisphere_sample, self.indirect,
+            self.lens_radius, self.focal_distance,
+            self.scene.num_triangles, self.scene.num_spheres,
+        ]
+        h = hashlib.sha256(repr(parts).encode())
+        if self.camera is not None:
+            for leaf in self.camera.params():
+                h.update(np.asarray(leaf).tobytes())
+        h.update(np.asarray(self.scene.bbox_min).tobytes())
+        h.update(np.asarray(self.scene.bbox_max).tobytes())
+        if self.bundle is not None:
+            for group in (self.bundle.lights, self.bundle.bsdfs):
+                for leaf in group:
+                    h.update(leaf.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    @staticmethod
+    def _atomic_savez(path, **arrays) -> None:
+        """Write a checkpoint to a temporary file, then ``os.replace`` it over ``path``.
+
+        A process that dies mid-write leaves the previous checkpoint whole.
+        """
+        tmp = str(path) + ".tmp.npz"  # np.savez appends .npz to a name without it
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+
+    @staticmethod
+    def _load_checkpoint(path):
+        """Every array of the checkpoint at ``path``, or None when it is absent or unreadable."""
+        if path is None or not Path(path).exists():
+            return None
+        try:
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile, zlib.error) as e:  # truncated zip, bad magic, ...
+            print(f"[PathTracer] ignoring unreadable checkpoint {path}: {e}")
+            return None
+
+    def render(self, cell=None, progress: bool = True, checkpoint_path=None):
         """Render the film (or a subwindow ``cell=(x, y, dx, dy)``).
 
         Returns (hdr (H, W, 3) float32, sample_counts (H, W) int32), both
-        tensors on the renderer's device.
+        tensors on the renderer's device.  ``checkpoint_path``: progress is
+        saved there after each tile (adaptive: each stage), and a render
+        interrupted before its end resumes from the file, unless the file
+        belongs to another render (its fingerprint differs) or is unreadable.
         """
         w, h = self.width, self.height
         x0, y0, dx, dy = (0, 0, w, h) if cell is None else cell
@@ -215,13 +273,35 @@ class Renderer:
 
         film = torch.zeros((h, w, 3), device=dev)
         counts = torch.zeros((h, w), dtype=torch.int32, device=dev)
+        total = torch.zeros(3, dtype=torch.float64, device=dev)
         t_start = time.perf_counter()
+        n_tiles = -(-xs.shape[0] // self.tile_pixels)
+        ckpt = None
+        start_tile = 0
+        if checkpoint_path is not None:
+            ckpt = (checkpoint_path, self._checkpoint_fingerprint(cell))
+            ck = self._load_checkpoint(checkpoint_path)
+            # "next_tile" marks the tiled (or completed) format; an adaptive
+            # render's per-stage state is resumed in _adaptive_render
+            if (
+                ck is not None and "next_tile" in ck and int(ck["n_tiles"]) == n_tiles
+                and ck["film"].shape == tuple(film.shape) and str(ck.get("fp")) == ckpt[1]
+            ):
+                film = torch.as_tensor(ck["film"], device=dev)
+                counts = torch.as_tensor(ck["counts"], device=dev)
+                total = torch.as_tensor(ck["stats"], device=dev)
+                start_tile = int(ck["next_tile"])
+                if progress:
+                    print(f"[PathTracer] resuming at tile {start_tile}/{n_tiles}")
         if self.ns_aa > self.settings.samples_per_batch and self.max_tolerance > 0:
-            rad, cnt, total = self._adaptive_render(cam, key, xs, ys, progress)
-            film[ys, xs] = rad
-            counts[ys, xs] = cnt
+            if start_tile < n_tiles:  # not already complete from a checkpoint
+                rad, cnt, total = self._adaptive_render(cam, key, xs, ys, progress, ckpt)
+                film[ys, xs] = rad
+                counts[ys, xs] = cnt
+                if ckpt is not None:
+                    self._save_tiles(ckpt, film, counts, total, n_tiles, n_tiles)
         else:
-            total = self._tiled_render(cam, key, xs, ys, film, counts, progress)
+            total = self._tiled_render(cam, key, xs, ys, film, counts, progress, total, start_tile, ckpt)
         total = total.cpu().numpy()  # waits for the device
         self.stats.wall_time = time.perf_counter() - t_start
         self.stats.total_rays = int(total[0])
@@ -238,18 +318,26 @@ class Renderer:
             )
         return film, counts
 
-    def _tiled_render(self, cam, key, xs, ys, film, counts, progress):
+    def _save_tiles(self, ckpt, film, counts, total, next_tile, n_tiles) -> None:
+        path, fp = ckpt
+        self._atomic_savez(
+            path, film=film.cpu().numpy(), counts=counts.cpu().numpy(), stats=total.cpu().numpy(),
+            next_tile=next_tile, n_tiles=n_tiles, fp=fp,
+        )
+
+    def _tiled_render(self, cam, key, xs, ys, film, counts, progress, total, start_tile=0, ckpt=None):
         """Every pixel's ns_aa samples, one ``tile_pixels``-lane wavefront at a time.
 
-        Writes film and counts in place; returns the stats, on the device.
+        Starts at tile ``start_tile`` with the stats ``total``; writes film
+        and counts in place, and with ``ckpt`` (path, fingerprint) saves
+        them after each tile.  Returns the stats, on the device.
         """
         dev = xs.device
         w, h = self.width, self.height
         n_px = xs.shape[0]
-        total = torch.zeros(3, dtype=torch.float64, device=dev)
         tile = self.tile_pixels
         n_tiles = -(-n_px // tile)
-        for ti in range(n_tiles):
+        for ti in range(start_tile, n_tiles):
             px = xs[ti * tile : (ti + 1) * tile]
             py = ys[ti * tile : (ti + 1) * tile]
             m = px.shape[0]
@@ -265,19 +353,24 @@ class Renderer:
             total += st
             film[py[:m], px[:m]] = rad[:m]
             counts[py[:m], px[:m]] = cnt[:m]
+            if ckpt is not None:
+                self._save_tiles(ckpt, film, counts, total, ti + 1, n_tiles)
             if progress:
                 print(f"\r[PathTracer] Rendering... {100 * (ti + 1) // n_tiles}%", end="", flush=True)
         return total
 
-    def _adaptive_render(self, cam, key, xs, ys, progress):
-        """Adaptive sampling with host repacking (``renderer.py:470-610``, no checkpoints).
+    def _adaptive_render(self, cam, key, xs, ys, progress, ckpt=None):
+        """Adaptive sampling with host repacking (``renderer.py:470-610``).
 
         Stages follow the geometric schedule (spb, spb, 2spb, 4spb, ...).  A
         stage dispatches every tile of the active set before anything is
         read back; the 95% CI test then runs over the whole active set on the
         device, and selecting the survivors is the stage's one sync.  Film
-        sums are float32, s1 and s2 float64, as in the reference.
-        Returns (radiance (P, 3), counts (P,), stats) in the order of xs, ys.
+        sums are float32, s1 and s2 float64, as in the reference.  With
+        ``ckpt`` (path, fingerprint) the accumulators and the active set are
+        saved after each stage, and a matching checkpoint resumes at its
+        stage.  Returns (radiance (P, 3), counts (P,), stats) in the order
+        of xs, ys.
         """
         spb = min(self.samples_per_batch, self.ns_aa)
         schedule = []
@@ -296,11 +389,27 @@ class Renderer:
         count = torch.zeros(n, dtype=torch.int32, device=dev)
         stats = torch.zeros(3, dtype=torch.float64, device=dev)
         active = torch.arange(n, device=dev)
-        n_active = n
-        s_done = 0
+        start_stage = s_done = 0
+        ck = None if ckpt is None else self._load_checkpoint(ckpt[0])
+        # spb sets the schedule and the samples' RNG offsets: a checkpoint of
+        # another batch size would misalign both
+        if (
+            ck is not None and "stage" in ck and int(ck["n"]) == n and int(ck["ns_aa"]) == self.ns_aa
+            and int(ck.get("spb", -1)) == spb and str(ck.get("fp")) == ckpt[1]
+        ):
+            film, s1, s2, count, active, stats = (
+                torch.as_tensor(ck[k], device=dev) for k in ("film", "s1", "s2", "count", "active", "stats")
+            )
+            start_stage, s_done = int(ck["stage"]), int(ck["s_done"])
+            if progress:
+                print(
+                    f"[PathTracer] resuming adaptive render at stage {start_stage}/{len(schedule)}"
+                    f" ({active.shape[0]} px active)"
+                )
+        n_active = active.shape[0]
         tile = self.tile_pixels
         self.stats.active_per_stage = []
-        for ns in schedule:
+        for si, ns in enumerate(schedule[start_stage:], start_stage):
             if n_active == 0:
                 break
             for i in range(0, n_active, tile):
@@ -323,6 +432,12 @@ class Renderer:
             active = active[ci > self.max_tolerance * a1 / nc]  # the stage's sync
             n_active = active.shape[0]
             self.stats.active_per_stage.append(n_active)
+            if ckpt is not None:
+                self._atomic_savez(
+                    ckpt[0], stage=si + 1, s_done=s_done, n=n, ns_aa=self.ns_aa, spb=spb, fp=ckpt[1],
+                    **{k: v.cpu().numpy() for k, v in
+                       dict(film=film, s1=s1, s2=s2, count=count, active=active, stats=stats).items()},
+                )
             if progress:
                 print(
                     f"\r[PathTracer] Rendering... {100 * s_done // self.ns_aa}% ({n_active} px active)",

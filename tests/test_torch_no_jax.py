@@ -7,8 +7,11 @@ modules it needs), then imports the port, renders a 16x12 frame of the
 port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
 runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
-with ``-x``/``-y`` aperture PNGs, which the port reads without PIL.  Any
-import of a refused package fails the run.
+with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, runs
+``optimize_lens`` for three steps with a checkpoint (``torch.optim`` and
+``torch.save`` in place of optax and orbax), and takes the gradient of a
+``render_image`` with respect to an albedo.  Any import of a refused
+package fails the run.
 """
 
 import subprocess
@@ -64,6 +67,30 @@ SCRIPT = textwrap.dedent(
     rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "3", "-x", str(d / "ap.png"), "-y", str(d / "ghost.png"),
                    "-i", "1.5", "-n", "10", "-f", str(d / "cornell.png"), "--device", "cpu", str(dae)])
     assert rc == 0 and load_png(d / "cornell.png").shape == (12, 16, 3)
+
+    # lens design with a checkpoint, and the gradient of a render
+    from lens_flare_tpu_torch import _rng
+    from lens_flare_tpu_torch.diff import render as dr
+    from lens_flare_tpu_torch.diff.optimize import OptimizeConfig, ghost_image, optimize_lens
+    from lens_flare_tpu_torch.integrator.path import make_settings
+    from lens_flare_tpu_torch.lens.prescription import reference_prescription
+    from lens_flare_tpu_torch.scene.camera import camera_params
+
+    tex, axis = torch.full((8, 8), 0.8), torch.tensor([0.6, 0.55])
+    target = ghost_image(reference_prescription(), tex, axis, 0.35, 16, 16)
+    init = reference_prescription()
+    init.spacings = init.spacings * 1.03
+    cfg = OptimizeConfig(steps=3, log_every=0, checkpoint_dir=str(d / "lens_ck"), checkpoint_every=2)
+    lens, losses = optimize_lens(target, tex, axis, 0.35, cfg, init_lens=init, device="cpu")
+    assert len(losses) == 3 and (d / "lens_ck" / "step_2.pt").exists()
+    r = Renderer(width=8, height=6, device="cpu")
+    r.load(dae)
+    px, py = torch.arange(48) % 8, torch.arange(48) // 8
+    settings = make_settings(r.scene.lights, bsdf_table=r.scene.bsdfs, ns_aa=1, max_ray_depth=2)
+    albedo = r.bundle.bsdfs.albedo[0].clone().requires_grad_(True)
+    bundle = dr.replace_row(r.bundle, "bsdfs", "albedo", 0, albedo)
+    dr.render_image(bundle, settings, camera_params(r.camera, "cpu"), px, py, 8, 6, _rng.prng_key(0), 1).sum().backward()
+    assert torch.isfinite(albedo.grad).all() and albedo.grad.abs().sum() > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("rendered", float(hdr.mean()))
