@@ -69,7 +69,23 @@ raises, so the script exits non-zero and prints no result):
     checkpointed at 30 and resumed to 35 giving the same losses and lens;
 15. render_resume: the small frame (tiled) and config2_small (adaptive),
     each interrupted after its first tile or stage and resumed from its
-    checkpoint, bit-equal to the uninterrupted render.
+    checkpoint, bit-equal to the uninterrupted render;
+16. env_small: terrain 8 as a COLLADA file under a 512x256 HALF ZIP sky
+    (``sky_map``, written by the port's ``utils/exr.write``), the camera
+    pulled back by a ``-c`` file, 320x240, ``-s 16 -m 5`` through the
+    command line (C, A); its PNG held to the frame and a cell where terrain
+    meets sky to the CPU render;
+17. env_1080p: terrain 256's file under a 4096x2048 HALF ZIP sky (a sun
+    disk at 6e4) at 1920x1080, ``-s 1 -m 4``, aperture PNGs and the flare
+    (D, B): the EXR write and read, ``build_env`` and frame seconds, rays,
+    launches and peak device memory above the phase's start, then the same
+    render with and without the sky under ``torch.profiler``;
+18. env_diff: the gradient in every texel of env_small's sky for a
+    512x512 cell of terrain 8's 1080p frame (1 spp, depth 2; A, C), held
+    to the CPU's plain path (the gradient to 1e-4 of its peak; every pixel
+    to 1e-4 of its value plus what two ulps of the lookup's angles move it,
+    all but 0.1% without that term) and to a central difference along
+    itself (1e-4 relative).
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -375,10 +391,58 @@ def aim_at_emitter(renderer) -> None:
     cam.c2w = np.stack([sx, np.cross(d2c, sx), d2c], axis=1)
 
 
-def diff_case(path, device, width, height, n_samples, depth, cell=None, aim=False, **renderer_kw):
+def pull_back(camera, factor) -> None:
+    """Move a camera back along its view, away from its target, by ``factor`` times their distance."""
+    camera.pos = camera.pos + (camera.pos - camera.target_pos) * factor
+
+
+def sky_map(width: int, height: int, peak: float = 6e4):
+    """An equirect sky (H, W, 3) float32: a zenith-to-horizon blue gradient, a dim ground below the
+    horizon and a sun disk of 2 degrees radius at ``peak`` (6e4 stays within HALF's 65504)."""
+    import numpy as np
+
+    theta = np.pi * (np.arange(height) + 0.5) / height  # from +y
+    phi = 2.0 * np.pi * (np.arange(width) + 0.5) / width
+    t = np.clip(theta / (np.pi / 2), 0.0, 1.0)[:, None, None]
+    sky = (1.0 - t) * np.array([0.25, 0.45, 1.0]) + t * np.array([0.9, 0.95, 1.0])
+    sky = np.where((theta > np.pi / 2)[:, None, None], np.array([0.3, 0.25, 0.2]), sky)
+    sky = np.broadcast_to(sky, (height, width, 3)).copy()
+    # the envlight convention: (theta, phi) -> (cos(phi - pi) sin(theta), cos(theta), -sin(phi - pi) sin(theta))
+    st = np.sin(theta)[:, None]
+    dirs = np.stack(np.broadcast_arrays(np.cos(phi - np.pi)[None, :] * st, np.cos(theta)[:, None],
+                                        -np.sin(phi - np.pi)[None, :] * st), axis=-1)
+    sun = np.array([0.45, 0.75, -0.48])
+    sky[dirs @ (sun / np.linalg.norm(sun)) > np.cos(np.radians(2.0))] = peak
+    return sky.astype(np.float32)
+
+
+def miss_share(renderer, cell=None) -> float:
+    """Share of the pixel-centre camera rays of ``cell`` (x0, y0, width, height; the film by default)
+    that miss the scene."""
+    import numpy as np
+    import torch
+
+    from lens_flare_tpu_torch.integrator.path import trace_closest
+    from lens_flare_tpu_torch.scene.camera import camera_params, generate_rays
+
+    w, h = renderer.width, renderer.height
+    x0, y0, dx, dy = cell or (0, 0, w, h)
+    ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
+    dev = torch.device(renderer.device)
+    cam = camera_params(renderer.camera, dev)
+    o, d = generate_rays(cam, torch.as_tensor((xs.ravel() + 0.5) / w, dtype=torch.float32, device=dev),
+                         torch.as_tensor((ys.ravel() + 0.5) / h, dtype=torch.float32, device=dev))
+    n = o.shape[0]
+    hit, _ = trace_closest(renderer.bundle, o.contiguous(), d.contiguous(), cam.n_clip.expand(n).contiguous(),
+                           cam.f_clip.expand(n).contiguous())
+    return 1.0 - hit.hit.double().mean().item()
+
+
+def diff_case(path, device, width, height, n_samples, depth, cell=None, aim=False, back=0.0, **renderer_kw):
     """``render_image``'s inputs for a COLLADA file on ``device``: the renderer (``r``) and its bundle,
     settings, camera, the pixels of ``cell`` (x0, y0, width, height; the whole film by default), a key
-    and a loss window.  ``aim``: the camera on the emitter (``aim_at_emitter``)."""
+    and a loss window.  ``aim``: the camera on the emitter (``aim_at_emitter``); ``back``: the camera
+    pulled back (``pull_back``), so that more rays miss."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -393,13 +457,15 @@ def diff_case(path, device, width, height, n_samples, depth, cell=None, aim=Fals
     r.load(path)
     if aim:
         aim_at_emitter(r)
+    if back:
+        pull_back(r.camera, back)
     x0, y0, dx, dy = cell or (0, 0, width, height)
     ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
     window = np.random.default_rng(11).uniform(size=(dx * dy, 3)).astype(np.float32)
     dev = torch.device(device)
     return SimpleNamespace(
         r=r, bundle=r.bundle, cam=camera_params(r.camera, dev), width=width, height=height, n=n_samples,
-        settings=make_settings(r.scene.lights, bsdf_table=r.scene.bsdfs, ns_aa=n_samples, max_ray_depth=depth,
+        settings=make_settings(r.light_table(), bsdf_table=r.scene.bsdfs, ns_aa=n_samples, max_ray_depth=depth,
                                indirect=depth > 1, samples_per_batch=n_samples, max_tolerance=0.0),
         px=torch.as_tensor(xs.ravel(), device=dev), py=torch.as_tensor(ys.ravel(), device=dev),
         key=_rng.prng_key(3, device=dev), window=torch.as_tensor(window, device=dev),
@@ -430,14 +496,15 @@ def diff_render(c, bundle):
 
 def diff_grads(c, params):
     """(image, {name: gradient of sum(window * image) in the row}, forward s, backward s) of a ``diff_case``,
-    each row of ``params`` (``{name: (group, field, row)}``) made a leaf."""
+    each row of ``params`` (``{name: (group, field, row)}``; row None: the whole table) made a leaf."""
     import torch
 
     from lens_flare_tpu_torch.diff.render import replace_row
 
     bundle, leaves = c.bundle, {}
     for name, (group, field, row) in params.items():
-        leaves[name] = getattr(getattr(bundle, group), field)[row].detach().clone().requires_grad_(True)
+        table = getattr(getattr(bundle, group), field)
+        leaves[name] = (table if row is None else table[row]).detach().clone().requires_grad_(True)
         bundle = replace_row(bundle, group, field, row, leaves[name])
     t_f = time.perf_counter()
     image = diff_render(c, bundle)
@@ -1214,7 +1281,167 @@ def main() -> int:
         report[name] = f"resumed_at={at},bit_equal=True,launches={rr_launches[kernels[0]]}+{rr_launches[kernels[1]]}"
     phase("render_resume", t0, **report)
 
-    # -- 16. results -------------------------------------------------------
+    # -- 16. env_small: terrain 8 under a sky through the command line (C, A)
+    from lens_flare_tpu_torch.integrator.envlight import build_env
+    from lens_flare_tpu_torch.integrator.lights import LT_ENV
+    from lens_flare_tpu_torch.utils import exr
+
+    t0 = time.perf_counter()
+    env_file = terrain_dae(8).write(build_dir / "terrain8.dae")
+    small_sky = build_dir / "sky_512x256.exr"
+    exr.write(small_sky, sky_map(512, 256), pixel_type=exr.PIXELTYPE_HALF)
+    sky_small = exr.read(small_sky)
+    # the camera pulled back, as a camera settings file (-c)
+    rcam = Renderer(device="cpu", width=320, height=240)
+    rcam.load(env_file)
+    pull_back(rcam.camera, 0.2)
+    cam_file = build_dir / "terrain8_back.cam"
+    rcam.camera.dump_settings(cam_file)
+    env_png = build_dir / "terrain8_sky_320x240.png"
+    ic.reset_launch_counts()
+    cli_s, out = run_cli(["-r", "320", "240", "-s", "16", "-m", "5", "-e", str(small_sky), "-c", str(cam_file),
+                          "-f", str(env_png), "--device", "cuda", str(env_file)])
+    torch.cuda.synchronize()
+    es_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert es_launches["C"] > 0 and es_launches["A"] > 0, f"env_small skipped C or A: {es_launches}"
+    assert f"Loading environment map {small_sky}" in out
+    render_s, es_rays, _, _ = cli_numbers(out)
+    # the same frame through Renderer.load: its PNG is the command line's, and
+    # a cell where terrain meets sky agrees with the CPU render of the file
+    kw = dict(width=320, height=240, ns_aa=16, max_ray_depth=5, indirect=True, seed=0, envmap=sky_small,
+              camera_settings=str(cam_file))
+    rg = Renderer(device="cuda", **kw)
+    rg.load(env_file)
+    assert int(rg.bundle.lights.light_type[-1]) == LT_ENV and rg.bundle.env is not None
+    hdr_env, _ = rg.render(progress=False)
+    want_px = np.clip(np.round(img.to_color(hdr_env.cpu().numpy())[::-1] * 255.0), 0, 255).astype(np.uint8)
+    assert np.array_equal(load_png(env_png), want_px), "the PNG is not the frame's"
+    cell = (64, 84, 96, 72)
+    sky_share = miss_share(rg)
+    cell_sky_share = miss_share(rg, cell)
+    assert 0.2 <= sky_share <= 0.9 and 0.1 <= cell_sky_share <= 0.9, (sky_share, cell_sky_share)
+    rcpu = Renderer(device="cpu", **kw)
+    rcpu.load(env_file)
+    want, _ = rcpu.render(cell=cell, progress=False)
+    x0, y0, dx, dy = cell
+    got = hdr_env.cpu().double()[y0 : y0 + dy, x0 : x0 + dx]
+    want = want.double()[y0 : y0 + dy, x0 : x0 + dx]
+    ok = ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(dim=-1).double().mean().item()
+    rel = ((got - want).abs().sum() / want.abs().sum()).item()
+    assert torch.isfinite(got).all() and got.sum() > 0 and ok >= 0.99 and rel < 1e-3, (ok, rel)
+    phase("env_small", t0, tris=rg.scene.num_triangles, sky="512x256 HALF ZIP", width=320, height=240, spp=16,
+          depth=5, sky_share=f"{sky_share:.4f}", cli_s=f"{cli_s:.4f}", render_s=f"{render_s:.4f}",
+          rays_traced=es_rays, cell=json.dumps(cell), cell_sky_share=f"{cell_sky_share:.4f}",
+          cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}", launches=json.dumps(es_launches),
+          png=env_png.name)
+    del rcam, rg, rcpu
+
+    # -- 17. env_1080p: terrain 256 under a 4096x2048 HALF ZIP sky, with the flare (D, B)
+    t0 = time.perf_counter()
+    big_sky = build_dir / "sky_4096x2048.exr"
+    t_write = time.perf_counter()
+    exr.write(big_sky, sky_map(4096, 2048), compression=exr.COMPRESSION_ZIP, pixel_type=exr.PIXELTYPE_HALF)
+    write_s = time.perf_counter() - t_write
+    t_read = time.perf_counter()
+    sky_big = exr.read(big_sky)
+    read_s = time.perf_counter() - t_read
+    assert sky_big.shape == (2048, 4096, 3) and sky_big.max() == 6e4
+    torch.cuda.synchronize()
+    t_env = time.perf_counter()
+    env_big = build_env(sky_big, "cuda")
+    torch.cuda.synchronize()
+    build_env_s = time.perf_counter() - t_env
+    del env_big
+    env_big_png = build_dir / "terrain256_sky_1080p.png"
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ic.reset_launch_counts()
+    cli_s, out = run_cli(["-r", "1920", "1080", "-s", "1", "-m", "4", "-x", str(ap_png), "-y", str(ghost_png),
+                          "-i", "1.5", "-n", "30", "-e", str(big_sky), "-f", str(env_big_png), "--device", "cuda",
+                          str(terrain_file)])
+    torch.cuda.synchronize()
+    peak_env = (torch.cuda.max_memory_allocated() - mem0) / 2**20  # above what the phase started with
+    eb_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert eb_launches["D"] > 0 and eb_launches["B"] > 0, f"env_1080p skipped D or B: {eb_launches}"
+    env_frame_s, eb_rays, load_s, _ = cli_numbers(out)
+    sky_frame = load_png(env_big_png)
+    # the sky lights the frame: brighter than dae_1080p's frame of the same file without it
+    dark_mean = load_png(big_png).mean()
+    assert sky_frame.shape == (1080, 1920, 3) and sky_frame.mean() > dark_mean + 5, (sky_frame.mean(), dark_mean)
+    phase("env_1080p", t0, tris=131072, sky="4096x2048 HALF ZIP", width=1920, height=1080, spp=1, depth=4,
+          flare="on", exr_write_s=f"{write_s:.4f}", exr_read_s=f"{read_s:.4f}", build_env_s=f"{build_env_s:.4f}",
+          parse_build_s=f"{load_s:.4f}", frame_s=f"{env_frame_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=eb_rays,
+          mrays_traced_per_s=f"{eb_rays / env_frame_s / 1e6:.3f}", peak_device_mib=f"{peak_env:.1f}",
+          png_mean=f"{sky_frame.mean():.3f}", png_mean_without_sky=f"{dark_mean:.3f}",
+          launches=json.dumps(eb_launches), png=env_big_png.name)
+    # where the sky's time goes: the same render with and without it, untraced and then under torch.profiler
+    profiles = {}
+    for name, env_map in (("sky", sky_big), ("no_sky", None)):
+        rp = Renderer(device="cuda", width=1920, height=1080, max_ray_depth=4, indirect=True, envmap=env_map)
+        rp.load(terrain_file)
+        profiles[name] = frame_profile(lambda: rp.render(progress=False))
+    print("[env_1080p_profile] " + " ".join(
+        f"{name}:frame_s={p['frame_s']:.4f},traced_s={p['traced_s']:.4f},device_kernel_ms={p['kernel_ms']:.3f},"
+        f"kernel_launches={p['kernel_launches']},busy_share={p['busy_share_traced']:.4f},"
+        f"D_ms={p['D_ms']:.3f},B_ms={p['B_ms']:.3f},"
+        f"top_kernels={json.dumps([[n[:60], round(ms, 3), c] for n, ms, c in p['top_kernels'][:5]])}"
+        for name, p in profiles.items()), flush=True)
+    del sky_big, rp
+
+    # -- 18. env_diff: the texel gradient of a 512x512 cell (A, C), against the CPU and a central difference
+    t0 = time.perf_counter()
+    cell = (400, (1080 - 512) // 2, 512, 512)  # left of the terrain's centre: part terrain, part sky
+    texels = {"texels": ("env", "data", None)}
+    denv = diff_case(env_file, "cuda", 1920, 1080, 1, 2, cell=cell, back=0.2, envmap=sky_small)
+    cell_sky_share = miss_share(denv.r, cell)
+    assert 0.2 <= cell_sky_share <= 0.8, cell_sky_share
+    diff_grads(denv, texels)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ic.reset_launch_counts()
+    img_envd, g_envd, fwd_s, bwd_s = diff_grads(denv, texels)
+    ed_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert ed_launches["A"] > 0 and ed_launches["C"] > 0, f"env_diff skipped A or C: {ed_launches}"
+    peak_envd = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    g = g_envd["texels"]
+    assert img_envd.shape == (512 * 512, 3) and torch.isfinite(img_envd).all() and torch.isfinite(g).all()
+    texels_reached = int((g != 0).any(dim=-1).sum())
+    assert texels_reached > 0 and g.norm() > 0
+    dcpu_env = diff_case(env_file, "cpu", 1920, 1080, 1, 2, cell=cell, back=0.2, envmap=sky_small)
+    img_cpu, g_cpu, _, _ = diff_grads(dcpu_env, texels)
+    env_img_err = max_rel(img_envd, img_cpu)
+    env_grad_err = max_rel(g, g_cpu["texels"])
+    # a miss pixel's lookup moves by an ulp of arctan2 (arccos) times W / 2 pi (H / pi) texels, which
+    # at the sun disk's edge (6e4 next to ~1) is up to 6e4 times that: every pixel is held to 1e-4 of
+    # its value (+1e-5) plus two such ulps of each angle, all but 0.1% of them without that term,
+    # and the gradient to 1e-4 of its peak
+    sky_h, sky_w = sky_small.shape[:2]
+    lookup_ulps = 2 * float(sky_small.max()) * (sky_w / (2 * np.pi) * np.spacing(np.float32(2 * np.pi))
+                                                + sky_h / np.pi * np.spacing(np.float32(np.pi)))
+    pix_err = (img_envd.cpu().double() - img_cpu.double()).abs()
+    pix_tol = 1e-4 * img_cpu.double().abs() + 1e-5
+    beyond = int((pix_err > pix_tol).any(dim=-1).sum())
+    assert bool((pix_err <= pix_tol + lookup_ulps).all()) and beyond <= 1e-3 * pix_err.shape[0], (
+        env_img_err, beyond, lookup_ulps)
+    assert env_grad_err <= 1e-4, env_grad_err
+    # a central difference along the gradient: the image is linear in the texels
+    with torch.no_grad():
+        step = 0.05 * g / g.norm()
+        hi, lo = (torch.sum(denv.window * diff_render(denv, dr.set_env_texels(denv.bundle, denv.bundle.env.data + v)))
+                  for v in (step, -step))
+        fd = ((hi - lo) / (2 * 0.05)).item()
+    env_fd_err = abs(fd - g.norm().item()) / g.norm().item()
+    assert env_fd_err <= 1e-4, env_fd_err
+    phase("env_diff", t0, tris=denv.r.scene.num_triangles, sky="512x256", frame="1920x1080", cell=json.dumps(cell),
+          lanes=512 * 512, cell_sky_share=f"{cell_sky_share:.4f}", spp=1, depth=2, forward_s=f"{fwd_s:.4f}", backward_s=f"{bwd_s:.4f}",
+          peak_device_mib=f"{peak_envd:.1f}", texels_reached=texels_reached,
+          image_vs_cpu_maxrel=f"{env_img_err:.3g}", pixels_beyond_1e4_rel=beyond, lookup_ulps_abs=f"{lookup_ulps:.3g}",
+          grad_vs_cpu_maxrel=f"{env_grad_err:.3g}",
+          fd_along_grad_relerr=f"{env_fd_err:.3g}", launches=json.dumps(ed_launches))
+    del denv, dcpu_env, img_cpu, g_cpu
+
+    # -- 19. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

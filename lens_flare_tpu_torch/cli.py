@@ -7,10 +7,11 @@ runs on the CUDA card unless ``--device cpu`` asks for the CPU.  Example::
     python -m lens_flare_tpu_torch.cli -s 16 -m 5 -r 480 360 -f out.png \\
         -x aperture.png -y ghost.png -i 1.5 -n 30 scene.dae
 
-Flags whose features are not ported yet raise NotImplementedError naming
-their ROADMAP Queue 1 item: ``-e`` (item 4), ``--lens-model realistic``
-(item 7), ``--upsample`` and ``--view`` (item 10), and ``--devices`` or
-``-t`` above 1 (item 9).  ``--trace DIR`` writes a ``torch.profiler``
+``-e sky.exr`` lights the scene with an equirect environment map read by
+the port's ``utils/exr.py``.  Flags whose features are not ported yet
+raise NotImplementedError naming their ROADMAP Queue 1 item:
+``--lens-model realistic`` (item 7), ``--upsample`` and ``--view`` (item
+10), and ``--devices`` or ``-t`` above 1 (item 9).  ``--trace DIR`` writes a ``torch.profiler``
 Chrome trace of the render to ``DIR/trace.json``.
 """
 
@@ -32,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", type=int, default=1, dest="ns_area_light", help="samples per area light")
     p.add_argument("-t", type=int, default=0, dest="num_threads", help="rendering devices, as --devices (1 only)")
     p.add_argument("-m", type=int, default=1, dest="max_ray_depth", help="maximum ray depth")
-    p.add_argument("-e", dest="envmap", default=None, help="environment map (.exr); not ported yet")
+    p.add_argument("-e", dest="envmap", default=None, help="environment map (.exr)")
     p.add_argument("-b", type=float, default=0.0, dest="lens_radius", help="aperture (lens) radius")
     p.add_argument("-d", type=float, default=0.0, dest="focal_distance", help="focal distance")
     p.add_argument("-a", nargs=2, default=None, metavar=("BATCH", "TOL"), help="adaptive sampling: samples per batch + tolerance")
@@ -65,7 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Raise for a flag whose feature the port does not have yet, naming its ROADMAP item."""
     refused = [
-        (args.envmap, "-e (environment maps)", 4),
         (args.lens_model == "realistic", "--lens-model realistic", 7),
         (args.upsample > 0, "--upsample", 10),
         (args.view, "--view", 10),
@@ -82,6 +82,13 @@ def main(argv=None) -> int:
 
     from .renderer import Renderer
 
+    envmap = None
+    if args.envmap:
+        from .utils import exr
+
+        print(f"[PathTracer] Loading environment map {args.envmap}")
+        envmap = exr.read(args.envmap)
+
     spb, tol = (64, 0.05)
     if args.a is not None:
         spb, tol = int(args.a[0]), float(args.a[1])
@@ -97,6 +104,7 @@ def main(argv=None) -> int:
         indirect=args.indirect or args.max_ray_depth > 1,
         lens_radius=args.lens_radius,
         focal_distance=args.focal_distance,
+        envmap=envmap,
         aperture_path=args.aperture,
         ghost_aperture_path=args.ghost_aperture,
         bokeh_path=args.bokeh,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .integrator.envlight import EnvLightArrays
 from .integrator.lights import LightArrays
 from .integrator.path import BokehMask, SceneBundle
 from .integrator.shading import BSDFArrays
@@ -43,6 +44,11 @@ def scene_bundle_from_numpy(scene, bsdfs, lights, cscene: CudaScene, device="cpu
         cscene=cscene,
         bokeh=None if bokeh is None else bokeh_mask_from_numpy(bokeh, device),
     )
+
+
+def env_from_numpy(env, device="cpu") -> EnvLightArrays:
+    """The port's EnvLightArrays from the fields of a JAX one: its map and its three float32 tables."""
+    return _fields(env, EnvLightArrays, device)
 
 
 def bokeh_mask_from_numpy(bokeh, device="cpu") -> BokehMask:

@@ -2,13 +2,16 @@
 
 Counterpart of ``lens_flare_tpu/diff/render.py``.  Autograd of a rendered
 image with respect to scene parameters (emitter radiance, albedos, light
-radiance) runs through the whole wavefront integrator, with the trace
+radiance, environment-map texels) runs through the whole wavefront integrator, with the trace
 detached: the hits are constants of the backward pass
 (:func:`lens_flare_tpu_torch.integrator.path.trace_closest`), so the CUDA
 kernels run forward only, as the JAX package keeps its Pallas call out of
 the backward pass.  The hit structure is piecewise constant in radiometric
 parameters, so the detached gradient of the fixed-RNG estimator is exact
-(``tests/test_torch_diff.py`` checks it by central differences).
+(``tests/test_torch_diff.py`` checks it by central differences).  The
+environment map's CDF tables are host constants, as in the JAX package:
+a texel's gradient comes through the radiance the miss lookup and the
+environment light's NEE samples read, not through where they sample.
 
 :func:`recover_emitter` recovers an emitter's colour (its BSDF radiance row
 and its NEE light-table row) from a target render with Adam.
@@ -22,16 +25,27 @@ from .. import _rng
 from ..integrator.path import RenderSettings, SceneBundle, render_batch
 
 
-def replace_row(bundle: SceneBundle, group: str, field: str, row: int, value) -> SceneBundle:
+def replace_row(bundle: SceneBundle, group: str, field: str, row: int | None, value) -> SceneBundle:
     """``bundle`` with row ``row`` of ``bundle.<group>.<field>`` set to ``value``, out of place.
 
     The bundle's tensors are not written, and autograd sees ``value``: the
-    ``.at[row].set`` of the JAX package.
+    ``.at[row].set`` of the JAX package.  ``row=None`` replaces the whole table.
     """
     g = getattr(bundle, group)
     table = getattr(g, field)
-    mask = (torch.arange(table.shape[0], device=table.device) == row)[:, None]
-    return bundle._replace(**{group: g._replace(**{field: torch.where(mask, value, table)})})
+    if row is not None:
+        mask = (torch.arange(table.shape[0], device=table.device) == row)[:, None]
+        value = torch.where(mask, value, table)
+    return bundle._replace(**{group: g._replace(**{field: value})})
+
+
+def set_env_texels(bundle: SceneBundle, data) -> SceneBundle:
+    """``bundle`` with its environment map's (H, W, 3) texels replaced by ``data``, out of place.
+
+    The CDF tables stay those of the original map, as when the JAX package
+    swaps ``env.data`` (``tests/test_diff_render.py:184``).
+    """
+    return replace_row(bundle, "env", "data", None, data)
 
 
 def set_emitter_color(bundle: SceneBundle, bsdf_row: int, light_row: int, color) -> SceneBundle:

@@ -3,9 +3,9 @@
 Counterpart of ``lens_flare_tpu/integrator/lights.py``: ``LightArrays``,
 ``lights_to_device``, the generic per-lane :func:`sample_light` (``:82``)
 and the per-slot :func:`sample_light_static` (``:252``), over the
-directional, point, spot, area, hemisphere, sphere and mesh lights.  The
-environment light (``LT_ENV``) is refused: the environment map, its CDF
-tables and ``utils/exr.py`` are not ported yet (ROADMAP Queue 1, item 4).
+directional, point, spot, area, hemisphere, sphere and mesh lights, and
+the environment light (``LT_ENV``), whose rows sample the map's CDF tables
+(:mod:`lens_flare_tpu_torch.integrator.envlight`) at distance ``INF``.
 """
 
 from __future__ import annotations
@@ -25,10 +25,10 @@ from ..scene.build import (
     LT_SPHERE,
     LT_SPOT,
 )
+from .envlight import INF, sample_env
 from .shading import cross, dot3, norm3
 
 LT_ENV = 4
-INF = 1e30
 
 
 class LightArrays(NamedTuple):
@@ -54,11 +54,9 @@ class LightSample(NamedTuple):
     pdf: torch.Tensor  # (N,)
 
 
-def refuse_env(types) -> None:
-    if LT_ENV in {int(t) for t in types}:
-        raise NotImplementedError(
-            "the environment light (LT_ENV) is not ported yet (ROADMAP Queue 1, item 4)"
-        )
+def _need_env(env) -> None:
+    if env is None:
+        raise ValueError("an LT_ENV light row samples the environment map: pass its EnvLightArrays as env=")
 
 
 def lights_to_device(table, device) -> LightArrays:
@@ -173,19 +171,19 @@ def _mesh(lights: LightArrays, mine, area, p, u):
     return wi, dist, pdf
 
 
-def sample_light(lights: LightArrays, li, p, u, types_present=None) -> LightSample:
+def sample_light(lights: LightArrays, li, p, u, env=None, types_present=None) -> LightSample:
     """sample_L for a batch of light rows li (N,) at points p (N, 3) with uniforms u (N, 2).
 
     Every family present is computed for every lane and selected by the
     row's type; ``types_present`` (the LT_* codes of the table) leaves out
-    the others.  Rows of type LT_ENV are refused.
+    the others.  ``env``: the EnvLightArrays that rows of type LT_ENV sample.
     """
 
     def has(code):
         return types_present is None or code in types_present
 
-    if types_present is not None:
-        refuse_env(types_present)
+    if types_present is not None and LT_ENV in types_present:
+        _need_env(env)
     li = li.long()
     n = p.shape[0]
     lt = lights.light_type[li]
@@ -230,15 +228,22 @@ def sample_light(lights: LightArrays, li, p, u, types_present=None) -> LightSamp
         wi = torch.where(is_mesh[:, None], wi_m, wi)
         dist = torch.where(is_mesh, dist_m, dist)
         pdf = torch.where(is_mesh, pdf_m, pdf)
+    if env is not None and has(LT_ENV):
+        es = sample_env(env, u)
+        is_env = lt == LT_ENV
+        wi = torch.where(is_env[:, None], es.wi, wi)
+        pdf = torch.where(is_env, es.pdf, pdf)
+        out_rad = torch.where(is_env[:, None], es.radiance, out_rad)
+        dist = torch.where(is_env, INF, dist)
     return LightSample(radiance=out_rad, wi=wi, dist=dist, pdf=pdf)
 
 
-def sample_light_static(lights: LightArrays, row: int, code: int, p: torch.Tensor, u: torch.Tensor) -> LightSample:
+def sample_light_static(lights: LightArrays, row: int, code: int, p: torch.Tensor, u: torch.Tensor, env=None) -> LightSample:
     """sample_L for one host-known light row of type ``code`` at points p (N, 3).
 
     The same formulas as :func:`sample_light`, on the row's values
     broadcast over the lanes.  Delta lights (directional, point, spot)
-    leave u unused.
+    leave u unused; an LT_ENV row samples ``env``.
     """
     n = p.shape[0]
     dev = p.device
@@ -269,5 +274,8 @@ def sample_light_static(lights: LightArrays, row: int, code: int, p: torch.Tenso
     if code == LT_MESH:
         mine = (lights.mesh_tri_light == row)[None, :]
         return LightSample(rad, *_mesh(lights, mine, lights.area[row], p, u))
-    refuse_env([code])
+    if code == LT_ENV:
+        _need_env(env)
+        es = sample_env(env, u)
+        return LightSample(es.radiance, es.wi, inf, es.pdf)
     raise ValueError(f"unknown light type code {code}")

@@ -8,10 +8,12 @@ tape lane for lane):
   (kernel D with its shading rows on shade scenes, else kernel A and the row
   gather; kernel G and the row gather on binary-BVH scenes) and hit
   finalization, with face-forward normals except on transmissive BSDFs;
-- next-event estimation over the static light-slot plan (or the generic
-  per-lane light sampler), one widened any-hit shadow wavefront per vertex
+- next-event estimation over the static light-slot plan, the environment
+  light's slots included, one widened any-hit shadow wavefront per vertex
   (``direct_lighting``, ``:430-577``), or the uniform-hemisphere estimator
   of ``-H`` (``_direct_hemisphere``, ``:580-630``);
+- the environment map looked up where a camera ray misses
+  (``path.py:671-675``);
 - Russian-roulette indirect bounces (``_indirect``, ``:704-826``) with the
   emission picked up through delta lobes, and no bounce sorting or
   compaction (both are off by default in the reference);
@@ -19,10 +21,8 @@ tape lane for lane):
   ``render_batch``, the building block of the Renderer's host-repacked
   adaptive render.
 
-Every BSDF family and light type of the JAX package is ported except the
-environment light, which ``make_settings`` refuses (ROADMAP Queue 1, item
-4).  PyTorch runs eagerly: the bounce ``scan`` and the sample loops are
-Python loops.
+Every BSDF family and light type of the JAX package is ported.  PyTorch
+runs eagerly: the bounce ``scan`` and the sample loops are Python loops.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ from ..ops.intersect import SceneArrays, finalize_hit
 from ..ops.intersect_cuda import BvhArrays, CudaScene, bvh_walk, intersect
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
 from ..scene.collada import BSDF_DIFFUSE, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
-from .lights import LightArrays, LightSample, refuse_env, sample_light_static
+from .envlight import EnvLightArrays, sample_dir
+from .lights import LightArrays, LightSample, sample_light_static
 from .shading import (
     BSDFArrays,
     eval_f,
@@ -82,10 +83,9 @@ def make_settings(light_table, ns_aa=1, max_ray_depth=1, ns_area_light=1, bsdf_t
 
     The scene's light types and BSDF families specialize the sampling; a
     caller's stale ``light_types`` or ``bsdf_families`` that misses a code in
-    the tables raises a ValueError.  The environment light raises
-    NotImplementedError (ROADMAP Queue 1, item 4).
+    the tables raises a ValueError.  An environment-light row is not delta,
+    so it gets ``ns_area_light`` slots.
     """
-    refuse_env(light_table.light_type)
     slots = []
     for li in range(len(light_table.light_type)):
         slots.extend([li] * (1 if light_table.is_delta[li] else ns_area_light))
@@ -162,6 +162,7 @@ class SceneBundle(NamedTuple):
     cscene: CudaScene | None  # cluster tree for kernels A-D (None: the binary BVH)
     bokeh: BokehMask | None = None  # aperture-shaped depth of field
     bvh: BvhArrays | None = None  # binary BVH for kernel G, when there is no cluster tree
+    env: EnvLightArrays | None = None  # environment map: LT_ENV rows and the camera-miss lookup
 
 
 def _offset_origin(p, n, w):
@@ -283,7 +284,7 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
         return x.repeat((n_slots,) + (1,) * (x.dim() - 1))
 
     parts = [
-        sample_light_static(bundle.lights, row, code, hit_p, u_tape[:, 2 * s : 2 * s + 2])
+        sample_light_static(bundle.lights, row, code, hit_p, u_tape[:, 2 * s : 2 * s + 2], env=bundle.env)
         for s, (row, code) in enumerate(zip(settings.light_slots, settings.light_slot_types))
     ]
     ls_rad, ls_wi, ls_dist, ls_pdf = (torch.cat([getattr(x, f) for x in parts]) for f in LightSample._fields)
@@ -414,8 +415,10 @@ def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraPa
         )
         L = L + Li
         stats = stats + st
-    # a miss sees no environment in this slice: radiance 0
-    L = torch.where(hit.hit[:, None], L, 0.0)
+    # a camera ray that misses sees the environment (pathtracer.cpp:290-292);
+    # padding lanes (t_hi = 0) miss too, and their radiance is discarded
+    L_miss = sample_dir(bundle.env, d) if bundle.env is not None else 0.0
+    L = torch.where(hit.hit[:, None], L, L_miss)
     return L, stats
 
 

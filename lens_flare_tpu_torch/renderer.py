@@ -9,15 +9,18 @@ on a CUDA device (their plain PyTorch versions on the CPU): the cluster
 tree's kernels A-D, or kernel G's binary-BVH walk past the tree's capacity
 or when ``use_wide_tree`` is False.  With ``ns_aa > samples_per_batch`` the
 render is adaptive: converged pixels leave the wavefront between stages and
-the active set is repacked.  ``render(checkpoint_path=)`` persists the
-film after each tile (the adaptive render: its accumulators and active set
-after each stage) with a fingerprint of the render, and an interrupted
-render resumes from it.  Not ported yet: env maps (ROADMAP Queue 1, item
-4) and multi-device rendering (item 9).
+the active set is repacked.  ``envmap`` (an (H, W, 3) radiance array, e.g.
+from ``utils/exr.read``) lights the scene from an equirect environment
+map: NEE samples it as one more light and camera rays that miss see it.
+``render(checkpoint_path=)`` persists the film after each tile (the
+adaptive render: its accumulators and active set after each stage) with a
+fingerprint of the render, and an interrupted render resumes from it.  Not
+ported yet: multi-device rendering (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import math
 import os
@@ -33,7 +36,8 @@ import torch
 from . import _rng
 from .accel.bvh import build_bvh
 from .accel.wide import build_wide_bvh, takes_wide_tree
-from .integrator.lights import lights_to_device
+from .integrator.envlight import build_env
+from .integrator.lights import LT_ENV, lights_to_device
 from .integrator.path import (
     BokehMask,
     RenderSettings,
@@ -94,6 +98,7 @@ class Renderer:
     indirect: bool = True
     lens_radius: float = 0.0  # > 0: thin-lens camera
     focal_distance: float = 0.0
+    envmap: np.ndarray | None = None  # (H, W, 3) equirect radiance
     aperture_path: str | None = None
     ghost_aperture_path: str | None = None
     bokeh_path: str | None = None  # aperture-shaped depth of field (config 2)
@@ -180,16 +185,35 @@ class Renderer:
         self.bundle = SceneBundle(
             scene=scene_to_device(self.scene, dev),
             bsdfs=bsdf_to_device(self.scene.bsdfs, dev),
-            lights=lights_to_device(self.scene.lights, dev),
+            lights=lights_to_device(self.light_table(), dev),
             cscene=cscene,
             bokeh=bokeh,
             bvh=bvh,
+            env=None if self.envmap is None else build_env(self.envmap, dev),
         )
+
+    def light_table(self):
+        """The scene's light table, with an LT_ENV row appended when there is an ``envmap``.
+
+        The row goes on a copy (``renderer.py:145-160``): the scene's own
+        table is left as it is, so a second ``_build`` adds no second row.
+        """
+        lt = self.scene.lights
+        if self.envmap is None:
+            return lt
+        lt = copy.deepcopy(lt)
+        zero = np.zeros(3, np.float32)
+        lt.light_type = np.append(lt.light_type, LT_ENV).astype(np.int32)
+        for name in ("radiance", "position", "direction", "dim_x", "dim_y"):
+            setattr(lt, name, np.vstack([getattr(lt, name), zero]))
+        lt.area = np.append(lt.area, 0.0).astype(np.float32)
+        lt.is_delta = np.append(lt.is_delta, False)
+        return lt
 
     def update_settings(self) -> None:
         """Rebuild the RenderSettings from the current knobs (host only)."""
         self.settings = make_settings(
-            self.scene.lights,
+            self.light_table(),
             bsdf_table=self.scene.bsdfs,
             ns_aa=self.ns_aa,
             max_ray_depth=self.max_ray_depth,
@@ -206,7 +230,8 @@ class Renderer:
 
         A checkpoint resumes only into a render of the same scene, camera,
         film, cell, seed and sampling plan: the hash covers everything that
-        changes a pixel's estimate, the light and BSDF tables included.
+        changes a pixel's estimate, the light and BSDF tables and the
+        environment map included.
         """
         parts = [
             self.seed, self.width, self.height, cell, self.ns_aa,
@@ -225,6 +250,8 @@ class Renderer:
             for group in (self.bundle.lights, self.bundle.bsdfs):
                 for leaf in group:
                     h.update(leaf.detach().cpu().numpy().tobytes())
+            if self.bundle.env is not None:
+                h.update(self.bundle.env.data.detach().cpu().numpy().tobytes())
         return h.hexdigest()
 
     @staticmethod

@@ -1,8 +1,8 @@
 """Every BSDF family and light type of the port against the JAX package's, on the same inputs.
 
 Material and light tables are built in code (every family, every light
-type but the environment light, which the port refuses), directions and
-uniforms come from numpy seeds, and the JAX functions (``eval_f``,
+type but the environment light, which ``tests/test_torch_envlight.py``
+holds to the JAX package), directions and uniforms come from numpy seeds, and the JAX functions (``eval_f``,
 ``sample_f``, ``sample_light``, ``sample_light_static``) and the port's
 run on the same arrays.  Tolerance: rtol 1e-5, atol 1e-6 on every float
 output (XLA:CPU and ATen differ in the last ulps of exp, tan, acos and
@@ -189,13 +189,18 @@ def test_sample_light_matches_jax(present):
 
 
 def test_environment_light_is_refused():
+    """An LT_ENV row is refused only without its map; ``make_settings`` plans it like an area light."""
     table = _light_table(build)
     t_arr = lights.lights_to_device(table, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
+    with pytest.raises(ValueError, match="environment map"):
         lights.sample_light_static(t_arr, 0, lights.LT_ENV, torch.zeros(4, 3), torch.zeros(4, 2))
+    with pytest.raises(ValueError, match="environment map"):
+        lights.sample_light(t_arr, torch.zeros(4, dtype=torch.int32), torch.zeros(4, 3), torch.zeros(4, 2),
+                            types_present=(lights.LT_ENV,))
     table.light_type[0] = lights.LT_ENV
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
-        make_settings(table)
+    table.is_delta[0] = False
+    settings = make_settings(table, ns_area_light=3)
+    assert settings.light_slots[:3] == (0, 0, 0) and settings.light_slot_types[:3] == (lights.LT_ENV,) * 3
 
 
 def test_stale_specialization_is_refused():

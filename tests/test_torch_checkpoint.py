@@ -7,7 +7,8 @@ interrupted here by making the wavefront call raise after some calls, as a
 crash would; the next render with the same file resumes from it.  Every
 comparison is exact: the resumed tiles and stages run the same samples on
 the same inputs.  A file from another render (another seed or light) or
-an unreadable one is not merged into the film.  The card's case
+an unreadable one is not merged into the film, nor is one of a render
+under another environment map.  The card's case
 (``-m gpu``) runs the same interruptions through the CUDA kernels.
 """
 
@@ -41,9 +42,10 @@ class Interrupted(Exception):
     pass
 
 
-def make(mode, device="cpu", seed=0):
+def make(mode, device="cpu", seed=0, envmap=None):
     kw = {k: v for k, v in MODES[mode].items() if k not in ("call", "stop_after")}
-    r = Renderer(width=24, height=20, max_ray_depth=3, tile_pixels=128, seed=seed, device=device, **kw)
+    r = Renderer(width=24, height=20, max_ray_depth=3, tile_pixels=128, seed=seed, device=device, envmap=envmap,
+                 **kw)
     r.load_flat_scene(make_terrain_scene(8))
     return r
 
@@ -65,11 +67,11 @@ def interrupt(monkeypatch, mode, after=None):
     return calls
 
 
-def run_interrupted(mode, path, monkeypatch, device="cpu"):
+def run_interrupted(mode, path, monkeypatch, device="cpu", envmap=None):
     with monkeypatch.context() as m:
         interrupt(m, mode)
         with pytest.raises(Interrupted):
-            make(mode, device).render(progress=False, checkpoint_path=path)
+            make(mode, device, envmap=envmap).render(progress=False, checkpoint_path=path)
 
 
 @pytest.fixture(scope="module", params=list(MODES))
@@ -121,6 +123,27 @@ def test_foreign_checkpoint_is_rejected(full, tmp_path, monkeypatch):
     other = make(mode, seed=2)
     want, want_counts = make(mode, seed=2).render(progress=False)
     got, got_counts = other.render(progress=False, checkpoint_path=path)
+    assert not (got == 7.0).any()
+    assert torch.equal(got, want) and torch.equal(got_counts, want_counts)
+
+
+def test_checkpoint_under_another_sky_is_rejected(full, tmp_path, monkeypatch):
+    """A checkpoint of a render under one environment map does not resume under another: the film
+    marked in the file never shows, and the render equals the uninterrupted one under the new sky."""
+    mode = full[0]
+    sky = np.broadcast_to(np.linspace(1.5, 0.2, 8, dtype=np.float32)[:, None, None], (8, 16, 3)).copy()
+    other_sky = sky.copy()
+    other_sky[2, 5] += 0.5  # one texel
+    path = tmp_path / "ck.npz"
+    run_interrupted(mode, path, monkeypatch, envmap=sky)
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    data["film"] = data["film"] * 0 + 7.0
+    np.savez(path, **data)
+    r = make(mode, envmap=other_sky)
+    assert r._checkpoint_fingerprint(None) != make(mode, envmap=sky)._checkpoint_fingerprint(None)
+    want, want_counts = make(mode, envmap=other_sky).render(progress=False)
+    got, got_counts = r.render(progress=False, checkpoint_path=path)
     assert not (got == 7.0).any()
     assert torch.equal(got, want) and torch.equal(got_counts, want_counts)
 

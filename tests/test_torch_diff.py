@@ -27,8 +27,17 @@ another order, which drifts by ulps per step.  On the card
 (``-m gpu``), the render and its gradients equal the CPU's to rtol 1e-4:
 the kernels give the plain versions' hits bit for bit, the shading math
 rounds in another order, and the gathers' backward adds with atomics.
+
+The environment map's texel gradient (``tests/test_diff_render.py:184``)
+is taken on an open terrain under an 8x16 sky: the image to rtol 1e-5
+(atol 1e-6), the gradient in every texel to rtol 1e-4 of ``jax.grad``'s
+(1.0e-5 read), with the same set of texels reached, and to rtol 1e-4 of a
+central difference (eps 0.05, as the JAX test) at the largest texel
+(4.5e-6 read): the image is linear in the texels, so only the float32
+loss's rounding is left.
 """
 
+import copy
 from types import SimpleNamespace
 
 import numpy as np
@@ -42,6 +51,8 @@ try:
     from lens_flare_tpu.accel import build_bvh as j_build_bvh
     from lens_flare_tpu.diff import render as jdr
     from lens_flare_tpu.integrator import path as jpath
+    from lens_flare_tpu.integrator.envlight import build_env as j_build_env
+    from lens_flare_tpu.integrator.lights import LT_ENV as J_LT_ENV
     from lens_flare_tpu.integrator.lights import lights_to_device as j_lights_to_device
     from lens_flare_tpu.integrator.shading import bsdf_to_device as j_bsdf_to_device
     from lens_flare_tpu.ops import scene_to_device as j_scene_to_device
@@ -61,6 +72,7 @@ DEPTH = 2
 TRUE_COLOR = (0.9, 0.55, 0.2)
 # (eps, rtol) per parameter, as tests/test_diff_render.py checks them
 FD = {"emitter": (0.1, 2e-2), "light": (0.1, 2e-2), "albedo": (0.02, 5e-2)}
+FD_TEXEL_RTOL = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -106,21 +118,34 @@ def params(case):
     return chip_smoke.emitter_params(case.r.scene)
 
 
-def _jax_bundle(path):
+def _with_env_row(lt):
+    """A copy of the JAX light table with the LT_ENV row the JAX ``Renderer`` appends (``renderer.py:145-160``)."""
+    lt = copy.deepcopy(lt)
+    lt.light_type = np.append(lt.light_type, J_LT_ENV).astype(np.int32)
+    for name in ("radiance", "position", "direction", "dim_x", "dim_y"):
+        setattr(lt, name, np.vstack([getattr(lt, name), np.zeros(3, np.float32)]))
+    lt.area = np.append(lt.area, 0.0).astype(np.float32)
+    lt.is_delta = np.append(lt.is_delta, False)
+    return lt
+
+
+def _jax_bundle(path, envmap=None):
     scene, _ = j_load_scene(path)
+    lt = scene.lights if envmap is None else _with_env_row(scene.lights)
     bundle = jpath.SceneBundle(
         scene=j_scene_to_device(scene, j_build_bvh(*scene.primitive_bboxes())),
-        bsdfs=j_bsdf_to_device(scene.bsdfs), lights=j_lights_to_device(scene.lights), env=None, pscene=None,
+        bsdfs=j_bsdf_to_device(scene.bsdfs), lights=j_lights_to_device(lt),
+        env=None if envmap is None else j_build_env(envmap), pscene=None,
     )
-    return scene, bundle
+    return scene, lt, bundle
 
 
-def _jax_case(path, c):
+def _jax_case(path, c, envmap=None):
     """The JAX package's bundle, settings and camera for the file of the port's case ``c``: its pixels,
-    key, sample count, depth and window."""
-    scene, bundle = _jax_bundle(path)
+    key, sample count, depth and window; ``envmap``: under that environment map."""
+    scene, lt, bundle = _jax_bundle(path, envmap)
     settings = jpath.make_settings(
-        scene.lights, ns_aa=c.n, max_ray_depth=c.settings.max_ray_depth, ns_area_light=1,
+        lt, ns_aa=c.n, max_ray_depth=c.settings.max_ray_depth, ns_area_light=1,
         indirect=c.settings.indirect, samples_per_batch=c.n, max_tolerance=0.0, bsdf_table=scene.bsdfs,
     )
     cam = JCameraParams(*(jnp.asarray(v) for v in c.r.camera.params()))
@@ -147,13 +172,18 @@ def _jax_image_and_grads(j, params):
             b = j.bundle
             for name, (group, field, row) in params.items():
                 g = getattr(b, group)
-                b = b._replace(**{group: g._replace(**{field: getattr(g, field).at[row].set(values[name])})})
+                value = values[name] if row is None else getattr(g, field).at[row].set(values[name])
+                b = b._replace(**{group: g._replace(**{field: value})})
             return _jax_render(j, b)
 
         img, vjp = jax.vjp(image, values)
         return img, vjp(j.window)[0]
 
-    start = {name: getattr(getattr(j.bundle, group), field)[row] for name, (group, field, row) in params.items()}
+    def table(group, field, row):
+        t = getattr(getattr(j.bundle, group), field)
+        return t if row is None else t[row]
+
+    start = {name: table(*where) for name, where in params.items()}
     img, grads = jax.jit(image_and_grads)(start)
     return np.asarray(img), {name: np.asarray(g) for name, g in grads.items()}
 
@@ -237,6 +267,34 @@ def test_gradients_where_bounces_miss_match_jax(tmp_path):
     for name, g in got.items():
         assert torch.isfinite(g).all() and g.abs().sum() > 0, (name, g)
         np.testing.assert_allclose(g.numpy(), want[name], rtol=1e-4)
+
+
+def test_envmap_texel_gradient_matches_jax(tmp_path):
+    """``tests/test_diff_render.py:184`` on an open terrain written in code, the camera pulled back so
+    that rays miss: the gradient of sum(window * image) in every texel of an 8x16 map, through the miss
+    lookup and the environment light's NEE slot, against ``jax.grad`` and a central difference at the
+    largest texel.  The CDF tables stay the original map's on both sides."""
+    path = chip_smoke.terrain_dae(6).write(tmp_path / "terrain.dae")
+    sky = np.random.default_rng(5).uniform(0.2, 1.5, (8, 16, 3)).astype(np.float32)
+    c = chip_smoke.diff_case(path, "cpu", W, H, SPP, DEPTH, back=1.5, envmap=sky)
+    params = {"texels": ("env", "data", None)}
+    image, got, _, _ = chip_smoke.diff_grads(c, params)
+    g = got["texels"].numpy()
+    want_image, want = _jax_image_and_grads(_jax_case(path, c, envmap=sky), params)
+    np.testing.assert_allclose(image.numpy(), want_image, rtol=1e-5, atol=1e-6)
+    # the texels the misses and the NEE samples read: the same set on both sides
+    assert np.count_nonzero(g) >= 30 and np.array_equal(g != 0, want["texels"] != 0)
+    np.testing.assert_allclose(g, want["texels"], rtol=1e-4)
+    # central difference at the largest texel: the image is linear in the texels
+    yy, xx, cc = np.unravel_index(np.argmax(np.abs(g)), g.shape)
+    eps = 0.05
+    with torch.no_grad():
+        fd = []
+        for sign in (1, -1):
+            data = c.bundle.env.data.clone()
+            data[yy, xx, cc] += sign * eps
+            fd.append(float(objective(c, tdr.set_env_texels(c.bundle, data))))
+    np.testing.assert_allclose(g[yy, xx, cc], (fd[0] - fd[1]) / (2 * eps), rtol=FD_TEXEL_RTOL)
 
 
 def _tensors(x):

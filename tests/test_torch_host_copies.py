@@ -1,9 +1,11 @@
 """The port's copies of the JAX package's host modules give the same arrays.
 
 ``lens_flare_tpu_torch`` keeps its own ``make_terrain_scene``, ``FlatScene``,
-``build_wide_bvh`` (native and NumPy builders), host ``Camera`` and image
-transforms.  Each is held here to the JAX package's original on the same
-inputs, exactly: they are the same NumPy (or C++) code.
+``build_wide_bvh`` (native and NumPy builders), host ``Camera``, image
+transforms and EXR reader and writer.  Each is held here to the JAX
+package's original on the same inputs, exactly: they are the same NumPy
+(or C++) code.  The port's EXR writer also writes HALF channels, which the
+original reads.
 """
 
 import dataclasses
@@ -19,13 +21,14 @@ from lens_flare_tpu.scene import collada as j_collada
 from lens_flare_tpu.scene.build import LT_DIRECTIONAL as J_LT_DIRECTIONAL
 from lens_flare_tpu.scene.build import LT_POINT as J_LT_POINT
 from lens_flare_tpu.scene.procedural import make_terrain_scene as j_terrain
+from lens_flare_tpu.utils import exr as j_exr
 from lens_flare_tpu.utils import image as j_image
 
 from lens_flare_tpu_torch.accel import wide
 from lens_flare_tpu_torch.scene import build, collada
 from lens_flare_tpu_torch.scene.camera import Camera
 from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
-from lens_flare_tpu_torch.utils import image
+from lens_flare_tpu_torch.utils import exr, image
 
 
 def _assert_same_fields(a, b):
@@ -100,3 +103,24 @@ def test_image_transforms_equal_jax():
     np.testing.assert_array_equal(
         image.sampling_rate_heatmap(counts, 16), j_image.sampling_rate_heatmap(counts, 16)
     )
+
+
+@pytest.mark.parametrize("compression", [exr.COMPRESSION_NONE, exr.COMPRESSION_ZIPS, exr.COMPRESSION_ZIP],
+                         ids=["none", "zips", "zip"])
+@pytest.mark.parametrize("pixel_type", [exr.PIXELTYPE_HALF, exr.PIXELTYPE_FLOAT], ids=["half", "float"])
+def test_exr_files_read_both_ways(pixel_type, compression, tmp_path):
+    """Each package reads the other's files: the port's writer (HALF or FLOAT) and the original's (FLOAT)."""
+    rng = np.random.default_rng(pixel_type * 10 + compression)
+    # 37 rows: a ZIP file's last block holds 5; a flat run keeps some blocks compressible
+    img = rng.uniform(0.0, 6e4 if pixel_type == exr.PIXELTYPE_HALF else 1e6, (37, 29, 3)).astype(np.float32)
+    img[5:20] = 0.5
+    dtype = np.float16 if pixel_type == exr.PIXELTYPE_HALF else np.float32
+    want = img.astype(dtype).astype(np.float32)
+    exr.write(tmp_path / "port.exr", img, compression=compression, pixel_type=pixel_type)
+    for read in (exr.read, j_exr.read):
+        got = read(tmp_path / "port.exr")
+        assert got.dtype == np.float32 and np.array_equal(got, want)
+    if pixel_type == exr.PIXELTYPE_FLOAT:  # the original writes FLOAT only, and the same bytes
+        j_exr.write(tmp_path / "jax.exr", img, compression=compression)
+        assert np.array_equal(exr.read(tmp_path / "jax.exr"), img)
+        assert (tmp_path / "jax.exr").read_bytes() == (tmp_path / "port.exr").read_bytes()

@@ -222,15 +222,11 @@ def test_triangle_limit_is_named():
 
 
 def test_unported_features_raise():
-    """What stays unported raises, naming its ROADMAP item: the environment light, and the CLI's -e,
-    --lens-model realistic and --upsample."""
+    """What stays unported raises, naming its ROADMAP item: the CLI's --lens-model realistic,
+    --upsample, --view and --devices above 1."""
     from lens_flare_tpu_torch import cli
 
-    scene = make_terrain_scene(8)
-    scene.lights.light_type[1] = 4  # LT_ENV
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
-        Renderer(device="cpu", **KW).load_flat_scene(scene)
-    for flags, item in ((["-e", "sky.exr"], "item 4"), (["--lens-model", "realistic"], "item 7"),
-                        (["--upsample", "1"], "item 10")):
+    for flags, item in ((["--lens-model", "realistic"], "item 7"), (["--upsample", "1"], "item 10"),
+                        (["--view"], "item 10"), (["--devices", "2"], "item 9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
             cli.main(["--device", "cpu", *flags, "scene.dae"])

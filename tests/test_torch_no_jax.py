@@ -7,7 +7,9 @@ modules it needs), then imports the port, renders a 16x12 frame of the
 port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
 runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
-with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, runs
+with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
+on a terrain file under a HALF sky map written by the port's
+``utils/exr.write`` (``-e``), runs
 ``optimize_lens`` for three steps with a checkpoint (``torch.optim`` and
 ``torch.save`` in place of optax and orbax), and takes the gradient of a
 ``render_image`` with respect to an albedo.  Any import of a refused
@@ -67,6 +69,14 @@ SCRIPT = textwrap.dedent(
     rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "3", "-x", str(d / "ap.png"), "-y", str(d / "ghost.png"),
                    "-i", "1.5", "-n", "10", "-f", str(d / "cornell.png"), "--device", "cpu", str(dae)])
     assert rc == 0 and load_png(d / "cornell.png").shape == (12, 16, 3)
+    from lens_flare_tpu_torch.utils import exr
+
+    sky = np.broadcast_to(np.linspace(2.0, 0.2, 16, dtype=np.float32)[:, None, None], (16, 32, 3))
+    exr.write(d / "sky.exr", sky, pixel_type=exr.PIXELTYPE_HALF)
+    terrain = chip_smoke.terrain_dae(4).write(d / "terrain.dae")
+    rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "2", "-e", str(d / "sky.exr"), "-f", str(d / "sky.png"),
+                   "--device", "cpu", str(terrain)])
+    assert rc == 0 and load_png(d / "sky.png").max() > 0
 
     # lens design with a checkpoint, and the gradient of a render
     from lens_flare_tpu_torch import _rng
@@ -111,3 +121,4 @@ def test_port_renders_without_jax(tmp_path):
     assert (tmp_path / "frame_rate.png").exists()
     assert (tmp_path / "bench.json").exists()
     assert (tmp_path / "cornell.png").read_bytes().startswith(b"\x89PNG")
+    assert (tmp_path / "sky.png").read_bytes().startswith(b"\x89PNG")
