@@ -85,7 +85,26 @@ raises, so the script exits non-zero and prints no result):
     to the CPU's plain path (the gradient to 1e-4 of its peak; every pixel
     to 1e-4 of its value plus what two ulps of the lookup's angles move it,
     all but 0.1% without that term) and to a central difference along
-    itself (1e-4 relative).
+    itself (1e-4 relative);
+19. realistic_1080p (BASELINE config 3 whole): env_1080p's file and sky
+    with ``-x`` and ``--lens-model realistic`` (no ghost PNG: the Snell +
+    Fresnel stack needs none) through the command line (D, B): frame
+    seconds, launches and peak device memory; the same frame rendered
+    unflared, its flare strictly additive and the PNG within one level of
+    it; the realistic ghost buffer alone (seconds, device launches and
+    kernel ms under ``torch.profiler``) beside the paraxial one of the same
+    pipeline, held to the CPU's (1e-3 of the peak, the CPU test's
+    tolerance against JAX, which covers ``index_add``'s accumulation
+    order), each ghost that reaches the film, rendered alone, held to the
+    CPU's in energy, centroid and radius (``ghost_checks``: float32 to
+    ``GHOST_F32``, float64 to ``GHOST_F64``) and the whole buffer in
+    float64 (1e-9 of the peak), and the largest difference between two
+    card runs; then
+    ``realistic_design``: curvature 7 recovered from 1.25x through the
+    stack by 150 Adam steps (64x64, 12x12 pupil, pairs (0, 1), (2, 4),
+    (6, 8)), the loss below 1e-3 of its start and the curvature within 5%
+    of the perturbation, ms per step, and the start gradient against the
+    CPU's (1e-3 of its peak).
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -140,6 +159,12 @@ G_CASES = {
 PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past 512*128*256
 SPHERE_SCENE = (15, 70)  # a brute-mode terrain near BRUTE_MAX_TRIS, with spheres built in code
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
+# the card's realistic ghosts against the CPU's, the largest difference of one ghost (``ghost_checks``):
+# float32 at ~20x float32's own rounding on either device (against float64: <= 5.9e-6 in energy and
+# radius, 3.2e-5 px in centroid, on an H100); float64, which read <= 3.8e-14 there, is the witness
+# that the card computes what the CPU does
+GHOST_F32 = {"energy": 1e-4, "centroid_px": 1e-3, "radius": 1e-4}
+GHOST_F64 = {"energy": 1e-12, "centroid_px": 1e-11, "radius": 1e-12}
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +541,81 @@ def diff_grads(c, params):
     if image.is_cuda:
         torch.cuda.synchronize()
     return image.detach(), {k: v.grad for k, v in leaves.items()}, t_b - t_f, time.perf_counter() - t_b
+
+
+def float32_lens(device, dtype):
+    """The reference lens rounded to float32, then cast to ``dtype``: a float64 run of it sees a float32
+    run's inputs, so their difference is the arithmetic's alone."""
+    import dataclasses
+
+    from lens_flare_tpu_torch.diff.optimize import LENS_FIELDS
+    from lens_flare_tpu_torch.lens.prescription import reference_prescription
+
+    lens = reference_prescription(device=device)
+    return dataclasses.replace(lens, **{f: getattr(lens, f).to(dtype) for f in LENS_FIELDS})
+
+
+def ghost_moments(angle, radiance, axis, width, height, device, dtype):
+    """Each ghost of ``render_ghosts_stack`` (one pair, one channel, rendered alone) on ``device`` in
+    ``dtype``: its energy on the film, the centroid of that energy from the sun's pixel (x, y) and its
+    RMS radius about the centroid, as {"i-j:c": (energy, (x, y), radius)} float64 tensors.  The inputs
+    are rounded to float32 first (``float32_lens``), so a float64 run differs by its arithmetic alone."""
+    import torch
+
+    from lens_flare_tpu_torch.lens.paraxial import reference_ghost_pairs
+    from lens_flare_tpu_torch.lens.realistic import render_ghosts_stack
+
+    args = [torch.tensor(v, dtype=torch.float32).to(device, dtype) for v in (angle, radiance, axis)]
+    sun = torch.ceil(args[2] * torch.tensor([width, height], device=device)).double()  # as the splat places it
+    px, py = (torch.arange(n, dtype=torch.float64, device=device) - sun[k] for k, n in enumerate((width, height)))
+    out = {}
+    for i, j in reference_ghost_pairs():
+        buf = render_ghosts_stack(float32_lens(device, dtype), *args, width, height, pairs=[(i, j)]).double()
+        mx, my = buf.sum(dim=0), buf.sum(dim=1)  # (W, 3) and (H, 3) marginals
+        e = mx.sum(dim=0)
+        cx, cy = (px[:, None] * mx).sum(dim=0) / e, (py[:, None] * my).sum(dim=0) / e
+        r2 = (((px[:, None] - cx) ** 2 * mx).sum(dim=0) + ((py[:, None] - cy) ** 2 * my).sum(dim=0)) / e
+        for c in range(3):
+            out[f"{i}-{j}:{'rgb'[c]}"] = (e[c].cpu(), torch.stack([cx[c], cy[c]]).cpu(), r2[c].sqrt().cpu())
+    return out
+
+
+def ghost_errors(got, want):
+    """Two ``ghost_moments`` apart, ghost by ghost: {"energy": relative difference, "centroid_px": distance
+    in pixels, "radius": relative difference}, each {"i-j:c": value}.  They hold a dim ghost as closely as
+    a bright one, and a sub-pixel shift of a sparse splat moves them no more than it moves the ghost.  A
+    ghost that puts no energy on the film must do so in both."""
+    errs = {"energy": {}, "centroid_px": {}, "radius": {}}
+    for key, (e_w, c_w, r_w) in want.items():
+        e_g, c_g, r_g = got[key]
+        assert (e_g > 0) == (e_w > 0), f"ghost {key} is on the film only on one side"
+        if e_w > 0:
+            errs["energy"][key] = abs(e_g / e_w - 1).item()
+            errs["centroid_px"][key] = (c_g - c_w).norm().item()
+            errs["radius"][key] = abs(r_g / r_w - 1).item()
+    return errs
+
+
+def ghost_checks(angle, radiance, axis, width, height):
+    """The card's ghosts against the CPU's in float32 and float64, and float32 against the CPU's float64
+    on each side, as {comparison: {measure: [largest value, its ghost], "on_film": ghosts compared}}.
+    Fails unless float32 holds to GHOST_F32 and float64 to GHOST_F64 on every ghost on the film."""
+    import torch
+
+    m = {(dev, dt): ghost_moments(angle, radiance, axis, width, height, dev, dt)
+         for dev in ("cuda", "cpu") for dt in (torch.float32, torch.float64)}
+    f32, f64 = torch.float32, torch.float64
+    worst = {}
+    for name, a, b in (("card_vs_cpu_f32", ("cuda", f32), ("cpu", f32)), ("card_vs_cpu_f64", ("cuda", f64), ("cpu", f64)),
+                       ("card_f32_vs_cpu_f64", ("cuda", f32), ("cpu", f64)), ("cpu_f32_vs_f64", ("cpu", f32), ("cpu", f64))):
+        errs = ghost_errors(m[a], m[b])
+        assert errs["energy"], f"{name}: no ghost on the film"
+        worst[name] = {k: [max(v.values()), max(v, key=v.get)] for k, v in errs.items()}
+        worst[name]["on_film"] = len(errs["energy"])
+    for name, limits in (("card_vs_cpu_f32", GHOST_F32), ("card_vs_cpu_f64", GHOST_F64)):
+        for k, limit in limits.items():
+            assert worst[name][k][0] <= limit, f"{name} {k}: {worst[name][k]} above {limit}"
+    return worst
 
 
 def phase(title, t0, **numbers):
@@ -1441,7 +1541,130 @@ def main() -> int:
           fd_along_grad_relerr=f"{env_fd_err:.3g}", launches=json.dumps(ed_launches))
     del denv, dcpu_env, img_cpu, g_cpu
 
-    # -- 19. results -------------------------------------------------------
+    # -- 19. realistic_1080p: config 3 whole, the sky and the Snell + Fresnel ghosts (D, B)
+    import dataclasses
+
+    from lens_flare_tpu_torch.lens import realistic
+    from lens_flare_tpu_torch.lens.aperture import ApertureTexture
+
+    t0 = time.perf_counter()
+    real_png = build_dir / "terrain256_sky_realistic_1080p.png"
+    config3 = ["-r", "1920", "1080", "-s", "1", "-m", "4", "-x", str(ap_png), "-i", "1.5", "-n", "30",
+               "-e", str(big_sky), "--lens-model", "realistic"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ic.reset_launch_counts()
+    cli_s, out = run_cli([*config3, "-f", str(real_png), "--device", "cuda", str(terrain_file)])
+    torch.cuda.synchronize()
+    peak_real = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    rl_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert rl_launches["D"] > 0 and rl_launches["B"] > 0, f"realistic_1080p skipped D or B: {rl_launches}"
+    real_frame_s, rl_rays, _, _ = cli_numbers(out)
+    # the same frame unflared through Renderer.load, then its flare: strictly additive, and the PNG's
+    rr = Renderer(device="cuda", width=1920, height=1080, max_ray_depth=4, indirect=True, envmap=exr.read(big_sky),
+                  aperture_path=str(ap_png), flare_intensity=1.5, flare_radius=30.0, lens_model="realistic")
+    rr.load(terrain_file)
+    hdr_real, _ = rr.render(progress=False)
+    pipe = rr.flare_pipeline()
+    assert pipe is not None and pipe.lens_model == "realistic" and pipe.ghost_aperture is None
+    assert 0 < pipe.axis_ray.min() and pipe.axis_ray.max() < 1, f"the sun is off screen: {pipe.axis_ray}"
+    ghost = pipe.ghost_buffer()
+    flared = hdr_real + ghost + pipe.starburst() + pipe.falloff()
+    assert bool((ghost >= 0).all()) and ghost.sum().item() > 0, "the realistic ghosts have no energy"
+    assert bool(torch.isfinite(flared).all()) and bool((flared >= hdr_real).all()), "the flare is not additive"
+    # index_add accumulates in no fixed order on the card: the CLI's ghosts may differ in their last bits
+    want_px = np.clip(np.round(img.to_color(flared.cpu().numpy())[::-1] * 255.0), 0, 255).astype(np.int64)
+    png_levels = int(np.abs(load_png(real_png).astype(np.int64) - want_px).max())
+    assert png_levels <= 1, f"the PNG is not the flared frame's: {png_levels} levels"
+    # the ghost buffer alone against the paraxial one of the same pipeline, then the card against the CPU
+    prof_real = frame_profile(pipe.ghost_buffer)
+    paraxial_pipe = dataclasses.replace(pipe, lens_model="paraxial", ghost_aperture=ApertureTexture.load(ghost_png))
+    prof_par = frame_profile(paraxial_pipe.ghost_buffer)
+    ghost_again = pipe.ghost_buffer()
+    ghost_cpu = dataclasses.replace(pipe, device="cpu", lens=reference_prescription(device="cpu")).ghost_buffer()
+    # the CPU test's tolerance against JAX (1e-3 of the peak) covers the accumulation order too
+    ghost_vs_cpu = ((ghost.cpu() - ghost_cpu).abs().max() / ghost_cpu.abs().max()).item()
+    ghost_card_runs = (ghost_again - ghost).abs().max().item()
+    assert ghost_vs_cpu <= 1e-3, ghost_vs_cpu
+    # ghost by ghost, so that a dim one can fail: float32 to GHOST_F32 and float64 to GHOST_F64, then
+    # the whole buffer in float64 (the peak's reading above, without float32's rounding)
+    ghost_args = (pipe.angle_to_sun, pipe.flare_radiances.sum(axis=0), pipe.axis_ray, 1920, 1080)
+    ghost_worst = ghost_checks(*ghost_args)
+    f64_bufs = [realistic.render_ghosts_stack(float32_lens(dev, torch.float64), *(
+        torch.tensor(v, dtype=torch.float32).to(dev, torch.float64) for v in ghost_args[:3]), 1920, 1080).cpu()
+        for dev in ("cuda", "cpu")]
+    ghost_vs_cpu_f64 = ((f64_bufs[0] - f64_bufs[1]).abs().max() / f64_bufs[1].abs().max()).item()
+    assert ghost_vs_cpu_f64 <= 1e-9, ghost_vs_cpu_f64
+    # float32's own rounding at the peak, on either side: each float32 buffer against the CPU's float64
+    f32_vs_f64 = {side: ((buf.cpu().double() - f64_bufs[1]).abs().max() / f64_bufs[1].abs().max()).item()
+                  for side, buf in (("card", ghost), ("cpu", ghost_cpu))}
+    del f64_bufs, rr, hdr_real, flared, ghost, ghost_again
+    phase("realistic_1080p", t0, tris=131072, sky="4096x2048 HALF ZIP", width=1920, height=1080, spp=1, depth=4,
+          lens_model="realistic", frame_s=f"{real_frame_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=rl_rays,
+          peak_device_mib=f"{peak_real:.1f}", png_levels_vs_flared_frame=png_levels,
+          ghost_s=f"{prof_real['frame_s']:.4f}", ghost_device_launches=prof_real["kernel_launches"],
+          ghost_kernel_ms=f"{prof_real['kernel_ms']:.3f}", ghost_busy_share=f"{prof_real['busy_share_traced']:.4f}",
+          paraxial_ghost_s=f"{prof_par['frame_s']:.4f}", paraxial_ghost_device_launches=prof_par["kernel_launches"],
+          paraxial_ghost_kernel_ms=f"{prof_par['kernel_ms']:.3f}", ghost_vs_cpu_maxrel=f"{ghost_vs_cpu:.3g}",
+          ghost_vs_cpu_f64_maxrel=f"{ghost_vs_cpu_f64:.3g}", ghost_card_f32_vs_cpu_f64_maxrel=f"{f32_vs_f64['card']:.3g}",
+          ghost_cpu_f32_vs_f64_maxrel=f"{f32_vs_f64['cpu']:.3g}",
+          ghost_two_card_runs_maxabs=f"{ghost_card_runs:.3g}", ghost_peak=f"{ghost_cpu.abs().max().item():.4g}",
+          launches=json.dumps(rl_launches), png=real_png.name)
+    print(f"[realistic_1080p_ghosts] worst={json.dumps(ghost_worst)}", flush=True)
+    print("[realistic_1080p_ghost_profile] " + " ".join(
+        f"{name}:top_kernels={json.dumps([[n[:60], round(ms, 3), c] for n, ms, c in p['top_kernels'][:5]])}"
+        for name, p in (("realistic", prof_real), ("paraxial", prof_par))), flush=True)
+
+    # lens design through the stack (configs 3 + 5): curvature 7 recovered from 1.25x by Adam
+    t0 = time.perf_counter()
+    design_pairs = ((0, 1), (2, 4), (6, 8))
+
+    def design_image(lens, dev):
+        return realistic.render_ghosts_stack(lens, 0.3, torch.ones(3, device=dev), torch.tensor([0.6, 0.55], device=dev),
+                                             64, 64, pupil_samples=12, pairs=design_pairs)
+
+    def design_loss(curv, target, dev):
+        lens = reference_prescription(device=dev)
+        lens.curvatures = curv
+        return ((design_image(lens, dev) - target) ** 2).mean() * 1e6
+
+    c_true = reference_prescription().curvatures
+    c_start = c_true.clone()
+    c_start[7] *= 1.25
+    targets = {dev: design_image(reference_prescription(device=dev), dev) for dev in ("cuda", "cpu")}
+    start_grads = {}
+    for dev in ("cuda", "cpu"):
+        c = c_start.to(dev, copy=True).requires_grad_(True)
+        design_loss(c, targets[dev], dev).backward()
+        start_grads[dev] = c.grad.cpu()
+    design_grad_err = ((start_grads["cuda"] - start_grads["cpu"]).abs().max() / start_grads["cpu"].abs().max()).item()
+    assert torch.isfinite(start_grads["cuda"]).all() and design_grad_err <= 1e-3, design_grad_err
+    curv = c_start.to("cuda", copy=True).requires_grad_(True)
+    mask = torch.zeros_like(curv)
+    mask[7] = 1.0
+    opt = torch.optim.Adam([curv], lr=2e-4)
+    with torch.no_grad():
+        loss0 = design_loss(curv, targets["cuda"], "cuda").item()
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter()
+    design_steps = 150
+    for _ in range(design_steps):
+        opt.zero_grad()
+        loss = design_loss(curv, targets["cuda"], "cuda")
+        loss.backward()
+        curv.grad *= mask
+        opt.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_steps) / design_steps * 1e3
+    c7_err = abs(curv[7].item() - c_true[7].item()) / abs(c_start[7].item() - c_true[7].item())
+    assert loss.item() < 1e-3 * loss0 and c7_err <= 0.05, (loss.item(), loss0, c7_err)
+    phase("realistic_design", t0, film="64x64", pupil=12, pairs=json.dumps(design_pairs), steps=design_steps,
+          ms_per_step=f"{step_ms:.3f}", loss0=f"{loss0:.6g}", loss_final=f"{loss.item():.6g}",
+          curvature7_left_of_perturbation=f"{c7_err:.4g}", start_grad_vs_cpu_maxrel=f"{design_grad_err:.3g}")
+    del targets, curv, opt
+
+    # -- 20. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

@@ -8,11 +8,13 @@ runs on the CUDA card unless ``--device cpu`` asks for the CPU.  Example::
         -x aperture.png -y ghost.png -i 1.5 -n 30 scene.dae
 
 ``-e sky.exr`` lights the scene with an equirect environment map read by
-the port's ``utils/exr.py``.  Flags whose features are not ported yet
-raise NotImplementedError naming their ROADMAP Queue 1 item:
-``--lens-model realistic`` (item 7), ``--upsample`` and ``--view`` (item
-10), and ``--devices`` or ``-t`` above 1 (item 9).  ``--trace DIR`` writes a ``torch.profiler``
-Chrome trace of the render to ``DIR/trace.json``.
+the port's ``utils/exr.py``; ``--lens-model realistic`` draws the ghosts
+with the sequential Snell + Fresnel lens stack (``lens/realistic.py``), with
+or without aperture PNGs; the two together are BASELINE config 3.  Flags
+whose features are not ported yet raise NotImplementedError naming their
+ROADMAP Queue 1 item: ``--upsample`` and ``--view`` (item 10), and
+``--devices`` or ``-t`` above 1 (item 9).  ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of the render to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--indirect", action="store_true", help="enable indirect bounces")
     p.add_argument(
         "--lens-model", choices=("paraxial", "realistic"), default="paraxial", dest="lens_model",
-        help="ghost model: paraxial 2x2 matrices (realistic: not ported yet)",
+        help="ghost model: paraxial 2x2 matrices, or the realistic Snell + Fresnel lens stack",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--upsample", type=int, default=0, metavar="N", help="Loop-subdivide meshes N levels; not ported yet")
@@ -66,7 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Raise for a flag whose feature the port does not have yet, naming its ROADMAP item."""
     refused = [
-        (args.lens_model == "realistic", "--lens-model realistic", 7),
         (args.upsample > 0, "--upsample", 10),
         (args.view, "--view", 10),
         (max(args.devices, args.num_threads) > 1, "--devices / -t above 1", 9),
@@ -110,6 +111,7 @@ def main(argv=None) -> int:
         bokeh_path=args.bokeh,
         flare_intensity=args.flare_intensity,
         flare_radius=args.flare_radius,
+        lens_model=args.lens_model,
         camera_settings=args.cam_settings,
         seed=args.seed,
         device=args.device,

@@ -73,11 +73,11 @@ def cuda_scene_from_wide_bvh(
     )
 
 
-def prescription_from_numpy(lens, device="cpu") -> LensPrescription:
-    """A LensPrescription from the JAX one's fields."""
+def prescription_from_numpy(lens, device="cpu", dtype=torch.float32) -> LensPrescription:
+    """A LensPrescription from the JAX one's fields, each rounded once to ``dtype``."""
 
     def t(name):
-        return torch.as_tensor(np.array(getattr(lens, name), np.float32), device=device)
+        return torch.as_tensor(np.array(getattr(lens, name), np.float64), device=device).to(dtype)
 
     return LensPrescription(
         spacings=t("spacings"),

@@ -1,10 +1,13 @@
 """Lens-flare pipeline: sun finding, ghosts, starburst, falloff, compositing.
 
-Counterpart of ``lens_flare_tpu/flare/pipeline.py`` on the paraxial lens
-model (``start_raytracing``, raytraced_renderer.cpp:305-311, plus the
-per-pixel additions at pathtracer.cpp:881-891): ghosts need a sun on
-screen, the starburst a non-empty aperture mask, and the falloff glow
-applies whenever a sun is on screen.
+Counterpart of ``lens_flare_tpu/flare/pipeline.py`` (``start_raytracing``,
+raytraced_renderer.cpp:305-311, plus the per-pixel additions at
+pathtracer.cpp:881-891): ghosts need a sun on screen, the starburst a
+non-empty aperture mask, and the falloff glow applies whenever a sun is
+on screen.  The ghosts come from the paraxial 2x2 model and a ghost
+aperture texture (``lens_model="paraxial"``), or from the sequential
+Snell + Fresnel stack of ``lens/realistic.py``, which needs no texture
+(``lens_model="realistic"``, BASELINE config 3).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..lens.aperture import ApertureTexture
 from ..lens.ghosts import splat_ghosts, splat_ghosts_fast
 from ..lens.paraxial import trace_all_ghosts
 from ..lens.prescription import LensPrescription, reference_prescription
+from ..lens.realistic import render_ghosts_stack
 from ..scene.build import LT_DIRECTIONAL
 from .starburst import aperture_fft, irradiance_falloff, starburst_field
 
@@ -66,6 +70,7 @@ class FlarePipeline:
     falloff_key: int = 0
     # "exact" rasterizer, "fast" canonical-card resample, "auto": fast from 2^18 pixels
     ghost_method: str = "auto"
+    lens_model: str = "paraxial"  # or "realistic": the Snell + Fresnel stack
     device: str = "cuda"  # as Renderer: the card unless the caller asks for the CPU
     _fft_cache: torch.Tensor | None = None
 
@@ -91,6 +96,7 @@ class FlarePipeline:
             flare_intensity=renderer.flare_intensity,
             flare_radius=renderer.flare_radius,
             falloff_key=renderer.seed,
+            lens_model=renderer.lens_model,
             device=renderer.device,
         )
 
@@ -104,17 +110,21 @@ class FlarePipeline:
         """(H, W, 3) additive ghost buffer (generate_ghost_buffer)."""
         if (self.axis_ray == 0).all():
             return self._zeros()
+        angle = torch.tensor(self.angle_to_sun, dtype=torch.float32)
+        axis = self._t(self.axis_ray)
+        if self.lens_model == "realistic":
+            return render_ghosts_stack(
+                self.lens, angle, self._t(self.flare_radiances.sum(axis=0)), axis, self.width, self.height
+            )
         if self.ghost_aperture is None or self.ghost_aperture.total_value == 0:
             return self._zeros()
         method = self.ghost_method
         if method == "auto":
             method = "fast" if self.width * self.height >= (1 << 18) else "exact"
-        lens = self.lens
-        r1, r2 = trace_all_ghosts(lens, torch.tensor(self.angle_to_sun, dtype=torch.float32))
+        r1, r2 = trace_all_ghosts(self.lens, angle)
         n_pairs = r1.shape[0]
         colors = torch.eye(3, device=r1.device).repeat(n_pairs, 1)
         tex = self._t(self.ghost_aperture.values)
-        axis = self._t(self.axis_ray)
         splat = splat_ghosts_fast if method == "fast" else splat_ghosts
         return splat(tex, r1.reshape(-1), r2.reshape(-1), colors, axis, self.width, self.height)
 

@@ -36,7 +36,7 @@ import torch
 
 from .. import _rng
 from ..ops.intersect import SceneArrays, finalize_hit
-from ..ops.intersect_cuda import BvhArrays, CudaScene, bvh_walk, intersect
+from ..ops.intersect_cuda import BVH_INF, BvhArrays, CudaScene, bvh_walk, intersect
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
 from ..scene.collada import BSDF_DIFFUSE, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
 from .envlight import EnvLightArrays, sample_dir
@@ -207,6 +207,15 @@ def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
     reference does.  Every other scene takes kernel A (C's closest hit is
     forced only by tests).  Returns (Hit, stats).
 
+    A miss returns t = 1e30 (``BVH_INF``) on every route.  Kernels A-D and
+    their plain versions report a miss at 3e38, as the Pallas kernels do
+    (``intersect_pallas.py:52``), and kernel G at 1e30, as the XLA walk
+    does.  The JAX package's two routes differ in the same way; the port
+    follows the XLA route, the one its tests run on the CPU.  The value
+    matters: a bounce that misses still places its next vertex at
+    ``hit_p + wi * t`` (``_indirect``), and that vertex's light sample
+    decides whether its NEE lane is counted as skipped.
+
     Differentiability contract, as the JAX package's (``path.py:262-276``):
     the trace is a visibility oracle with no gradient.  ``o``, ``d``,
     ``t_lo``, ``t_hi`` and the shading tables are detached before the
@@ -223,15 +232,15 @@ def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
     o, d, t_lo, t_hi = _detach(o, d, t_lo, t_hi)
     scene = SceneArrays(*_detach(*bundle.scene))
     cs = bundle.cscene
+    rows = None
     if cs is None:
         t, prim, b1, b2, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi)
-        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found)
     elif cs.shade and not (coherent and cs.stream):
         t, prim, b1, b2, found, tests, rows = intersect(cs, o, d, t_lo, t_hi, return_shade=True)
-        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
     else:
         t, prim, b1, b2, found, tests = intersect(cs, o, d, t_lo, t_hi)
-        hit = finalize_hit(scene, o, d, t, prim, b1, b2, found)
+    t = torch.where(found, t, BVH_INF)
+    hit = finalize_hit(scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
     return _orient_normals(bundle, d, hit), _trace_stats(t_hi, tests)
 
 
@@ -302,9 +311,10 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
     cos_theta = wi_obj[:, 2] / torch.clamp_min(norm3(wi_obj), 1e-30)
     f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi_obj, rep(w_out), families=settings.bsdf_families)
     # lanes that are not live get factors of 0, live lanes the same values:
-    # a missed vertex lies ~3e38 away (the kernels' miss distance), its light
-    # sample's pdf is NaN, and the masked forward is finite, but a NaN factor
-    # turns the backward's zero cotangents into NaN (0 * NaN)
+    # a missed vertex lies 1e30 away (trace_closest's miss distance), its
+    # light sample's pdf may be 0, inf or NaN, and the masked forward is
+    # finite, but a NaN factor turns the backward's zero cotangents into
+    # NaN (0 * NaN)
     weight = torch.where(live, cos_theta / torch.clamp_min(ls_pdf, 1e-30), 0.0)
     contrib = torch.where(live[:, None], f, 0.0) * ls_rad * weight[:, None]
 

@@ -16,7 +16,8 @@ Counterpart of ``lens_flare_tpu/lens/ghosts.py`` (``draw_ghost`` ->
   2^18 pixels up (1080p).
 
 The subsampled ghost buffer (``splat_ghosts(scale=)``, the JAX renderer's
-``flare_ghost_scale``) is not ported yet (ROADMAP Queue 1, item 7).
+``flare_ghost_scale``) is not ported: no command-line flag sets it
+(ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ interfaces.  Matrix conventions (``pathtracer.cpp:511-537``):
   T(d)       = [[1, d], [0, 1]]                translation by gap d
   R(c,n1,n2) = [[1, 0], [c(n1-n2)/n2, n1/n2]]  refraction at curvature c
   L(c)       = [[1, 0], [2c, 1]]               reflection at curvature c
+
+:func:`physical_ghost_matrix` is the physically consistent first-order
+chain, the paraxial limit of ``lens/realistic.py``'s stack.
 """
 
 from __future__ import annotations
@@ -103,6 +106,55 @@ def trace_ghost(lens: LensPrescription, T, R, L, i, j, r_in, theta):
     for k in range(n):  # forward k > i to the sensor
         M, ray = fwd_step(k, M, ray, k > i)
     return M[..., 0, 0, None] * ray[..., 0] + M[..., 0, 1, None] * ray[..., 1]
+
+
+def physical_ghost_matrix(lens: LensPrescription, i: int, j: int, color: int):
+    """First-order (2, 2) matrix of ghost pair (i, j): the paraxial limit of the realistic stack.
+
+    Counterpart of ``paraxial.py:141-206``, under mirror unfolding:
+    forward crossings ``T(d_k) @ R(c_k, n1, n2)``, the first reflection
+    ``L(c_j)``, backward crossings ``R(-c_k, n2, n1) @ T(d_k)`` (media
+    swapped and the curvature's sign flipped), the second reflection
+    ``L(-c_i)``, forward to the sensor; the iris only translates.  The
+    jacobian of :func:`..realistic.trace_ghost_stack` at (h, theta) =
+    (0, 0) equals it for all 13 pairs x 3 wavelengths.  :func:`trace_ghost`
+    keeps the reference's inv(R) backward crossings, which differ from
+    this wherever the backward segment crosses a curved surface.
+    ``[r_out, theta_out] = M @ [r_in, theta_in]``, the ray taken just
+    before interface 0.
+    """
+    n = lens.num_interfaces
+    ap = lens.aperture_index
+    c, s, iors = lens.curvatures, lens.spacings, lens.iors[color]
+    one, zero = torch.ones_like(s[0]), torch.zeros_like(s[0])
+    eye = torch.eye(2, dtype=s.dtype, device=s.device)
+
+    def Tm(d):
+        return _m(one, d, zero, one)
+
+    def Rm(c, n1, n2):
+        return _m(one, zero, c * (n1 - n2) / n2, n1 / n2)
+
+    def Lm(c):
+        return _m(one, zero, 2.0 * c, one)
+
+    def media(k):
+        return (one if k == 0 else iors[k - 1]), iors[k]
+
+    M = eye
+    for k in range(j):
+        Rk = eye if k == ap else Rm(c[k], *media(k))
+        M = Tm(s[k]) @ Rk @ M
+    M = Lm(c[j]) @ M
+    for k in range(j - 1, i, -1):
+        n1, n2 = media(k)
+        Rk = eye if k == ap else Rm(-c[k], n2, n1)
+        M = Rk @ Tm(s[k]) @ M
+    M = Tm(s[i]) @ Lm(-c[i]) @ Tm(s[i]) @ M
+    for k in range(i + 1, n):
+        Rk = eye if k == ap else Rm(c[k], *media(k))
+        M = Tm(s[k]) @ Rk @ M
+    return M
 
 
 def trace_all_ghosts(lens: LensPrescription, theta):

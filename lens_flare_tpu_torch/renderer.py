@@ -14,7 +14,9 @@ from ``utils/exr.read``) lights the scene from an equirect environment
 map: NEE samples it as one more light and camera rays that miss see it.
 ``render(checkpoint_path=)`` persists the film after each tile (the
 adaptive render: its accumulators and active set after each stage) with a
-fingerprint of the render, and an interrupted render resumes from it.  Not
+fingerprint of the render, and an interrupted render resumes from it.
+``composite_flare`` adds the flare: ghosts from the paraxial model or,
+with ``lens_model="realistic"``, from the Snell + Fresnel lens stack.  Not
 ported yet: multi-device rendering (ROADMAP Queue 1, item 9).
 """
 
@@ -108,6 +110,7 @@ class Renderer:
     bokeh: ApertureTexture | None = None
     flare_intensity: float = 0.0
     flare_radius: float = 0.0
+    lens_model: str = "paraxial"  # "realistic": the sequential Snell + Fresnel stack (config 3)
     camera_settings: str | None = None  # a Camera.dump_settings file applied by load()
     tile_pixels: int = 1 << 16  # wavefront width per launch
     seed: int = 0
@@ -492,10 +495,15 @@ class Renderer:
         return self.focal_distance
 
     def flare_pipeline(self):
-        """The FlarePipeline for this frame, or None when no flare is configured."""
+        """The FlarePipeline for this frame, or None when no flare is configured.
+
+        The realistic lens model needs no aperture: its ghosts alone are a
+        flare (``renderer.py:651-662``).
+        """
         if (
             self.aperture is None and self.aperture_path is None
             and self.ghost_aperture is None and self.ghost_aperture_path is None
+            and self.lens_model != "realistic"
         ):
             return None
         from .flare.pipeline import FlarePipeline

@@ -222,11 +222,10 @@ def test_triangle_limit_is_named():
 
 
 def test_unported_features_raise():
-    """What stays unported raises, naming its ROADMAP item: the CLI's --lens-model realistic,
-    --upsample, --view and --devices above 1."""
+    """What stays unported raises, naming its ROADMAP item: the CLI's --upsample, --view and
+    --devices above 1."""
     from lens_flare_tpu_torch import cli
 
-    for flags, item in ((["--lens-model", "realistic"], "item 7"), (["--upsample", "1"], "item 10"),
-                        (["--view"], "item 10"), (["--devices", "2"], "item 9")):
+    for flags, item in ((["--upsample", "1"], "item 10"), (["--view"], "item 10"), (["--devices", "2"], "item 9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
             cli.main(["--device", "cpu", *flags, "scene.dae"])

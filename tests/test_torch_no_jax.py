@@ -9,7 +9,7 @@ runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
 with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
 on a terrain file under a HALF sky map written by the port's
-``utils/exr.write`` (``-e``), runs
+``utils/exr.write`` (``-e``) and with ``--lens-model realistic``, runs
 ``optimize_lens`` for three steps with a checkpoint (``torch.optim`` and
 ``torch.save`` in place of optax and orbax), and takes the gradient of a
 ``render_image`` with respect to an albedo.  Any import of a refused
@@ -77,6 +77,9 @@ SCRIPT = textwrap.dedent(
     rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "2", "-e", str(d / "sky.exr"), "-f", str(d / "sky.png"),
                    "--device", "cpu", str(terrain)])
     assert rc == 0 and load_png(d / "sky.png").max() > 0
+    rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "1", "--lens-model", "realistic", "-f", str(d / "real.png"),
+                   "--device", "cpu", str(terrain)])
+    assert rc == 0 and load_png(d / "real.png").shape == (12, 16, 3)
 
     # lens design with a checkpoint, and the gradient of a render
     from lens_flare_tpu_torch import _rng
@@ -122,3 +125,4 @@ def test_port_renders_without_jax(tmp_path):
     assert (tmp_path / "bench.json").exists()
     assert (tmp_path / "cornell.png").read_bytes().startswith(b"\x89PNG")
     assert (tmp_path / "sky.png").read_bytes().startswith(b"\x89PNG")
+    assert (tmp_path / "real.png").read_bytes().startswith(b"\x89PNG")
