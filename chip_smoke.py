@@ -51,8 +51,14 @@ raises, so the script exits non-zero and prints no result):
    its PNG held to the frame and a cell of it to the CPU render;
 9. dae_1080p: terrain 256 as a COLLADA file at 1920x1080 with aperture
    PNGs and the flare (D, B);
-10. g_kernel: kernel G against its plain version on terrain 512's binary BVH;
-11. past_capacity: 16,785,218 triangles, past the cluster tree, through G;
+10. g_kernel: kernel G against its plain version on terrain 512's binary BVH
+    (random camera and shadow rays), and against the cluster walk's hits;
+    the tree's build and packing seconds;
+11. past_capacity: 16,785,218 triangles, past the cluster tree, through G:
+    the frame (64 launches of G, 4,166,786 rays, 5.62 tests per ray), the
+    scene's device MiB and packing seconds, and G against its plain version
+    bit for bit on random and on the frame's own blocked camera and shadow
+    wavefronts (rows Gb-Ge);
 12. diff_small (BASELINE config 5): the Cornell box at 320x240, 4 spp,
     depth 2, camera on the emitter; the render and its gradients in the
     emitter's BSDF row, the area light's row and a wall's albedo, through A
@@ -155,7 +161,11 @@ LINE_CASES = {
 G_CASES = {
     "G": "terrain512_camera_random_binary_bvh", "G_any_hit": "terrain512_shadow_random_binary_bvh",
     "G_past_capacity": "terrain2897_camera_random", "G_any_hit_past_capacity": "terrain2897_shadow_random",
+    "G_blocked_past_capacity": "terrain2897_camera_blocked",
+    "G_any_hit_blocked_past_capacity": "terrain2897_shadow_blocked",
 }
+# past_capacity's frame (1920x1080, 1 spp, depth 1): 32 camera and 32 shadow wavefronts, all through G
+PAST_CAPACITY_FRAME = {"launches": 64, "rays": 4_166_786, "isects_per_ray": "5.62"}
 PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past 512*128*256
 SPHERE_SCENE = (15, 70)  # a brute-mode terrain near BRUTE_MAX_TRIS, with spheres built in code
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
@@ -1133,8 +1143,9 @@ def main() -> int:
         print(f"[timing] kernel={label} tris=524288 lanes={LANES} ms={times[label][0]:.4f} "
               f"plain_ms={times[label][1]:.4f} bound_ms={bounds[label][0]:.5f} bound_by={bounds[label][1]}",
               flush=True)
-    phase("g_kernel", t0, tris=524288, bvh_nodes=bv.node_box.shape[0], bvh_depth=bv.max_depth,
-          bvh_build_s=f"{rb.stats.bvh_build_time:.3f}", lanes=LANES, **report)
+    phase("g_kernel", t0, tris=524288, bvh_nodes=bv.num_nodes, bvh_records=bv.nodes.shape[0],
+          bvh_depth=bv.max_depth, bvh_build_s=f"{rb.stats.bvh_build_time:.3f}",
+          bvh_pack_s=f"{rb.stats.bvh_pack_time:.3f}", lanes=LANES, **report)
     del rw, rb, bv, g_rays
 
     # -- 11. past_capacity: 16,785,218 triangles through kernel G ----------
@@ -1161,17 +1172,25 @@ def main() -> int:
     torch.cuda.synchronize()
     frame_big_s = time.perf_counter() - t_frame
     pc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    assert pc_launches["G"] > 0 and sum(pc_launches.values()) == pc_launches["G"], pc_launches
+    assert sum(pc_launches.values()) == pc_launches["G"] == PAST_CAPACITY_FRAME["launches"], pc_launches
+    assert rp.stats.total_rays == PAST_CAPACITY_FRAME["rays"], rp.stats.total_rays
+    assert f"{rp.stats.isects_per_ray:.2f}" == PAST_CAPACITY_FRAME["isects_per_ray"], rp.stats.isects_per_ray
     assert hdr_big.shape == (1080, 1920, 3) and torch.isfinite(hdr_big).all() and hdr_big.sum() > 0
     peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
     bv = rp.bundle.bvh
+    bvh_mib = sum(x.numel() * x.element_size() for x in (bv.root, bv.nodes, bv.rows)) / 2**20
     gen.manual_seed(2)
     p_rays = bk.random_rays(rp, LANES, gen)
+    # the frame's own wavefronts: its first LANES pixels in 32x32-block order (rows Gd and Ge)
+    p_camera, _, p_shadow = bk.wavefronts(rp, LANES)
     report = {}
-    for kind_rays, any_hit in (("camera", False), ("shadow", True)):
-        args = p_rays[kind_rays]
+    for kind_rays, args, any_hit, label in (
+        ("camera", p_rays["camera"], False, "G_past_capacity"),
+        ("shadow", p_rays["shadow"], True, "G_any_hit_past_capacity"),
+        ("camera_blocked", p_camera, False, "G_blocked_past_capacity"),
+        ("shadow_blocked", p_shadow, True, "G_any_hit_blocked_past_capacity"),
+    ):
         got, visits = g_check(bv, args, any_hit)
-        label = "G_past_capacity" if not any_hit else "G_any_hit_past_capacity"
         times[label] = (bk.cuda_ms(lambda: ic.bvh_walk(bv, *args, any_hit=any_hit), 20),
                         bk.cuda_ms(lambda: bvh_walk_plain(bv, *args, any_hit=any_hit), 1))
         bounds[label] = bk.bvh_bound(bv, args, got, visits)
@@ -1183,11 +1202,12 @@ def main() -> int:
     img.save_hdr_png(png_big, hdr_big.cpu().numpy(), flip_y=True)
     phase("past_capacity", t0, tris=big.num_triangles, width=1920, height=1080, spp=1, depth=1,
           scene_gen_s=f"{gen_s:.3f}", build_s=f"{build_s:.3f}", bvh_build_s=f"{rp.stats.bvh_build_time:.3f}",
-          bvh_nodes=bv.node_box.shape[0], bvh_depth=bv.max_depth, frame_s=f"{frame_big_s:.4f}",
+          bvh_pack_s=f"{rp.stats.bvh_pack_time:.3f}", bvh_nodes=bv.num_nodes, bvh_records=bv.nodes.shape[0],
+          bvh_depth=bv.max_depth, bvh_device_mib=f"{bvh_mib:.1f}", frame_s=f"{frame_big_s:.4f}",
           rays_traced=rp.stats.total_rays, isects_per_ray=f"{rp.stats.isects_per_ray:.2f}",
           scene_device_mib=f"{scene_mb:.1f}", peak_device_mib=f"{peak_mb:.1f}",
           launches=json.dumps(pc_launches), lanes=LANES, **report, png=png_big.name)
-    del rp, big, bv, p_rays, hdr_big
+    del rp, big, bv, p_rays, p_camera, p_shadow, hdr_big
 
     # -- 12. diff_small: gradients of the Cornell box through kernels A and C
     from lens_flare_tpu_torch import renderer as rmod

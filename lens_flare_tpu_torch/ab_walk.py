@@ -38,10 +38,12 @@ each measures:
   (``frame_s``), then one frame under ``torch.profiler``: device ms and
   launches per kernel, A's, B's, C's and D's ms per frame, and the device's
   busy share (the union of its kernel and copy intervals over the traced
-  frame's wall time).
+  frame's wall time); ``frame_profile`` also reports G's ms per frame.
 
 It prints one JSON line per step and writes them all, with the card's
 ``nvidia-smi`` line, to ``--out`` (default ``_build/ab_walk.json``).
+Kernel G, the binary-BVH walk, has an A/B of its own, against a baseline
+from before its packed layout: ``ab_bvh.py``.
 """
 
 from __future__ import annotations
@@ -70,14 +72,15 @@ BENCH_LANES = 1 << 18  # the kernel bench's wavefront (E's and F's path)
 REPEATS = 20
 ORDER = "BCCB"  # B the baseline, C this checkout
 DEFAULT_OUT = Path(__file__).resolve().parent / "_build" / "ab_walk.json"
-# A's, D's, B's and C's kernels as the profiler names them: the warp walk,
-# and the names they had before it took them (A's one-thread-per-ray
+# A's, D's, B's, C's and G's kernels as the profiler names them: the warp
+# walk, and the names they had before it took them (A's one-thread-per-ray
 # kernel, the one-flag template of B and D)
 TRACE_NAMES = {
     "A": ("warp_walk_kernel<false, false", "tree_kernel("),
     "D": ("warp_walk_kernel<false, true", "warp_walk_kernel<false>"),
     "B": ("warp_walk_kernel<true, false", "warp_walk_kernel<true>"),
     "C": ("brute_kernel<",),
+    "G": ("bvh_walk_kernel<",),
 }
 # the small frame (chip_smoke.py phase 4): 320x240 of the 128-triangle terrain
 SMALL = dict(width=320, height=240, ns_aa=1, max_ray_depth=4, indirect=True, seed=0)

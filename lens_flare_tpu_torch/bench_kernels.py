@@ -241,7 +241,8 @@ def bound(cs, key, any_hit, rays, out, tests=None):
 
 # kernel G (the binary-BVH walk): per lane o, d, t_lo, t_hi in; t, prim,
 # b1, b2, tests and the found byte out; per node its box (24 B) and links
-# (16 B); per primitive tested its row and its prim_order entry
+# (16 B); per primitive tested its row and its prim_order entry.  The least
+# work of the walk in the FlatBVH's terms, whatever layout a kernel reads.
 G_LANE_BYTES = 32 + 21
 G_NODE_BYTES = 24 + 16
 G_SPHERE_BYTES = 16
@@ -259,7 +260,7 @@ def bvh_bound(bv, rays, out, visits):
     """
     o = rays[0]
     tests = out[5]
-    ids = bv.prim_order[visits["prims"]].long()
+    ids = bv.rows.view(torch.int32)[:, 11][visits["prims"]].long()  # the tested primitives' ids
     n_tri = int((ids < bv.num_tris).sum())
     nbytes = (o.shape[0] * G_LANE_BYTES + int(visits["nodes"].sum()) * G_NODE_BYTES
               + n_tri * (TRI_ROW_BYTES + 4) + (ids.numel() - n_tri) * (G_SPHERE_BYTES + 4))

@@ -40,7 +40,7 @@ SIGNATURES = {
     "lf_brute": [_P] * 6 + [_I] * 5 + [_P] * 5,
     "lf_tree_closest_mxu": [_P] * 9 + [_I] * 5 + [_P] * 5,
     "lf_tree_group": [_P] * 9 + [_I] * 9 + [_P] * 6,
-    "lf_bvh_walk": [_P] * 9 + [_I] * 3 + [_P] * 7,
+    "lf_bvh_walk": [_P] * 7 + [_I] * 3 + [_P] * 8,
 }
 
 _lock = threading.Lock()

@@ -31,7 +31,8 @@
 //   G  lf_bvh_walk      <- lens_flare_tpu/ops/intersect.py:152 _make_traverse
 //                          (intersect_rays :262, occluded_rays :331): the
 //                          binary-BVH stack walk the JAX package takes past
-//                          the cluster tree's capacity (one ray per thread,
+//                          the cluster tree's capacity (one ray per thread
+//                          in persistent warps over child-pair records,
 //                          closest hit and any hit: two instances)
 //
 // Every kernel walks the same two-level cluster tree (accel/wide.py: B1 top
@@ -1078,17 +1079,50 @@ extern "C" int lf_tree_group(const float* o, const float* d, const float* t_lo,
 // Kernel G: the binary-BVH walk (lens_flare_tpu/ops/intersect.py:152-259)
 // ---------------------------------------------------------------------------
 //
-// One ray per thread, its stack of node ids in local memory.  The tree is
-// accel/bvh.py's FlatBVH: node boxes (M, 8) [min.xyz | max.xyz | pad],
-// links (M, 4) [left, right, start, count] with count > 0 at leaves,
-// prim_order (P,) over triangles then spheres; triangle rows (T, 12)
-// [p0 | e1 | e2 | pad] in scene order, spheres (S, 8) [center | radius | pad].
-// Every step follows the plain version (ops/intersect.py:bvh_walk_plain):
+// Replaces the JAX package's XLA walk, _make_traverse (ops/intersect.py:152),
+// which the port takes past the cluster tree's capacity.  The tree is
+// accel/bvh.py's FlatBVH as ops/intersect.py:bvh_to_device packs it:
+// - root (8,) [min.xyz | max.xyz | link | 0]: the root's box, for the first
+//   slab test, and its link;
+// - nodes (R, 16): one 64-byte record per interior node, in the tree's
+//   depth-first order: [left min.xyz | left max.xyz | right min.xyz |
+//   right max.xyz | left link | right link | left id | right id];
+// - rows (P, 12): one 48-byte row per primitive in leaf (prim_order) order,
+//   triangles [p0 | e1 | e2 | id], spheres [center | radius | 0 x 7 | id].
+// A link is a record index (>= 0) for an interior child, or
+// ~(start << 3 | count) for a leaf, its range of rows; a missing child
+// (only the empty tree's root lacks children) has NaN bounds, which fail
+// every slab test.  The node ids serve the plain version's visit counts.
+//
+// What bounds it: latency.  The least bytes the walk must move
+// (bench_kernels.bvh_bound) take 2-3% of the one-thread-per-ray walk's
+// time: each ray runs a chain of dependent loads, most of them from HBM
+// past ~1M triangles (the 16.8M-triangle tree is 314 MB of records).  The
+// design shortens the chain and keeps the SMs full:
+// - one round trip per interior step: a record's four 16-byte loads go out
+//   together and hold both children's boxes and links, so a leaf child's
+//   range comes with its parent and costs no fetch of its own (the links
+//   and the boxes were two dependent trips);
+// - a leaf's up to 4 rows are contiguous and all their loads go out before
+//   the first test (their addresses do not depend on best_t, only the clip
+//   does); no prim_order load stands before a row's;
+// - the stack lives in shared memory, 64 entries x 128 threads = 32 KB a
+//   block, entry k of thread i at [k * 128 + i] (one bank per lane), not in
+//   local memory;
+// - while-while scheduling (Aila and Laine, "Understanding the Efficiency
+//   of Ray Traversal on GPUs", HPG 2009): each lane steps through interior
+//   records until it holds a leaf or is done, then the warp tests its
+//   leaves; persistent warps, as many as fit on the card, take 32 rays at
+//   a time from a global counter, so no warp idles while rays remain.  No
+//   speculative traversal: it would test child boxes under another clip.
+// Per ray, every box and primitive test comes in the plain version's order
+// (ops/intersect_cuda.py:bvh_walk_plain), so the outputs are its bit for bit:
 // - a leaf tests its up to 4 primitives in order, each against
 //   [t_lo, min(t_hi, best_t)], the winner on strictly smaller t, and each
 //   counts as a test (spheres too); any hit stops after the leaf that hit;
-// - an interior node slab-tests both children under the same clip and
-//   pushes the far one first (near = smaller entry t, left on ties);
+// - an interior node slab-tests both children under the same clip; the near
+//   one (the smaller entry t, left on ties) is walked next and the far one
+//   pushed, as the XLA walk pushes far then near and pops near;
 // - Moller-Trumbore multiplies by the reciprocal of det (0 where det == 0),
 //   the sphere quadratic divides by 2a; misses keep t = 1e30, prim = -1.
 // A ray with a NaN among o, d, t_lo, t_hi misses the root, as the plain
@@ -1098,15 +1132,16 @@ extern "C" int lf_tree_group(const float* o, const float* d, const float* t_lo,
 #define BVH_MAX_LEAF 4
 #define BVH_MAX_STACK 64
 #define BVH_THREADS 128
+#define BVH_LEAF_BITS 3
+#define BVH_DONE (-2147483647 - 1)  // no node: never a link (start < 2^28, count <= 4)
 
 namespace {
 
-__device__ __forceinline__ bool bvh_box(const float* __restrict__ boxes, int node, const Ray& r,
-                                        float t_lo, float t_hi, float& t_entry) {
-  const float4 p = __ldg(reinterpret_cast<const float4*>(boxes) + 2 * (size_t)node);
-  const float4 q = __ldg(reinterpret_cast<const float4*>(boxes) + 2 * (size_t)node + 1);
-  const float mn[3] = {p.x, p.y, p.z};
-  const float mx[3] = {p.w, q.x, q.y};
+// _ray_box (ops/intersect.py:102) for the box [mn0..2] x [mx0..2].
+__device__ __forceinline__ bool bvh_box(float mn0, float mn1, float mn2, float mx0, float mx1, float mx2,
+                                        const Ray& r, float t_lo, float t_hi, float& t_entry) {
+  const float mn[3] = {mn0, mn1, mn2};
+  const float mx[3] = {mx0, mx1, mx2};
   float t_min = 0.0f, t_max = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -1120,9 +1155,11 @@ __device__ __forceinline__ bool bvh_box(const float* __restrict__ boxes, int nod
   return (t_min <= t_max) && (t_max >= t_lo) && (t_min <= t_hi);
 }
 
-__device__ __forceinline__ bool bvh_triangle(const float* __restrict__ tri, int p, const Ray& r,
-                                             float limit, float& t, float& b1, float& b2) {
-  const MT m = mt_terms4(tri + 12 * (size_t)p, r);
+// Moller-Trumbore on a row [p0 | e1 | e2 | id] held in three float4.
+__device__ __forceinline__ bool bvh_triangle(const float4 (&q)[3], const Ray& r, float limit, float& t,
+                                             float& b1, float& b2) {
+  const float v[9] = {q[0].x, q[0].y, q[0].z, q[0].w, q[1].x, q[1].y, q[1].z, q[1].w, q[2].x};
+  const MT m = mt_terms(v, r);
   const float inv_det = m.det != 0.0f ? 1.0f / m.det : 0.0f;
   t = m.tt_n * inv_det;
   b1 = m.bb1_n * inv_det;
@@ -1131,9 +1168,8 @@ __device__ __forceinline__ bool bvh_triangle(const float* __restrict__ tri, int 
          (b2 >= 0.0f) && (b2 <= 1.0f) && (b1 + b2 <= 1.0f);
 }
 
-__device__ __forceinline__ bool bvh_sphere(const float* __restrict__ sph, int s, const Ray& r,
-                                           float limit, float& t) {
-  const float4 c = __ldg(reinterpret_cast<const float4*>(sph) + 2 * (size_t)s);
+// The sphere quadratic on a row's first float4 [center | radius].
+__device__ __forceinline__ bool bvh_sphere(const float4 c, const Ray& r, float limit, float& t) {
   const float ocx = r.o[0] - c.x, ocy = r.o[1] - c.y, ocz = r.o[2] - c.z;
   const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
   const float a = dx * dx + dy * dy + dz * dz;
@@ -1149,89 +1185,156 @@ __device__ __forceinline__ bool bvh_sphere(const float* __restrict__ sph, int s,
   return (disc >= 0.0f) && (t1_ok || t2_ok);
 }
 
+struct BvhHit {
+  float t = BVH_INF, b1 = 0.0f, b2 = 0.0f;
+  int prim = -1, tests = 0;
+  bool found = false;
+};
+
+// One ray's walk; stack is this thread's column of the block's shared stack.
+template <bool ANY_HIT>
+__device__ __forceinline__ BvhHit bvh_walk_ray(const Ray& r, float4 root0, float4 root1,
+                                               const float4* __restrict__ nodes,
+                                               const float4* __restrict__ rows, int num_tris,
+                                               int* stack) {
+  BvhHit h;
+  int cur = BVH_DONE, sp = 0;
+  float t_entry;
+  if (r.finite && bvh_box(root0.x, root0.y, root0.z, root0.w, root1.x, root1.y, r, r.t_lo, r.t_hi,
+                          t_entry))
+    cur = __float_as_int(root1.z);
+  while (cur != BVH_DONE) {
+    // interior records until this lane holds a leaf or is done
+    while (cur >= 0) {
+      const float4* rec = nodes + 4 * (size_t)cur;
+      const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+      const int2 link = __ldg(reinterpret_cast<const int2*>(rec + 3));
+      const float limit = fminf(r.t_hi, h.t);
+      float l_t, r_t;
+      const bool l_ok = bvh_box(a.x, a.y, a.z, a.w, b.x, b.y, r, r.t_lo, limit, l_t);
+      const bool r_ok = bvh_box(b.z, b.w, c.x, c.y, c.z, c.w, r, r.t_lo, limit, r_t);
+      const bool near_left = l_t <= r_t;
+      const int far = near_left ? link.y : link.x, near = near_left ? link.x : link.y;
+      const bool far_ok = near_left ? r_ok : l_ok, near_ok = near_left ? l_ok : r_ok;
+      if (near_ok) {
+        if (far_ok && sp < BVH_MAX_STACK) stack[BVH_THREADS * sp++] = far;
+        cur = near;
+      } else if (far_ok) {
+        cur = far;
+      } else {
+        cur = sp > 0 ? stack[BVH_THREADS * --sp] : BVH_DONE;
+      }
+    }
+    if (cur == BVH_DONE) break;
+    // a leaf: every row's loads first, then the tests in order
+    const int range = ~cur;
+    const int first = range >> BVH_LEAF_BITS, count = range & ((1 << BVH_LEAF_BITS) - 1);
+    float4 q[BVH_MAX_LEAF][3];
+#pragma unroll
+    for (int s = 0; s < BVH_MAX_LEAF; ++s) {
+      if (s < count) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) q[s][k] = __ldg(rows + 3 * ((size_t)first + s) + k);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < BVH_MAX_LEAF; ++s) {
+      if (s < count) {
+        const int p = __float_as_int(q[s][2].w);
+        const float limit = fminf(r.t_hi, h.t);
+        const bool is_tri = p < num_tris;
+        float t, b1 = 0.0f, b2 = 0.0f;
+        const bool valid = is_tri ? bvh_triangle(q[s], r, limit, t, b1, b2)
+                                  : bvh_sphere(q[s][0], r, limit, t);
+        ++h.tests;
+        if (valid && t < h.t) {
+          h.t = t;
+          h.prim = p;
+          if (is_tri) {
+            h.b1 = b1;
+            h.b2 = b2;
+          }
+        }
+        h.found = h.found || valid;
+      }
+    }
+    cur = (ANY_HIT && h.found) || sp == 0 ? BVH_DONE : stack[BVH_THREADS * --sp];
+  }
+  return h;
+}
+
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(BVH_THREADS)
     bvh_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_lo, const float* __restrict__ t_hi,
-                    const float* __restrict__ boxes, const int* __restrict__ links,
-                    const int* __restrict__ prim_order, const float* __restrict__ tri,
-                    const float* __restrict__ sph, int n, int num_tris, float* __restrict__ out_t,
-                    int* __restrict__ out_prim, float* __restrict__ out_b1,
-                    float* __restrict__ out_b2, unsigned char* __restrict__ out_found,
-                    int* __restrict__ out_tests) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(o, d, t_lo, t_hi, i);
-  float best_t = BVH_INF, best_b1 = 0.0f, best_b2 = 0.0f;
-  int best_p = -1, tests = 0, sp = 0;
-  bool found = false;
-  int stack[BVH_MAX_STACK];
-  float t_entry;
-  if (r.finite && bvh_box(boxes, 0, r, r.t_lo, r.t_hi, t_entry)) stack[sp++] = 0;
-  while (sp > 0 && !(ANY_HIT && found)) {
-    const int node = stack[--sp];
-    const int4 link = __ldg(reinterpret_cast<const int4*>(links) + node);
-    if (link.w > 0) {
-      const int count = link.w < BVH_MAX_LEAF ? link.w : BVH_MAX_LEAF;
-      for (int s = 0; s < count; ++s) {
-        const int p = __ldg(prim_order + link.z + s);
-        const float limit = fminf(r.t_hi, best_t);
-        const bool is_tri = p < num_tris;
-        float t, b1 = 0.0f, b2 = 0.0f;
-        const bool valid = is_tri ? bvh_triangle(tri, p, r, limit, t, b1, b2)
-                                  : bvh_sphere(sph, p - num_tris, r, limit, t);
-        ++tests;
-        if (valid && t < best_t) {
-          best_t = t;
-          best_p = p;
-          if (is_tri) {
-            best_b1 = b1;
-            best_b2 = b2;
-          }
-        }
-        found = found || valid;
-      }
-    } else {
-      const float limit = fminf(r.t_hi, best_t);
-      const int left = link.x, right = link.y;
-      float l_t = 0.0f, r_t = 0.0f;
-      const bool l_ok = left >= 0 && bvh_box(boxes, left, r, r.t_lo, limit, l_t);
-      const bool r_ok = right >= 0 && bvh_box(boxes, right, r, r.t_lo, limit, r_t);
-      const bool near_left = l_t <= r_t;
-      const int far = near_left ? right : left, near = near_left ? left : right;
-      const bool far_ok = near_left ? r_ok : l_ok, near_ok = near_left ? l_ok : r_ok;
-      if (far_ok && sp < BVH_MAX_STACK) stack[sp++] = far;
-      if (near_ok && sp < BVH_MAX_STACK) stack[sp++] = near;
+                    const float* __restrict__ root, const float* __restrict__ nodes,
+                    const float* __restrict__ rows, int n, int num_tris, int* __restrict__ taken,
+                    float* __restrict__ out_t, int* __restrict__ out_prim,
+                    float* __restrict__ out_b1, float* __restrict__ out_b2,
+                    unsigned char* __restrict__ out_found, int* __restrict__ out_tests) {
+  __shared__ int stacks[BVH_MAX_STACK * BVH_THREADS];
+  const float4 root0 = __ldg(reinterpret_cast<const float4*>(root));
+  const float4 root1 = __ldg(reinterpret_cast<const float4*>(root) + 1);
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(taken, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n) break;
+    const int i = base + lane;
+    if (i < n) {
+      const Ray r = load_ray(o, d, t_lo, t_hi, i);
+      const BvhHit h = bvh_walk_ray<ANY_HIT>(r, root0, root1, reinterpret_cast<const float4*>(nodes),
+                                             reinterpret_cast<const float4*>(rows), num_tris,
+                                             stacks + threadIdx.x);
+      out_t[i] = h.t;
+      out_prim[i] = h.prim;
+      out_b1[i] = h.b1;
+      out_b2[i] = h.b2;
+      out_found[i] = h.found ? 1 : 0;
+      out_tests[i] = h.tests;
     }
   }
-  out_t[i] = best_t;
-  out_prim[i] = best_p;
-  out_b1[i] = best_b1;
-  out_b2[i] = best_b2;
-  out_found[i] = found ? 1 : 0;
-  out_tests[i] = tests;
+}
+
+// Blocks of a persistent launch: as many as fit on the device at once, and
+// no more than n rays need.
+template <bool ANY_HIT>
+int bvh_grid(int n, cudaError_t& err) {
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bvh_walk_kernel<ANY_HIT>,
+                                                        BVH_THREADS, 0);
+  const int need = (n + BVH_THREADS - 1) / BVH_THREADS;
+  const int fit = sms * (per_sm > 0 ? per_sm : 1);
+  return need < fit ? need : fit;
 }
 
 }  // namespace
 
-// Kernel G: boxes (M, 8), links (M, 4) int, tri (max(T, 1), 12) and sph
-// (max(S, 1), 8), 16-byte aligned (the wrapper checks, and that the tree's
-// depth fits BVH_MAX_STACK); out_found is one byte per ray.
+// Kernel G: root (8,), nodes (max(R, 1), 16) and rows (max(P, 1), 12)
+// float32, 16-byte aligned (the wrapper checks, and that the tree's depth
+// fits BVH_MAX_STACK); taken is one int32 set to 0 (the rays the persistent
+// warps have taken); out_found is one byte per ray.
 extern "C" int lf_bvh_walk(const float* o, const float* d, const float* t_lo, const float* t_hi,
-                           const float* boxes, const int* links, const int* prim_order,
-                           const float* tri, const float* sph, int n, int num_tris, int any_hit,
-                           float* out_t, int* out_prim, float* out_b1, float* out_b2,
-                           unsigned char* out_found, int* out_tests, void* stream) {
+                           const float* root, const float* nodes, const float* rows, int n,
+                           int num_tris, int any_hit, int* taken, float* out_t, int* out_prim,
+                           float* out_b1, float* out_b2, unsigned char* out_found, int* out_tests,
+                           void* stream) {
   if (n > 0) {
-    const int grid = (n + BVH_THREADS - 1) / BVH_THREADS;
+    cudaError_t err;
+    const int grid = any_hit ? bvh_grid<true>(n, err) : bvh_grid<false>(n, err);
+    if (err != cudaSuccess) return (int)err;
     if (any_hit)
       bvh_walk_kernel<true><<<grid, BVH_THREADS, 0, (cudaStream_t)stream>>>(
-          o, d, t_lo, t_hi, boxes, links, prim_order, tri, sph, n, num_tris, out_t, out_prim,
-          out_b1, out_b2, out_found, out_tests);
+          o, d, t_lo, t_hi, root, nodes, rows, n, num_tris, taken, out_t, out_prim, out_b1, out_b2,
+          out_found, out_tests);
     else
       bvh_walk_kernel<false><<<grid, BVH_THREADS, 0, (cudaStream_t)stream>>>(
-          o, d, t_lo, t_hi, boxes, links, prim_order, tri, sph, n, num_tris, out_t, out_prim,
-          out_b1, out_b2, out_found, out_tests);
+          o, d, t_lo, t_hi, root, nodes, rows, n, num_tris, taken, out_t, out_prim, out_b1, out_b2,
+          out_found, out_tests);
   }
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,11 @@ F   lf_tree_group          _make_kernel(top_batch>1)   :214, :699       ``tree_p
 G   lf_bvh_walk            (XLA) ops/intersect.py:152 _make_traverse    :func:`bvh_walk_plain`
 ==  =====================  ===========================================  ==================================
 
-G walks the binary SAH BVH (``accel/bvh.py``) one ray per thread: the JAX
-package's XLA fallback, which the port takes for scenes past the cluster
-tree's capacity (``accel/wide.py:MAX_TRIS``) or when a renderer asks for it
+G walks the binary SAH BVH (``accel/bvh.py``), packed as child-pair
+records and leaf-ordered rows (:class:`BvhArrays`), one ray per thread in
+persistent warps with its stack in shared memory: the JAX package's XLA
+fallback, which the port takes for scenes past the cluster tree's capacity
+(``accel/wide.py:MAX_TRIS``) or when a renderer asks for it
 (``Renderer(use_wide_tree=False)``), through :func:`bvh_walk`.
 
 E (the coefficient walk) and F (the top-batched group walk, closest hit,
@@ -44,7 +46,7 @@ a time, read coalesced: a slot's 48-byte triangle row, or E's 160-byte
 coefficient row; F with a pass before the walk for its tiles' active-top
 lists, and for any hit one after it for the lanes charged past their own
 end).  C stages a scene's rows in shared memory once per block and tests
-one ray per thread against them.  All six give their plain version's
+one ray per thread against them.  All seven give their plain version's
 outputs bit for bit, ``tests`` included.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -82,6 +84,7 @@ SHADE_THRESHOLD_BYTES = 12 * 2**20
 BVH_INF = 1e30  # the binary walk's "no hit" distance (ops/intersect.py:26)
 BVH_MAX_LEAF = 4  # primitive slots scanned per leaf (intersect_rays' max_leaf)
 BVH_MAX_STACK = 64  # traversal stack entries per ray (intersect_rays' max_stack)
+BVH_LEAF_BITS = 3  # a leaf link is ~(start << BVH_LEAF_BITS | count)
 
 
 @dataclass
@@ -671,15 +674,20 @@ def brute_plain(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
 
 
 class BvhArrays(NamedTuple):
-    """A binary BVH (``accel/bvh.py:FlatBVH``) and its primitives, as kernel G reads them."""
+    """A binary BVH (``accel/bvh.py:FlatBVH``) and its primitives, packed for kernel G (``ops/intersect.py:bvh_to_device``).
 
-    node_box: torch.Tensor  # (M, 8) float32 [min.xyz | max.xyz | pad 2]
-    node_link: torch.Tensor  # (M, 4) int32 [left, right, start, count]; count > 0 iff leaf
-    prim_order: torch.Tensor  # (max(P, 1),) int32 primitive ids (triangles, then spheres)
-    tri: torch.Tensor  # (max(T, 1), 12) float32 [p0 | e1 | e2 | pad] in scene order
-    sph: torch.Tensor  # (max(S, 1), 8) float32 [center | radius | pad]
+    A link is a record index (>= 0) for an interior child, or
+    ``~(start << BVH_LEAF_BITS | count)`` for a leaf: ``count`` rows from
+    ``start``.  The node ids are the ``FlatBVH``'s; only the plain version
+    reads them, to report its visits in the tree's own terms.
+    """
+
+    root: torch.Tensor  # (8,) float32 [min.xyz | max.xyz | link | 0]: the root's box and link
+    nodes: torch.Tensor  # (max(R, 1), 16) float32 [left min, max | right min, max | links (2) | ids (2)]
+    rows: torch.Tensor  # (max(P, 1), 12) float32 primitive rows in leaf order, the id's bits in word 11
     num_tris: int
     n_spheres: int
+    num_nodes: int  # M, the FlatBVH's nodes
     max_depth: int  # levels of the tree: the most stack entries a walk needs
 
 
@@ -724,22 +732,23 @@ def _bvh_sphere(sph, o, d, t_lo, limit):
 
 
 def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visits: dict | None = None):
-    """Plain version of kernel G: the binary-BVH stack walk of ``_make_traverse``.
+    """Plain version of kernel G: the binary-BVH stack walk of ``_make_traverse``, over the packed layout.
 
     Returns (t, prim, b1, b2, found, tests), the XLA walk's outputs: t is
     BVH_INF and prim -1 on a miss; b1, b2 are the last triangle winner's.
-    Per ray: the root's slab test, then pop a node; a leaf tests its up to
-    BVH_MAX_LEAF primitives in order against [t_lo, min(t_hi, best_t)]
-    (each a test, the winner on strictly smaller t); an interior node
-    slab-tests both children under the same clip and pushes the far one
-    first, so the near one pops first (near = the smaller entry t, left on
-    ties).  Any hit stops once a leaf found a hit.  The reciprocal of d is
-    NaN-safe (1e-12 clamp).  Lanes run in lockstep, one node per live lane
-    per step; a lane's stack holds BVH_MAX_STACK entries.
+    Per ray: the root's slab test, then pop a node's link; a leaf tests its
+    up to BVH_MAX_LEAF rows in order against [t_lo, min(t_hi, best_t)]
+    (each a test, the winner on strictly smaller t); an interior node's
+    record slab-tests both children under the same clip and pushes the far
+    one first, so the near one pops first (near = the smaller entry t, left
+    on ties).  Any hit stops once a leaf found a hit.  The reciprocal of d
+    is NaN-safe (1e-12 clamp).  Lanes run in lockstep, one node per live
+    lane per step; a lane's stack holds BVH_MAX_STACK entries.
 
     ``visits``: an optional dict that receives, for the bound of a call,
-    ``nodes`` (M,) and ``prims`` (P,) masks of the nodes popped and the
-    primitives tested, and ``interior`` (N,) each lane's interior nodes.
+    ``nodes`` (M,) and ``prims`` (P,) masks of the ``FlatBVH``'s nodes
+    popped and of the rows (``prim_order`` slots) tested, and ``interior``
+    (N,) each lane's interior nodes.
     """
     check_bvh_depth(bv.max_depth)
     n = o.shape[0]
@@ -751,13 +760,18 @@ def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visit
     out_b2 = torch.zeros(n, dtype=torch.float32, device=dev)
     found = torch.zeros(n, dtype=torch.bool, device=dev)
     tests = torch.zeros(n, dtype=torch.int32, device=dev)
-    stack = torch.zeros((n, BVH_MAX_STACK), dtype=torch.int64, device=dev)
-    root, _ = _bvh_box(bv.node_box[:1].expand(n, 8), o, inv, t_lo, t_hi)
+    # slot 0 holds the root's link and node id 0, live where the root's slab test passes
+    root_link = int(bv.root[6:7].view(torch.int32))
+    stack = torch.full((n, BVH_MAX_STACK), root_link, dtype=torch.int64, device=dev)
+    ids = torch.zeros((n, BVH_MAX_STACK), dtype=torch.int64, device=dev)  # node ids, for visits
+    root, _ = _bvh_box(bv.root[None, :6].expand(n, 6), o, inv, t_lo, t_hi)
     sp = root.to(torch.int64)
-    n_tri, n_prim = bv.num_tris, bv.prim_order.shape[0]
+    words = bv.nodes.view(torch.int32)
+    row_ids = bv.rows.view(torch.int32)[:, 11]
+    n_tri, n_rows = bv.num_tris, bv.rows.shape[0]
     if visits is not None:
-        visits["nodes"] = torch.zeros(bv.node_box.shape[0], dtype=torch.bool, device=dev)
-        visits["prims"] = torch.zeros(n_prim, dtype=torch.bool, device=dev)
+        visits["nodes"] = torch.zeros(bv.num_nodes, dtype=torch.bool, device=dev)
+        visits["prims"] = torch.zeros(n_rows, dtype=torch.bool, device=dev)
         visits["interior"] = torch.zeros(n, dtype=torch.int32, device=dev)
     while True:
         alive = (sp > 0) & ~found if any_hit else sp > 0
@@ -765,23 +779,25 @@ def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visit
         if lanes.numel() == 0:
             break
         sp_l = sp[lanes] - 1
-        node = stack[lanes, sp_l]
-        left, right, start, count = bv.node_link[node].long().unbind(1)
+        link = stack[lanes, sp_l]
         ol, dl, il, lo, hi = o[lanes], d[lanes], inv[lanes], t_lo[lanes], t_hi[lanes]
         bt, bp, b1, b2 = best_t[lanes], best_p[lanes], out_b1[lanes], out_b2[lanes]
         fd, ts = found[lanes], tests[lanes]
-        is_leaf = count > 0
+        is_leaf = link < 0
+        rng = torch.where(is_leaf, ~link, 0)
+        start, count = rng >> BVH_LEAF_BITS, rng & ((1 << BVH_LEAF_BITS) - 1)
         for s in range(BVH_MAX_LEAF):
             ok = is_leaf & (s < count)
-            slot = torch.clamp(start + s, max=n_prim - 1)
-            p = bv.prim_order[slot].long()
+            slot = torch.clamp(start + s, max=n_rows - 1)
+            row = bv.rows[slot]
+            p = row_ids[slot].long()
             is_tri = p < n_tri
             limit = torch.minimum(hi, bt)
             valid = torch.zeros_like(ok)
             t = torch.full_like(bt, BVH_INF)
             tb1 = tb2 = torch.zeros_like(bt)
             if n_tri:
-                det, tt_n, bb1_n, bb2_n = _mt_terms(bv.tri[torch.clamp(p, max=n_tri - 1)], ol, dl)
+                det, tt_n, bb1_n, bb2_n = _mt_terms(row, ol, dl)
                 inv_det = torch.where(det != 0, 1.0 / det, 0.0)
                 t, tb1, tb2 = tt_n * inv_det, bb1_n * inv_det, bb2_n * inv_det
                 valid = (
@@ -789,7 +805,7 @@ def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visit
                     & (tb1 >= 0) & (tb1 <= 1) & (tb2 >= 0) & (tb2 <= 1) & (tb1 + tb2 <= 1)
                 )
             if bv.n_spheres:
-                sv, st = _bvh_sphere(bv.sph[torch.clamp(p - n_tri, 0, bv.n_spheres - 1)], ol, dl, lo, limit)
+                sv, st = _bvh_sphere(row, ol, dl, lo, limit)
                 valid = torch.where(is_tri, valid, sv)
                 t = torch.where(is_tri, t, st)
             valid = valid & ok
@@ -804,23 +820,28 @@ def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visit
                 visits["prims"][slot[ok]] = True
         limit = torch.minimum(hi, bt)
         interior = ~is_leaf
-        l_ok, l_t = _bvh_box(bv.node_box[left.clamp_min(0)], ol, il, lo, limit)
-        r_ok, r_t = _bvh_box(bv.node_box[right.clamp_min(0)], ol, il, lo, limit)
-        l_ok = l_ok & interior & (left >= 0)
-        r_ok = r_ok & interior & (right >= 0)
+        rec = bv.nodes[torch.where(interior, link, 0)]
+        l_ok, l_t = _bvh_box(rec[:, 0:6], ol, il, lo, limit)
+        r_ok, r_t = _bvh_box(rec[:, 6:12], ol, il, lo, limit)
+        l_ok = l_ok & interior
+        r_ok = r_ok & interior
         near_left = l_t <= r_t
-        far, far_ok = torch.where(near_left, right, left), torch.where(near_left, r_ok, l_ok)
-        near, near_ok = torch.where(near_left, left, right), torch.where(near_left, l_ok, r_ok)
+        w = words[torch.where(interior, link, 0)].long()
+        far, near = torch.where(near_left, w[:, 13], w[:, 12]), torch.where(near_left, w[:, 12], w[:, 13])
+        far_id, near_id = torch.where(near_left, w[:, 15], w[:, 14]), torch.where(near_left, w[:, 14], w[:, 15])
+        far_ok, near_ok = torch.where(near_left, r_ok, l_ok), torch.where(near_left, l_ok, r_ok)
+        if visits is not None:
+            visits["nodes"][ids[lanes, sp_l]] = True
+            visits["interior"][lanes] += interior.to(torch.int32)
         stack[lanes, sp_l] = torch.where(far_ok, far, stack[lanes, sp_l])
+        ids[lanes, sp_l] = torch.where(far_ok, far_id, ids[lanes, sp_l])
         sp_l = sp_l + far_ok.long()
         top = torch.clamp(sp_l, max=BVH_MAX_STACK - 1)
         stack[lanes, top] = torch.where(near_ok, near, stack[lanes, top])
+        ids[lanes, top] = torch.where(near_ok, near_id, ids[lanes, top])
         sp[lanes] = sp_l + near_ok.long()
         best_t[lanes], best_p[lanes], out_b1[lanes], out_b2[lanes] = bt, bp, b1, b2
         found[lanes], tests[lanes] = fd, ts
-        if visits is not None:
-            visits["nodes"][node] = True
-            visits["interior"][lanes] += interior.to(torch.int32)
     return best_t, best_p, out_b1, out_b2, found, tests
 
 
@@ -829,15 +850,16 @@ def bvh_walk_plain(bv: BvhArrays, o, d, t_lo, t_hi, any_hit: bool = False, visit
 # ---------------------------------------------------------------------------
 
 
-def _check_rays(cs: CudaScene, o, d, t_lo, t_hi):
+def _check_rays(scene: torch.Tensor, o, d, t_lo, t_hi):
+    """Rays of float32 (N, 3) and (N,) on one device, that of ``scene`` (one of the scene's tensors)."""
     n = o.shape[0]
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_lo", t_lo, (n,)), ("t_hi", t_hi, (n,))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"{name}: want float32 {shape}, got {x.dtype} {tuple(x.shape)}")
         if x.device != o.device:
             raise ValueError(f"{name} is on {x.device}, o on {o.device}")
-    if cs.tri.device != o.device:
-        raise ValueError(f"scene is on {cs.tri.device}, rays on {o.device}")
+    if scene.device != o.device:
+        raise ValueError(f"scene is on {scene.device}, rays on {o.device}")
 
 
 def _check_float4_rows(*arrays):
@@ -924,6 +946,18 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 
     return out_t, out_slot, out_bary, out_tests
 
 
+def _check_bvh_arrays(bv: BvhArrays, device):
+    """Kernel G reads the root, the records and the rows as float4: on the rays' device, their own shapes,
+    contiguous, 16-byte aligned."""
+    for name, x in (("root", bv.root), ("nodes", bv.nodes), ("rows", bv.rows)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, rays on {device}")
+    _check_float4_rows(
+        ("root", bv.root, (8,)), ("nodes", bv.nodes, (max(bv.nodes.shape[0], 1), 16)),
+        ("rows", bv.rows, (max(bv.num_tris + bv.n_spheres, 1), 12)),
+    )
+
+
 def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
     """Kernel G (CUDA tensors) or :func:`bvh_walk_plain` (CPU tensors).
 
@@ -932,26 +966,19 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
     ``occluded_rays`` walk (t = 1e30 and prim = -1 on a miss).
     """
     check_bvh_depth(bv.max_depth)
-    _check_rays(bv, o, d, t_lo, t_hi)
+    _check_rays(bv.rows, o, d, t_lo, t_hi)
     if o.device.type == "cpu":
         return bvh_walk_plain(bv, o, d, t_lo, t_hi, any_hit=any_hit)
     if o.device.type != "cuda":
         raise ValueError(f"no kernel for device {o.device}")
-    n_nodes = bv.node_box.shape[0]
-    _check_float4_rows(
-        ("node_box", bv.node_box, (n_nodes, 8)), ("tri", bv.tri, (max(bv.num_tris, 1), 12)),
-        ("sph", bv.sph, (max(bv.n_spheres, 1), 8)),
-    )
-    link = bv.node_link
-    if (tuple(link.shape) != (n_nodes, 4) or link.dtype != torch.int32 or not link.is_contiguous()
-            or link.data_ptr() % 16 or bv.prim_order.dtype != torch.int32 or not bv.prim_order.is_contiguous()):
-        raise ValueError("node_link must be a contiguous, 16-byte aligned int32 (M, 4), prim_order contiguous int32")
+    _check_bvh_arrays(bv, o.device)
     from ._build import load_library
 
     lib = load_library()
     n = o.shape[0]
     dev = o.device
     o, d, t_lo, t_hi = (x.contiguous() for x in (o, d, t_lo, t_hi))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the rays the persistent warps have taken
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_prim = torch.empty(n, dtype=torch.int32, device=dev)
     out_b1 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -960,9 +987,8 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
     out_tests = torch.empty(n, dtype=torch.int32, device=dev)
     rc = lib.lf_bvh_walk(
         o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-        bv.node_box.data_ptr(), link.data_ptr(), bv.prim_order.data_ptr(), bv.tri.data_ptr(),
-        bv.sph.data_ptr(), n, bv.num_tris, int(any_hit),
-        out_t.data_ptr(), out_prim.data_ptr(), out_b1.data_ptr(), out_b2.data_ptr(),
+        bv.root.data_ptr(), bv.nodes.data_ptr(), bv.rows.data_ptr(), n, bv.num_tris, int(any_hit),
+        counter.data_ptr(), out_t.data_ptr(), out_prim.data_ptr(), out_b1.data_ptr(), out_b2.data_ptr(),
         out_found.data_ptr(), out_tests.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -972,7 +998,7 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
 
 
 def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, **kw):
-    _check_rays(cs, o, d, t_lo, t_hi)
+    _check_rays(cs.tri, o, d, t_lo, t_hi)
     if o.device.type == "cpu":
         return plain()
     if o.device.type != "cuda":

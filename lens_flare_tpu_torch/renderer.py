@@ -62,6 +62,7 @@ from .utils import image as img
 class RenderStats:
     wall_time: float = 0.0
     bvh_build_time: float = 0.0
+    bvh_pack_time: float = 0.0  # bvh_to_device: kernel G's records and rows, packed and uploaded
     total_rays: int = 0  # live wavefront lanes traced
     total_isects: int = 0  # primitive intersection tests, counted in the kernels
     total_zero_skipped: int = 0  # NEE lanes skipped as provably zero
@@ -180,7 +181,9 @@ class Renderer:
                 shade_rows=shade_rows(self.scene) if self.scene.num_triangles else None,
             )
         else:
+            t0 = time.perf_counter()
             bvh = bvh_to_device(self.scene, flat_bvh, dev)
+            self.stats.bvh_pack_time = time.perf_counter() - t0
         bokeh = None
         if self.lens_radius > 0 and (self.bokeh is not None or self.bokeh_path):
             tex = self.bokeh if self.bokeh is not None else ApertureTexture.load(self.bokeh_path)
