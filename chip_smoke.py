@@ -112,6 +112,26 @@ raises, so the script exits non-zero and prints no result):
     of the perturbation, ms per step, and the start gradient against the
     CPU's (1e-3 of its peak).
 
+20. compiled: every frame and ghost buffer above runs through captured CUDA
+    graphs (``lens_flare_tpu_torch/compiled.py``) by default, so the CLI's
+    one-shot frames (phases 8, 9, 16, 17, 19) include their capture in
+    ``frame_s``, and the timed frames of phases 3, 5 and 11 follow a warm-up
+    that captured.  ``terrain_1080p``, ``config2_frame``, ``dae_small``,
+    ``past_capacity`` and ``env_1080p`` (the sky-lit render of phase 17's
+    file) are each, at the start of their phase, rendered under
+    ``compiled.disabled()`` and then replayed (``ab_compiled.compare``):
+    film, counts, rays, tests and skipped lanes bit-equal, launches per
+    frame equal, and equal to each kernel's calls in the trace of a
+    replayed frame (a replay adds the launches its capture recorded; the
+    trace shows what the graph ran); capture s, eager and replayed
+    ``frame_s``, peak device MiB with and without capture, and the
+    replay's busy share under ``torch.profiler``, one ``[compiled:<frame>]``
+    line each.  Phases 3, 5, 8 and 11 hold their main path's launches to
+    those traced calls.  Phase 19's realistic and paraxial ghost buffers
+    are held to their eager ones per channel within ``GHOST_F32`` (energy,
+    centroid, radius: ``index_add`` reorders float sums).  The phase's line
+    sums the rows up.
+
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
 its path (0 for C's 450-triangle case, which no path traces), the largest error against its plain version, its time, the
@@ -129,6 +149,10 @@ import json
 import sys
 import time
 from pathlib import Path
+
+# the scenes and the ghost-moment checks that the smoke, the A/B scripts and the tests share
+from lens_flare_tpu_torch.flare.moments import GHOST_F32, buffer_moments, ghost_errors
+from lens_flare_tpu_torch.scene.writer import cornell_box, sky_map, terrain_dae
 
 ROOT = Path(__file__).resolve().parent
 LANES = 1 << 16  # wavefront width of the main path (Renderer.tile_pixels)
@@ -164,250 +188,18 @@ G_CASES = {
     "G_blocked_past_capacity": "terrain2897_camera_blocked",
     "G_any_hit_blocked_past_capacity": "terrain2897_shadow_blocked",
 }
+# the frames of the compiled phase: each replayed against a compiled.disabled() frame in its own phase
+COMPILED_FRAMES = ("terrain_1080p", "config2_frame", "dae_small", "past_capacity", "env_1080p",
+                   "ghost_realistic", "ghost_paraxial")
 # past_capacity's frame (1920x1080, 1 spp, depth 1): 32 camera and 32 shadow wavefronts, all through G
 PAST_CAPACITY_FRAME = {"launches": 64, "rays": 4_166_786, "isects_per_ray": "5.62"}
 PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past 512*128*256
 SPHERE_SCENE = (15, 70)  # a brute-mode terrain near BRUTE_MAX_TRIS, with spheres built in code
 BLOCKED_SCENES = (256, 512)  # config2_frame's tree and terrain_1080p's
-# the card's realistic ghosts against the CPU's, the largest difference of one ghost (``ghost_checks``):
-# float32 at ~20x float32's own rounding on either device (against float64: <= 5.9e-6 in energy and
-# radius, 3.2e-5 px in centroid, on an H100); float64, which read <= 3.8e-14 there, is the witness
-# that the card computes what the CPU does
-GHOST_F32 = {"energy": 1e-4, "centroid_px": 1e-3, "radius": 1e-4}
+# the card's realistic ghosts against the CPU's in float64 (``ghost_checks``; GHOST_F32, from
+# flare/moments.py, holds float32): float64, which read <= 3.8e-14 on an H100, is the witness that
+# the card computes what the CPU does
 GHOST_F64 = {"energy": 1e-12, "centroid_px": 1e-11, "radius": 1e-12}
-
-
-# ---------------------------------------------------------------------------
-# COLLADA documents written in code (the corpus of .dae files is not in the
-# repository); tests/test_torch_collada.py and tests/test_torch_cli.py use
-# the same writer
-# ---------------------------------------------------------------------------
-
-
-def _nums(values) -> str:
-    import numpy as np
-
-    return " ".join(f"{float(v):.9g}" for v in np.asarray(values, np.float64).ravel())
-
-
-def _transforms(ops) -> str:
-    """<translate>/<rotate>/<scale>/<matrix> elements: ops [(kind, values), ...].
-
-    The loader composes a node's elements in document order, each applied
-    after the ones before it (``collada.py:parse_node``): list them in the
-    order they act on a point (scale, rotate, translate).
-    """
-    return "".join(f"<{kind}>{_nums(vals)}</{kind}>" for kind, vals in ops)
-
-
-class DaeWriter:
-    """A COLLADA 1.4 document with the subset ``scene/collada.py`` reads.
-
-    Materials: ``{"kind": "diffuse", "albedo": rgb}`` (profile_COMMON
-    lambert), or a CGL technique: ``emission`` (radiance), ``mirror``
-    (reflectance), ``microfacet`` (alpha, eta, k), ``refraction``
-    (transmittance, roughness, ior), ``glass`` (transmittance, reflectance,
-    roughness, ior).  Lights: ``ambient``, ``directional``, ``point``,
-    ``spot`` (falloff_angle, falloff_exponent) and ``area``, in the CGL
-    profile or technique_common.  Every node takes a list of transforms and
-    may hold child nodes (``group``).
-    """
-
-    def __init__(self, up_axis: str = "Y_UP"):
-        self.up_axis = up_axis
-        self.libs = {k: [] for k in ("cameras", "lights", "effects", "materials", "geometries")}
-        self.nodes = []
-        self._n = 0
-
-    def _id(self, kind: str) -> str:
-        self._n += 1
-        return f"{kind}{self._n}"
-
-    def _material(self, mat) -> str:
-        eid, mid = self._id("effect"), self._id("material")
-        kind = mat["kind"]
-        if kind == "diffuse":
-            body = (f"<profile_COMMON><technique sid=\"common\"><lambert><diffuse><color>"
-                    f"{_nums(mat['albedo'])} 1</color></diffuse></lambert></technique></profile_COMMON>")
-        else:
-            fields = "".join(f"<{k}>{_nums(v)}</{k}>" for k, v in mat.items() if k != "kind")
-            body = f"<extra><technique profile=\"CGL\"><{kind}>{fields}</{kind}></technique></extra>"
-        self.libs["effects"].append(f"<effect id=\"{eid}\">{body}</effect>")
-        self.libs["materials"].append(f"<material id=\"{mid}\"><instance_effect url=\"#{eid}\"/></material>")
-        return mid
-
-    def _node(self, inner: str, transforms=(), parent=None) -> str:
-        node = f"<node id=\"{self._id('node')}\">{_transforms(transforms)}{inner}</node>"
-        (self.nodes if parent is None else parent).append(node)
-        return node
-
-    def _geometry_node(self, gid, material, transforms, parent):
-        bind = ""
-        if material is not None:
-            mid = self._material(material)
-            bind = (f"<bind_material><technique_common><instance_material symbol=\"m\" target=\"#{mid}\"/>"
-                    f"</technique_common></bind_material>")
-        self._node(f"<instance_geometry url=\"#{gid}\">{bind}</instance_geometry>", transforms, parent)
-
-    def camera(self, xfov=None, yfov=None, aspect_ratio=None, znear=0.01, zfar=1000.0, transforms=(), parent=None):
-        cid = self._id("camera")
-        persp = "".join(f"<{k}>{v:.9g}</{k}>" for k, v in (("xfov", xfov), ("yfov", yfov), ("aspect_ratio", aspect_ratio),
-                                                        ("znear", znear), ("zfar", zfar)) if v is not None)
-        self.libs["cameras"].append(
-            f"<camera id=\"{cid}\"><optics><technique_common><perspective>{persp}</perspective>"
-            f"</technique_common></optics></camera>")
-        self._node(f"<instance_camera url=\"#{cid}\"/>", transforms, parent)
-
-    def light(self, kind, color, transforms=(), cgl=True, parent=None, **params):
-        lid = self._id("light")
-        fields = f"<color>{_nums(color)}</color>" + "".join(f"<{k}>{v:.9g}</{k}>" for k, v in params.items())
-        tech = (f"<extra><technique profile=\"CGL\"><{kind}>{fields}</{kind}></technique></extra>" if cgl
-                else f"<technique_common><{kind}>{fields}</{kind}></technique_common>")
-        self.libs["lights"].append(f"<light id=\"{lid}\">{tech}</light>")
-        self._node(f"<instance_light url=\"#{lid}\"/>", transforms, parent)
-
-    def mesh(self, vertices, polygons, material=None, transforms=(), normals=None, triangles=False, parent=None):
-        """polygons: vertex index lists (all of 3 with triangles=True); normals (V, 3) share the indices."""
-        import numpy as np
-
-        gid = self._id("geom")
-        verts = np.asarray(vertices, np.float64).reshape(-1, 3)
-        src = (f"<source id=\"{gid}-pos\"><float_array count=\"{verts.size}\">{_nums(verts)}</float_array></source>")
-        inputs = f"<input semantic=\"VERTEX\" source=\"#{gid}-vtx\" offset=\"0\"/>"
-        stride = 1
-        if normals is not None:
-            nrm = np.asarray(normals, np.float64).reshape(-1, 3)
-            src += f"<source id=\"{gid}-nrm\"><float_array count=\"{nrm.size}\">{_nums(nrm)}</float_array></source>"
-            inputs += f"<input semantic=\"NORMAL\" source=\"#{gid}-nrm\" offset=\"1\"/>"
-            stride = 2
-        flat = np.concatenate([np.asarray(p, np.int64).ravel() for p in polygons])
-        idx = " ".join(map(str, np.repeat(flat, stride)))
-        if triangles:
-            prim = f"<triangles count=\"{len(polygons)}\">{inputs}<p>{idx}</p></triangles>"
-        else:
-            vcount = " ".join(str(len(p)) for p in polygons)
-            prim = f"<polylist count=\"{len(polygons)}\">{inputs}<vcount>{vcount}</vcount><p>{idx}</p></polylist>"
-        self.libs["geometries"].append(
-            f"<geometry id=\"{gid}\"><mesh>{src}<vertices id=\"{gid}-vtx\"><input semantic=\"POSITION\" "
-            f"source=\"#{gid}-pos\"/></vertices>{prim}</mesh></geometry>")
-        self._geometry_node(gid, material, transforms, parent)
-
-    def sphere(self, radius, material=None, transforms=(), parent=None):
-        gid = self._id("geom")
-        self.libs["geometries"].append(
-            f"<geometry id=\"{gid}\"><extra><technique profile=\"CGL\"><sphere><radius>{radius:.9g}</radius>"
-            f"</sphere></technique></extra></geometry>")
-        self._geometry_node(gid, material, transforms, parent)
-
-    def group(self, transforms=()):
-        """A node whose children are added by passing the returned list as ``parent``."""
-        children = []
-        self.nodes.append((transforms, children))
-        return children
-
-    def document(self) -> str:
-        def render(node):
-            if isinstance(node, str):
-                return node
-            transforms, children = node
-            return f"<node id=\"{self._id('node')}\">{_transforms(transforms)}{''.join(map(render, children))}</node>"
-
-        libs = "".join(f"<library_{k}>{''.join(v)}</library_{k}>" for k, v in self.libs.items())
-        nodes = "".join(render(n) for n in self.nodes)
-        return ("<?xml version=\"1.0\" encoding=\"utf-8\"?>"
-                "<COLLADA xmlns=\"http://www.collada.org/2005/11/COLLADASchema\" version=\"1.4.1\">"
-                f"<asset><up_axis>{self.up_axis}</up_axis></asset>{libs}"
-                f"<library_visual_scenes><visual_scene id=\"scene\">{nodes}</visual_scene></library_visual_scenes>"
-                "<scene><instance_visual_scene url=\"#scene\"/></scene></COLLADA>")
-
-    def write(self, path) -> Path:
-        Path(path).write_text(self.document())
-        return Path(path)
-
-
-def cornell_box(light_kinds=("area", "spot", "point", "directional"), spheres=True) -> DaeWriter:
-    """A Cornell box open toward +z: diffuse walls (quads, one wall as triangles), a microfacet
-    (gold) block, an emitting ceiling panel, mirror and glass spheres, and the lights
-    ``light_kinds``; a camera looking in."""
-    w = DaeWriter()
-    white, red, green = ({"kind": "diffuse", "albedo": c} for c in ((0.73, 0.73, 0.73), (0.63, 0.065, 0.05),
-                                                                   (0.14, 0.45, 0.091)))
-    quad = [[0, 1, 2, 3]]
-
-    def wall(corners, mat, parent=None, triangles=False):
-        polys = [[0, 1, 2], [0, 2, 3]] if triangles else quad
-        w.mesh(corners, polys, mat, parent=parent, triangles=triangles)
-
-    wall([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], white)  # floor
-    wall([[-1, 2, -1], [-1, 2, 1], [1, 2, 1], [1, 2, -1]], white)  # ceiling
-    wall([[-1, 0, -1], [-1, 2, -1], [1, 2, -1], [1, 0, -1]], white, triangles=True)  # back
-    wall([[-1, 0, -1], [-1, 0, 1], [-1, 2, 1], [-1, 2, -1]], red)  # left
-    wall([[1, 0, -1], [1, 2, -1], [1, 2, 1], [1, 0, 1]], green)  # right
-    # a gold block, nested: the child scales it, the group turns and places it
-    block = w.group([("rotate", (0, 1, 0, 20)), ("translate", (-0.35, 0.0, -0.3))])
-    cube = [[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1], [-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1]]
-    # no bottom face: one on the floor's plane would have no defined closest hit
-    faces = [[4, 7, 6, 5], [0, 4, 5, 1], [1, 5, 6, 2], [2, 6, 7, 3], [3, 7, 4, 0]]
-    w.mesh(cube, faces, {"kind": "microfacet", "alpha": 0.25, "eta": (0.143, 0.375, 1.442),
-                         "k": (3.983, 2.386, 1.603)},
-           transforms=[("scale", (0.25, 0.35, 0.25))], parent=block)
-    # an emitting panel on the ceiling: what -H (hemisphere direct light) sees
-    w.mesh([[0.35, 1.995, -0.75], [0.35, 1.995, -0.45], [0.75, 1.995, -0.45], [0.75, 1.995, -0.75]], quad,
-           {"kind": "emission", "radiance": (5.0, 4.6, 4.0)})
-    if spheres:
-        w.sphere(0.3, {"kind": "mirror", "reflectance": (0.95, 0.95, 0.95)}, [("translate", (0.45, 0.3, -0.35))])
-        w.sphere(0.25, {"kind": "glass", "transmittance": (1, 1, 1), "reflectance": (1, 1, 1), "roughness": 0,
-                        "ior": 1.5}, [("translate", (0.3, 0.25, 0.45))])
-    if "area" in light_kinds:  # facing down, just under the ceiling, 0.5 x 0.5
-        w.light("area", (6, 6, 6), [("scale", (0.5, 0.5, 0.5)), ("rotate", (1, 0, 0, -90)),
-                                    ("translate", (0, 1.98, 0))])
-    if "spot" in light_kinds:  # down and toward the back wall
-        w.light("spot", (3, 2.6, 2), [("rotate", (1, 0, 0, -70)), ("translate", (0.6, 1.7, 0.6))],
-                falloff_angle=40.0, falloff_exponent=2.0)
-    if "point" in light_kinds:
-        w.light("point", (0.6, 0.6, 0.8), [("translate", (-0.5, 1.5, 0.7))], cgl=False)
-    if "directional" in light_kinds:  # a sun above and in front of the open side
-        w.light("directional", (0.5, 0.45, 0.4), [("rotate", (1, 0, 0, 150)), ("rotate", (0, 1, 0, 20))],
-                cgl=False)
-    if "ambient" in light_kinds:
-        w.light("ambient", (0.05, 0.05, 0.06), cgl=False)
-    w.camera(xfov=50.0, yfov=40.0, znear=0.01, zfar=100.0, transforms=[("rotate", (0, 1, 0, 180))])
-    return w
-
-
-
-def terrain_dae(n_quads: int) -> DaeWriter:
-    """Terrain ``n_quads`` (``make_terrain_scene``'s heightfield, z up) as four polylists by quadrant:
-    diffuse, microfacet (copper), mirror and glass; a directional sun, a 4 x 4 area light facing
-    down from z = 6, and a camera (a <matrix>) looking down at it from above one corner."""
-    import numpy as np
-
-    from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
-
-    tri_p = make_terrain_scene(n_quads).tri_p
-    verts, inverse = np.unique(tri_p.reshape(-1, 3), axis=0, return_inverse=True)
-    tris = inverse.reshape(-1, 3)
-    centre = tri_p.mean(axis=1)
-    quadrant = (centre[:, 0] > 0).astype(np.int64) + 2 * (centre[:, 1] > 0)
-    mats = [
-        {"kind": "diffuse", "albedo": (0.55, 0.45, 0.32)},
-        {"kind": "microfacet", "alpha": 0.3, "eta": (0.2, 0.92, 1.1), "k": (3.9, 2.45, 2.14)},
-        {"kind": "mirror", "reflectance": (0.9, 0.9, 0.9)},
-        {"kind": "glass", "transmittance": (1, 1, 1), "reflectance": (1, 1, 1), "roughness": 0, "ior": 1.5},
-    ]
-    w = DaeWriter(up_axis="Z_UP")
-    for q, mat in enumerate(mats):
-        w.mesh(verts, tris[quadrant == q], mat)
-    w.light("directional", (1.3, 1.1, 0.65), [("rotate", (1, 0, 0, 140)), ("rotate", (0, 0, 1, 40))])
-    w.light("area", (4, 4, 3.6), [("scale", (4, 4, 4)), ("translate", (0, 0, 6))])
-    view = np.array([0.612, 0.5, 0.612])  # from the target toward the camera
-    view /= np.linalg.norm(view)
-    x = np.cross([0.0, 0.0, 1.0], view)
-    x /= np.linalg.norm(x)
-    m = np.eye(4)
-    m[:3, 0], m[:3, 1], m[:3, 2] = x, np.cross(view, x), -view  # (0, 0, -1) -> view
-    w.camera(xfov=35.0, yfov=20.0, znear=0.01, zfar=1000.0, transforms=[("matrix", m)])
-    return w
 
 
 def aim_at_emitter(renderer) -> None:
@@ -429,26 +221,6 @@ def aim_at_emitter(renderer) -> None:
 def pull_back(camera, factor) -> None:
     """Move a camera back along its view, away from its target, by ``factor`` times their distance."""
     camera.pos = camera.pos + (camera.pos - camera.target_pos) * factor
-
-
-def sky_map(width: int, height: int, peak: float = 6e4):
-    """An equirect sky (H, W, 3) float32: a zenith-to-horizon blue gradient, a dim ground below the
-    horizon and a sun disk of 2 degrees radius at ``peak`` (6e4 stays within HALF's 65504)."""
-    import numpy as np
-
-    theta = np.pi * (np.arange(height) + 0.5) / height  # from +y
-    phi = 2.0 * np.pi * (np.arange(width) + 0.5) / width
-    t = np.clip(theta / (np.pi / 2), 0.0, 1.0)[:, None, None]
-    sky = (1.0 - t) * np.array([0.25, 0.45, 1.0]) + t * np.array([0.9, 0.95, 1.0])
-    sky = np.where((theta > np.pi / 2)[:, None, None], np.array([0.3, 0.25, 0.2]), sky)
-    sky = np.broadcast_to(sky, (height, width, 3)).copy()
-    # the envlight convention: (theta, phi) -> (cos(phi - pi) sin(theta), cos(theta), -sin(phi - pi) sin(theta))
-    st = np.sin(theta)[:, None]
-    dirs = np.stack(np.broadcast_arrays(np.cos(phi - np.pi)[None, :] * st, np.cos(theta)[:, None],
-                                        -np.sin(phi - np.pi)[None, :] * st), axis=-1)
-    sun = np.array([0.45, 0.75, -0.48])
-    sky[dirs @ (sun / np.linalg.norm(sun)) > np.cos(np.radians(2.0))] = peak
-    return sky.astype(np.float32)
 
 
 def miss_share(renderer, cell=None) -> float:
@@ -576,34 +348,11 @@ def ghost_moments(angle, radiance, axis, width, height, device, dtype):
     from lens_flare_tpu_torch.lens.realistic import render_ghosts_stack
 
     args = [torch.tensor(v, dtype=torch.float32).to(device, dtype) for v in (angle, radiance, axis)]
-    sun = torch.ceil(args[2] * torch.tensor([width, height], device=device)).double()  # as the splat places it
-    px, py = (torch.arange(n, dtype=torch.float64, device=device) - sun[k] for k, n in enumerate((width, height)))
     out = {}
     for i, j in reference_ghost_pairs():
-        buf = render_ghosts_stack(float32_lens(device, dtype), *args, width, height, pairs=[(i, j)]).double()
-        mx, my = buf.sum(dim=0), buf.sum(dim=1)  # (W, 3) and (H, 3) marginals
-        e = mx.sum(dim=0)
-        cx, cy = (px[:, None] * mx).sum(dim=0) / e, (py[:, None] * my).sum(dim=0) / e
-        r2 = (((px[:, None] - cx) ** 2 * mx).sum(dim=0) + ((py[:, None] - cy) ** 2 * my).sum(dim=0)) / e
-        for c in range(3):
-            out[f"{i}-{j}:{'rgb'[c]}"] = (e[c].cpu(), torch.stack([cx[c], cy[c]]).cpu(), r2[c].sqrt().cpu())
+        buf = render_ghosts_stack(float32_lens(device, dtype), *args, width, height, pairs=[(i, j)])
+        out.update(buffer_moments(buf, axis, f"{i}-{j}"))
     return out
-
-
-def ghost_errors(got, want):
-    """Two ``ghost_moments`` apart, ghost by ghost: {"energy": relative difference, "centroid_px": distance
-    in pixels, "radius": relative difference}, each {"i-j:c": value}.  They hold a dim ghost as closely as
-    a bright one, and a sub-pixel shift of a sparse splat moves them no more than it moves the ghost.  A
-    ghost that puts no energy on the film must do so in both."""
-    errs = {"energy": {}, "centroid_px": {}, "radius": {}}
-    for key, (e_w, c_w, r_w) in want.items():
-        e_g, c_g, r_g = got[key]
-        assert (e_g > 0) == (e_w > 0), f"ghost {key} is on the film only on one side"
-        if e_w > 0:
-            errs["energy"][key] = abs(e_g / e_w - 1).item()
-            errs["centroid_px"][key] = (c_g - c_w).norm().item()
-            errs["radius"][key] = abs(r_g / r_w - 1).item()
-    return errs
 
 
 def ghost_checks(angle, radiance, axis, width, height):
@@ -660,14 +409,14 @@ def main() -> int:
     import numpy as np
     import torch
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this script measures the port on a card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT))
-    import lens_flare_tpu_torch  # noqa: F401  (fails outside a checkout)
     from lens_flare_tpu_torch import bench_kernels as bk
+    from lens_flare_tpu_torch.ab_compiled import compare as compare_compiled
 
     kind = torch.cuda.get_device_name(0)
     smi = bk.nvidia_smi()
@@ -867,9 +616,30 @@ def main() -> int:
     from lens_flare_tpu_torch.ab_walk import SMALL, config2_renderer, terrain_1080p
     from lens_flare_tpu_torch.utils import image as img
 
+    from lens_flare_tpu_torch.ab_walk import frame_profile
+
+    compiled_rows = {}
+
+    def compiled_row(name, r, frame, ghosts=None):
+        """The ``compiled`` phase's row of one frame (``ab_compiled.compare``: the replay against a
+        ``compiled.disabled()`` frame, capture s, both frame_s, launches counted and traced, peak MiB,
+        and the replayed frame's busy share, kernel ms and device launches under ``torch.profiler``)."""
+        row = compare_compiled(r, frame, ghosts)
+        compiled_rows[name] = row
+        print(f"[compiled:{name}] " + " ".join(
+            f"{k}={json.dumps(v) if isinstance(v, (dict, list, bool)) or v is None else f'{v:.4f}' if isinstance(v, float) else v}"
+            for k, v in row.items()), flush=True)
+
+    def held(name, launches):
+        """The main path's launches of A-G, counted by the wrappers and added per replay, against the
+        calls of each that the trace of the same frame replayed showed (``compiled_row``)."""
+        traced = compiled_rows[name]["traced_launches"]
+        assert {k: launches[k] for k in traced} == traced, (f"{name}: the counts are not the trace's", launches, traced)
+
     t0 = time.perf_counter()
     r, pipeline, frame = terrain_1080p("cuda")
-    frame()  # warm-up: cuFFT plans, allocator, first launches
+    compiled_row("terrain_1080p", r, lambda: r.render(progress=False))
+    frame()  # warm-up: cuFFT plans, allocator, first launches (the render's program is captured above)
     torch.cuda.synchronize()
     ic.reset_launch_counts()
     t_frame = time.perf_counter()
@@ -883,6 +653,7 @@ def main() -> int:
     assert (out >= hdr).all(), "the flare darkened a pixel"
     assert (out - hdr).sum() > 0 and hdr.sum() > 0 and (counts == 1).all()
     assert launches["A"] > 0 and launches["B"] > 0, f"main path skipped a kernel: {launches}"
+    held("terrain_1080p", launches)
     png = ROOT / "lens_flare_tpu_torch" / "_build" / "terrain_1080p.png"
     img.save_hdr_png(png, out.cpu().numpy(), flip_y=True)
     phase(
@@ -920,6 +691,7 @@ def main() -> int:
     t0 = time.perf_counter()
     r2, _ = config2_renderer(256, "cuda", width=1920, height=1080, ns_aa=16, samples_per_batch=4)
     assert r2.bundle.cscene.shade and not r2.bundle.cscene.stream
+    compiled_row("config2_frame", r2, lambda: r2.render(progress=False))
     r2.render(progress=False)  # warm-up
     torch.cuda.synchronize()
     ic.reset_launch_counts()
@@ -930,6 +702,7 @@ def main() -> int:
     c2_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     st2 = r2.stats
     assert c2_launches["D"] > 0 and c2_launches["A"] == 0 and c2_launches["B"] > 0, c2_launches
+    held("config2_frame", c2_launches)
     assert hdr2.shape == (1080, 1920, 3) and torch.isfinite(hdr2).all() and hdr2.sum() > 0
     assert counts2.min().item() >= 4 and counts2.max().item() <= 16
     hist2 = {n: int((counts2 == n).sum()) for n in (4, 8, 16)}
@@ -1054,6 +827,8 @@ def main() -> int:
     kw = dict(width=320, height=240, ns_aa=16, max_ray_depth=5, indirect=True, seed=0)
     rg = Renderer(device="cuda", **kw)
     rg.load(cornell)
+    compiled_row("dae_small", rg, lambda: rg.render(progress=False))
+    held("dae_small", ds_launches)  # the command line's frame is this one (its PNG is checked below)
     hdr_small, _ = rg.render(progress=False)
     png_px = load_png(small_png)
     want_px = np.clip(np.round(img.to_color(hdr_small.cpu().numpy())[::-1] * 255.0), 0, 255).astype(np.uint8)
@@ -1070,7 +845,7 @@ def main() -> int:
     assert torch.isfinite(got).all() and got.sum() > 0 and ok >= 0.99 and rel < 1e-3, (ok, rel)
     phase("dae_small", t0, tris=rg.scene.num_triangles, spheres=rg.scene.num_spheres,
           lights=len(rg.scene.lights.light_type), width=320, height=240, spp=16, depth=5,
-          cli_s=f"{cli_s:.4f}", load_s=f"{load_s:.4f}", render_s=f"{render_s:.4f}", rays_traced=ds_rays,
+          cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", load_s=f"{load_s:.4f}", render_s=f"{render_s:.4f}", rays_traced=ds_rays,
           cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}",
           launches=json.dumps(ds_launches), png=small_png.name)
 
@@ -1096,7 +871,7 @@ def main() -> int:
     assert frame.shape == (1080, 1920, 3) and frame.max() > 0 and frame.std() > 0, "the 1080p PNG is blank"
     phase("dae_1080p", t0, tris=131072, polylists=4, width=1920, height=1080, spp=1, depth=4, flare="on",
           write_s=f"{write_s:.4f}", parse_build_s=f"{load_s:.4f}", bvh_build_s=f"{bvh_s:.4f}",
-          frame_s=f"{render_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=d1_rays,
+          frame_s=f"{render_s:.4f}", cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", rays_traced=d1_rays,
           mrays_traced_per_s=f"{d1_rays / render_s / 1e6:.3f}", png_mean=f"{frame.mean():.3f}",
           launches=json.dumps(d1_launches), png=big_png.name)
 
@@ -1164,6 +939,7 @@ def main() -> int:
     build_s = time.perf_counter() - t_build
     assert rp.bundle.cscene is None, "a scene past capacity did not take the binary BVH"
     scene_mb = (torch.cuda.memory_allocated() - mem0) / 2**20
+    compiled_row("past_capacity", rp, lambda: rp.render(progress=False))
     rp.render(progress=False)  # warm-up
     torch.cuda.synchronize()
     ic.reset_launch_counts()
@@ -1173,6 +949,7 @@ def main() -> int:
     frame_big_s = time.perf_counter() - t_frame
     pc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     assert sum(pc_launches.values()) == pc_launches["G"] == PAST_CAPACITY_FRAME["launches"], pc_launches
+    held("past_capacity", pc_launches)
     assert rp.stats.total_rays == PAST_CAPACITY_FRAME["rays"], rp.stats.total_rays
     assert f"{rp.stats.isects_per_ray:.2f}" == PAST_CAPACITY_FRAME["isects_per_ray"], rp.stats.isects_per_ray
     assert hdr_big.shape == (1080, 1920, 3) and torch.isfinite(hdr_big).all() and hdr_big.sum() > 0
@@ -1211,7 +988,6 @@ def main() -> int:
 
     # -- 12. diff_small: gradients of the Cornell box through kernels A and C
     from lens_flare_tpu_torch import renderer as rmod
-    from lens_flare_tpu_torch.ab_walk import frame_profile
     from lens_flare_tpu_torch.diff import render as dr
     from lens_flare_tpu_torch.diff.optimize import LENS_FIELDS, OptimizeConfig, ghost_image, optimize_lens
     from lens_flare_tpu_torch.lens.prescription import reference_prescription
@@ -1450,7 +1226,7 @@ def main() -> int:
     rel = ((got - want).abs().sum() / want.abs().sum()).item()
     assert torch.isfinite(got).all() and got.sum() > 0 and ok >= 0.99 and rel < 1e-3, (ok, rel)
     phase("env_small", t0, tris=rg.scene.num_triangles, sky="512x256 HALF ZIP", width=320, height=240, spp=16,
-          depth=5, sky_share=f"{sky_share:.4f}", cli_s=f"{cli_s:.4f}", render_s=f"{render_s:.4f}",
+          depth=5, sky_share=f"{sky_share:.4f}", cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", render_s=f"{render_s:.4f}",
           rays_traced=es_rays, cell=json.dumps(cell), cell_sky_share=f"{cell_sky_share:.4f}",
           cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}", launches=json.dumps(es_launches),
           png=env_png.name)
@@ -1490,7 +1266,7 @@ def main() -> int:
     assert sky_frame.shape == (1080, 1920, 3) and sky_frame.mean() > dark_mean + 5, (sky_frame.mean(), dark_mean)
     phase("env_1080p", t0, tris=131072, sky="4096x2048 HALF ZIP", width=1920, height=1080, spp=1, depth=4,
           flare="on", exr_write_s=f"{write_s:.4f}", exr_read_s=f"{read_s:.4f}", build_env_s=f"{build_env_s:.4f}",
-          parse_build_s=f"{load_s:.4f}", frame_s=f"{env_frame_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=eb_rays,
+          parse_build_s=f"{load_s:.4f}", frame_s=f"{env_frame_s:.4f}", cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", rays_traced=eb_rays,
           mrays_traced_per_s=f"{eb_rays / env_frame_s / 1e6:.3f}", peak_device_mib=f"{peak_env:.1f}",
           png_mean=f"{sky_frame.mean():.3f}", png_mean_without_sky=f"{dark_mean:.3f}",
           launches=json.dumps(eb_launches), png=env_big_png.name)
@@ -1499,6 +1275,8 @@ def main() -> int:
     for name, env_map in (("sky", sky_big), ("no_sky", None)):
         rp = Renderer(device="cuda", width=1920, height=1080, max_ray_depth=4, indirect=True, envmap=env_map)
         rp.load(terrain_file)
+        if env_map is not None:
+            compiled_row("env_1080p", rp, lambda: rp.render(progress=False))
         profiles[name] = frame_profile(lambda: rp.render(progress=False))
     print("[env_1080p_profile] " + " ".join(
         f"{name}:frame_s={p['frame_s']:.4f},traced_s={p['traced_s']:.4f},device_kernel_ms={p['kernel_ms']:.3f},"
@@ -1589,6 +1367,7 @@ def main() -> int:
     pipe = rr.flare_pipeline()
     assert pipe is not None and pipe.lens_model == "realistic" and pipe.ghost_aperture is None
     assert 0 < pipe.axis_ray.min() and pipe.axis_ray.max() < 1, f"the sun is off screen: {pipe.axis_ray}"
+    compiled_row("ghost_realistic", rr, pipe.ghost_buffer, ghosts=pipe.axis_ray)
     ghost = pipe.ghost_buffer()
     flared = hdr_real + ghost + pipe.starburst() + pipe.falloff()
     assert bool((ghost >= 0).all()) and ghost.sum().item() > 0, "the realistic ghosts have no energy"
@@ -1600,6 +1379,7 @@ def main() -> int:
     # the ghost buffer alone against the paraxial one of the same pipeline, then the card against the CPU
     prof_real = frame_profile(pipe.ghost_buffer)
     paraxial_pipe = dataclasses.replace(pipe, lens_model="paraxial", ghost_aperture=ApertureTexture.load(ghost_png))
+    compiled_row("ghost_paraxial", rr, paraxial_pipe.ghost_buffer, ghosts=pipe.axis_ray)
     prof_par = frame_profile(paraxial_pipe.ghost_buffer)
     ghost_again = pipe.ghost_buffer()
     ghost_cpu = dataclasses.replace(pipe, device="cpu", lens=reference_prescription(device="cpu")).ghost_buffer()
@@ -1621,7 +1401,7 @@ def main() -> int:
                   for side, buf in (("card", ghost), ("cpu", ghost_cpu))}
     del f64_bufs, rr, hdr_real, flared, ghost, ghost_again
     phase("realistic_1080p", t0, tris=131072, sky="4096x2048 HALF ZIP", width=1920, height=1080, spp=1, depth=4,
-          lens_model="realistic", frame_s=f"{real_frame_s:.4f}", cli_s=f"{cli_s:.4f}", rays_traced=rl_rays,
+          lens_model="realistic", frame_s=f"{real_frame_s:.4f}", cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", rays_traced=rl_rays,
           peak_device_mib=f"{peak_real:.1f}", png_levels_vs_flared_frame=png_levels,
           ghost_s=f"{prof_real['frame_s']:.4f}", ghost_device_launches=prof_real["kernel_launches"],
           ghost_kernel_ms=f"{prof_real['kernel_ms']:.3f}", ghost_busy_share=f"{prof_real['busy_share_traced']:.4f}",
@@ -1684,7 +1464,17 @@ def main() -> int:
           curvature7_left_of_perturbation=f"{c7_err:.4g}", start_grad_vs_cpu_maxrel=f"{design_grad_err:.3g}")
     del targets, curv, opt
 
-    # -- 20. results -------------------------------------------------------
+    # -- 20. compiled: the replayed frames against eager ones (rows printed in phases 3-19)
+    assert sorted(compiled_rows) == sorted(COMPILED_FRAMES), sorted(compiled_rows)
+    phase("compiled", t_start, frames=len(compiled_rows),
+          bit_equal=json.dumps(sorted(k for k, v in compiled_rows.items() if v["bit_equal"])),
+          ghost_checks_held=json.dumps(sorted(k for k, v in compiled_rows.items() if v["ghost_worst"])),
+          **{f"{k}_frame_s": f"{v['frame_s']:.4f}" for k, v in compiled_rows.items()},
+          **{f"{k}_eager_s": f"{v['eager_s']:.4f}" for k, v in compiled_rows.items()},
+          **{f"{k}_capture_s": f"{v['capture_s']:.4f}" for k, v in compiled_rows.items()},
+          **{f"{k}_busy": f"{v['busy_share']:.4f}" for k, v in compiled_rows.items()})
+
+    # -- 21. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

@@ -5,7 +5,8 @@ its layout so each module's counterpart sits at the same path:
 
 - ``scene``       the COLLADA loader, the host scene arrays, procedural
                   terrain, the host camera, camera parameters on the device
-                  and ray generation
+                  and ray generation; COLLADA files and skies written in
+                  code (``writer``)
 - ``accel``       the two-level cluster tree, the binary SAH BVH, and their
                   native (g++) builder
 - ``ops``         scene tables, hit finalization, and the hand-written CUDA
@@ -14,11 +15,15 @@ its layout so each module's counterpart sits at the same path:
                   versions
 - ``integrator``  wavefront path tracing: BSDFs, lights, NEE, bounces
 - ``lens``        aperture masks, the paraxial lens, ghost splatting
-- ``flare``       FFT starburst, falloff glow, the compositing pipeline
+- ``flare``       FFT starburst, falloff glow, the compositing pipeline,
+                  the ghost buffers' moments (``moments``)
 - ``diff``        differentiable rendering (emitter recovery) and paraxial
                   lens design with Adam and resumable checkpoints
 - ``utils``       image transforms, PNG input and output
 - ``renderer``    the tiled wavefront ``Renderer`` (``load`` a COLLADA file)
+- ``compiled``    captured CUDA graphs of one sample of a tile or adaptive
+                  chunk and of the ghost buffers, replayed per call (``compiled.disabled()``
+                  runs eagerly)
 - ``cli``         the command line (``python -m lens_flare_tpu_torch.cli``)
 - ``bench_kernels``  the kernel bench: every trace kernel on terrain
                   wavefronts (``python -m lens_flare_tpu_torch.bench_kernels``)

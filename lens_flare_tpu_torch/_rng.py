@@ -56,10 +56,13 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
-    """Fold uint32 ``data`` (int or tensor broadcast against keys[..., 0]) into keys."""
-    if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64, device=keys.device)
-    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data.to(torch.int64) & MASK32)
+    """Fold uint32 ``data`` (int or tensor broadcast against keys[..., 0]) into keys.
+
+    An int enters the arithmetic as a scalar: no tensor is made from it on
+    the host, so the call can be captured in a CUDA graph.
+    """
+    data = int(data) & MASK32 if not torch.is_tensor(data) else data.to(torch.int64) & MASK32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
     return torch.stack([y0, y1], dim=-1)
 
 

@@ -1,0 +1,176 @@
+"""Captured CUDA graphs of the port's hot programs, replayed per call.
+
+The port's counterpart of the JAX package's ``jax.jit`` sites: the
+samples of a tile's ``render_wavefront`` (``lens_flare_tpu/renderer.py:37``)
+and of a chunk's ``render_batch`` (``:38``), each replayed once per sample
+index (``Renderer._sampler``), and the ghost buffers
+(``flare/pipeline.py:39`` and ``lens/realistic.py:315``).  On a CUDA
+device a :class:`Programs` cache
+captures each program once per static key (``torch.cuda.graph``, after one
+eager warm-up on a side stream) and replays it; the tensors that change
+between calls are copied into the program's static input buffers first.
+On the CPU, and inside :func:`disabled` (the counterpart of
+``jax.disable_jit()``), the function runs eagerly and nothing is cached.
+
+A capture or a replay that fails raises; nothing falls back to eager.
+
+The wrappers of ``ops/intersect_cuda.py`` count kernel launches on the
+host, which a replay does not run: a capture records how many launches of
+each kernel it took in, and every replay adds them (the warm-up's and the
+capture's own counts are taken back out), so a replayed frame counts what
+an eager one does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import gc
+import time
+
+import torch
+
+from .ops.intersect_cuda import KERNELS
+
+_eager = contextvars.ContextVar("lens_flare_tpu_torch_eager", default=False)
+
+
+@contextlib.contextmanager
+def disabled():
+    """Run every program eagerly inside the block, as ``jax.disable_jit()`` does; blocks nest."""
+    token = _eager.set(True)
+    try:
+        yield
+    finally:
+        _eager.reset(token)
+
+
+def launch_counts() -> dict:
+    return {k: v.launches for k, v in KERNELS.items()}
+
+
+def _flat(out):
+    return (out,) if torch.is_tensor(out) else tuple(out)
+
+
+class Program:
+    """One captured program: its graph, static inputs and outputs, and the launches it records.
+
+    ``graph`` is anything with a ``replay()`` method (a ``torch.cuda.CUDAGraph``);
+    ``fn``, the captured function, is kept so that the tensors its closure
+    holds, which the graph reads by address, live as long as the program.
+    """
+
+    def __init__(self, fn, graph, inputs, outputs, launches: dict, single: bool):
+        self.fn = fn
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.single = single  # the function returned one tensor, not a tuple
+
+    def replay(self, inputs):
+        """Copy ``inputs`` (of the captured shapes, dtypes and device) into the static buffers, replay,
+        count the launches; new output tensors."""
+        for s, x in zip(self.inputs, inputs):
+            s.copy_(x)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            KERNELS[k].launches += n
+        # the static outputs are overwritten by the next replay of any program sharing the pool
+        out = tuple(o.clone() for o in self.outputs)
+        return out[0] if self.single else out
+
+
+class Programs:
+    """Captured programs of one owner (a renderer's frames, a flare pipeline's ghosts), one per key.
+
+    ``run(key, fn, *inputs)`` returns ``fn(*inputs)``: eagerly on the CPU
+    or under :func:`disabled`, else through the program captured for
+    ``key`` and the inputs' shapes, dtypes and device.  ``fn`` takes and
+    returns tensors (one, or a tuple); what it reads besides its inputs
+    (scene tables, settings) is captured by address and must stay alive
+    and unchanged in shape while the program is cached: its owner
+    :meth:`clear` s the cache when they change.  The programs share one
+    memory pool, and replays run in the order of the calls, on the
+    current stream.
+    """
+
+    def __init__(self):
+        self._programs: dict = {}
+        self._pool = None
+        self.capture_s = 0.0  # host seconds spent capturing: warm-up, capture, instantiation
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    def clear(self) -> None:
+        self._programs.clear()
+
+    def run(self, key, fn, *inputs):
+        if not _captures(inputs[0]) or _eager.get():
+            return fn(*inputs)
+        full_key = (key, tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
+        prog = self._programs.get(full_key)
+        if prog is None:
+            prog = self._programs[full_key] = self._capture(fn, inputs)
+        return prog.replay(inputs)
+
+    def _capture(self, fn, inputs) -> Program:
+        t0 = time.perf_counter()
+        static = [x.clone() for x in inputs]
+        before = launch_counts()
+        try:
+            _warm_up(fn, static)
+            warm = launch_counts()
+            if self._pool is None:
+                self._pool = _new_pool()
+            graph, out = _graph(fn, static, self._pool)
+            captured = {k: n - warm[k] for k, n in launch_counts().items() if n != warm[k]}
+        finally:
+            for k, n in before.items():
+                KERNELS[k].launches = n
+        self.capture_s += time.perf_counter() - t0
+        return Program(fn, graph, static, _flat(out), captured, single=torch.is_tensor(out))
+
+
+# The capture backend: module functions, so that a test can stand in for the card.
+
+
+def _captures(x: torch.Tensor) -> bool:
+    """Whether calls on ``x``'s device go through captured programs."""
+    return x.is_cuda
+
+
+def _warm_up(fn, static) -> None:
+    """One eager call on a side stream: lazy initialisation (the kernel library, cuBLAS, module
+    loading) happens before the capture, not in it."""
+    dev = static[0].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+
+def _new_pool():
+    return torch.cuda.graph_pool_handle()
+
+
+def _graph(fn, static, pool):
+    """(graph, outputs): ``fn(*static)`` captured into a new CUDA graph in ``pool``.
+
+    The cyclic garbage collector is off during the capture: a dead
+    program's graph destroyed inside it frees memory, which a capture
+    refuses (the capture fails with ``cudaErrorStreamCaptureInvalidated``).
+    """
+    graph = torch.cuda.CUDAGraph()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn(*static)
+    finally:
+        if enabled:
+            gc.enable()
+    return graph, out

@@ -7,23 +7,29 @@ non-empty aperture mask, and the falloff glow applies whenever a sun is
 on screen.  The ghosts come from the paraxial 2x2 model and a ghost
 aperture texture (``lens_model="paraxial"``), or from the sequential
 Snell + Fresnel stack of ``lens/realistic.py``, which needs no texture
-(``lens_model="realistic"``, BASELINE config 3).
+(``lens_model="realistic"``, BASELINE config 3).  On a CUDA device each
+ghost buffer is a captured program (``compiled.py``), the counterpart of
+the JAX package's jitted ``_ghost_buffer_impl`` and
+``render_ghosts_stack``: the sun's angle, axis and radiance, the ghost
+texture and the lens go into its static inputs on every call.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import _rng
+from ..compiled import Programs
 from ..lens.aperture import ApertureTexture
 from ..lens.ghosts import splat_ghosts, splat_ghosts_fast
-from ..lens.paraxial import trace_all_ghosts
+from ..lens.paraxial import ghost_pair_table, trace_all_ghosts
 from ..lens.prescription import LensPrescription, reference_prescription
-from ..lens.realistic import render_ghosts_stack
+from ..lens.realistic import ghost_stack_tables, render_ghosts_stack
 from ..scene.build import LT_DIRECTIONAL
 from .starburst import aperture_fft, irradiance_falloff, starburst_field
 
@@ -73,6 +79,8 @@ class FlarePipeline:
     lens_model: str = "paraxial"  # or "realistic": the Snell + Fresnel stack
     device: str = "cuda"  # as Renderer: the card unless the caller asks for the CPU
     _fft_cache: torch.Tensor | None = None
+    # captured ghost buffers; a Renderer hands its own, so they outlive one composite
+    programs: Programs = field(default_factory=Programs, repr=False, compare=False)
 
     @classmethod
     def from_renderer(cls, renderer) -> "FlarePipeline | None":
@@ -98,6 +106,7 @@ class FlarePipeline:
             falloff_key=renderer.seed,
             lens_model=renderer.lens_model,
             device=renderer.device,
+            programs=renderer._flare_programs,
         )
 
     def _t(self, a):
@@ -110,23 +119,41 @@ class FlarePipeline:
         """(H, W, 3) additive ghost buffer (generate_ghost_buffer)."""
         if (self.axis_ray == 0).all():
             return self._zeros()
-        angle = torch.tensor(self.angle_to_sun, dtype=torch.float32)
+        lens = self.lens
+        lens_in = (lens.spacings, lens.curvatures, lens.iors, lens.aperture_height, lens.marginal_r)
+        angle = self._t(self.angle_to_sun)
         axis = self._t(self.axis_ray)
+        w, h = self.width, self.height
+        # the programs' closures hold tables and sizes, not the pipeline, which holds the programs
+        pairs, tables = self._ghost_tables
+        ap = lens.aperture_index
         if self.lens_model == "realistic":
-            return render_ghosts_stack(
-                self.lens, angle, self._t(self.flare_radiances.sum(axis=0)), axis, self.width, self.height
-            )
+
+            def realistic(angle, radiance, axis, *lens_in):
+                return render_ghosts_stack(LensPrescription(*lens_in, ap), angle, radiance, axis, w, h, tables=tables)
+
+            key = ("realistic", w, h, ap)
+            return self.programs.run(key, realistic, angle, self._t(self.flare_radiances.sum(axis=0)), axis, *lens_in)
         if self.ghost_aperture is None or self.ghost_aperture.total_value == 0:
             return self._zeros()
         method = self.ghost_method
         if method == "auto":
-            method = "fast" if self.width * self.height >= (1 << 18) else "exact"
-        r1, r2 = trace_all_ghosts(self.lens, angle)
-        n_pairs = r1.shape[0]
-        colors = torch.eye(3, device=r1.device).repeat(n_pairs, 1)
-        tex = self._t(self.ghost_aperture.values)
+            method = "fast" if w * h >= (1 << 18) else "exact"
         splat = splat_ghosts_fast if method == "fast" else splat_ghosts
-        return splat(tex, r1.reshape(-1), r2.reshape(-1), colors, axis, self.width, self.height)
+
+        def paraxial(angle, axis, tex, *lens_in):
+            r1, r2 = trace_all_ghosts(LensPrescription(*lens_in, ap), angle, pairs)
+            colors = torch.eye(3, device=r1.device).repeat(r1.shape[0], 1)
+            return splat(tex, r1.reshape(-1), r2.reshape(-1), colors, axis, w, h)
+
+        key = ("paraxial", method, w, h, ap)
+        return self.programs.run(key, paraxial, angle, axis, self._t(self.ghost_aperture.values), *lens_in)
+
+    @functools.cached_property
+    def _ghost_tables(self):
+        """The ghost buffers' static tables on the lens's device, made once per pipeline: the paraxial
+        pair table and the realistic stack's pupil and event tables."""
+        return ghost_pair_table(self.lens.curvatures.device), ghost_stack_tables(self.lens)
 
     def starburst(self) -> torch.Tensor:
         """(H, W, 3) starburst field (raytrace_starburst minus falloff)."""

@@ -128,8 +128,7 @@ def _sphere(center, radius, p, u):
     cos_max = torch.sqrt(torch.clamp_min(1.0 - sin2_max, 0.0))
     cos_t = 1.0 - u[:, 0] * (1.0 - cos_max)
     sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    e_y = torch.tensor([0.0, 1.0, 0.0], device=p.device)
-    e_x = torch.tensor([1.0, 0.0, 0.0], device=p.device)
+    e_x, e_y = torch.eye(3, device=p.device)[:2]  # made on the device: capturable
     h = torch.where(torch.abs(axis[:, 0:1]) > 0.9, e_y, e_x)
     tx = cross(axis, h)
     tx = tx / torch.clamp_min(norm3(tx), 1e-30)[:, None]

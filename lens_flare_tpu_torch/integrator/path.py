@@ -21,8 +21,11 @@ tape lane for lane):
   ``render_batch``, the building block of the Renderer's host-repacked
   adaptive render.
 
-Every BSDF family and light type of the JAX package is ported.  PyTorch
-runs eagerly: the bounce ``scan`` and the sample loops are Python loops.
+Every BSDF family and light type of the JAX package is ported.  The
+bounce ``scan`` and the sample loops are Python loops; on a CUDA device
+the Renderer captures one sample of a tile or chunk (``sampler``) as a
+CUDA graph (``compiled.py``) and replays it per sample, so nothing a
+sample runs may copy from the host or wait for the device.
 """
 
 from __future__ import annotations
@@ -499,24 +502,41 @@ def pixel_keys(key, px, py, width):
     return _rng.fold_in(key.expand(px.shape[0], 2), (py.to(torch.int64) * width + px) & _rng.MASK32)
 
 
-def render_batch(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, s_offset: int, n_samples: int, valid=None):
+def sampler(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, valid=None):
+    """``sample(s_idx) -> (radiance (P, 3), stats)``: sample ``s_idx`` (a 0-d
+    integer tensor on the lanes' device) of every lane, whose keys are the
+    pixel keys folded with it.  The unit the sample loops of
+    ``render_wavefront`` and ``render_batch`` call; a Renderer on a CUDA
+    device passes its captured counterpart (``Renderer._sampler``).
+    """
+    base_keys = pixel_keys(key, px, py, width)
+    return lambda s_idx: radiance_sample(
+        bundle, settings, cam, _rng.fold_in(base_keys, s_idx), px, py, width, height, valid=valid
+    )
+
+
+def render_batch(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, s_offset, n_samples: int, valid=None, sample=None):
     """Trace samples s_offset .. s_offset + n_samples - 1 for every lane (``path.py:829``).
 
     The building block of the Renderer's host-repacked adaptive render: the
     RNG depends only on (pixel id, sample index), so repacking the active
-    pixels between calls changes no sample.  Returns (film sum (N, 3),
-    s1 (N,), s2 (N,), stats [rays, tests, skipped]); the sums are float32.
+    pixels between calls changes no sample.  ``s_offset``: an int, or a 0-d
+    integer tensor on the lanes' device (the JAX package passes a traced
+    uint32).  ``sample``: see :func:`sampler`, which it defaults to.
+    Returns (film sum (N, 3), s1 (N,), s2 (N,), stats [rays, tests,
+    skipped]); the sums are float32.
     """
     n_px = px.shape[0]
     dev = px.device
-    base_keys = pixel_keys(key, px, py, width)
+    if sample is None:
+        sample = sampler(bundle, settings, cam, px, py, width, height, key, valid)
     film = torch.zeros((n_px, 3), device=dev)
     s1 = torch.zeros(n_px, device=dev)
     s2 = torch.zeros(n_px, device=dev)
     stats = torch.zeros(3, dtype=torch.float64, device=dev)
+    samples = s_offset + torch.arange(n_samples, dtype=torch.int64, device=dev)
     for j in range(n_samples):
-        keys = _rng.fold_in(base_keys, s_offset + j)
-        rad, st = radiance_sample(bundle, settings, cam, keys, px, py, width, height, valid=valid)
+        rad, st = sample(samples[j])
         illum = 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]
         film = film + rad
         s1 = s1 + illum
@@ -525,15 +545,17 @@ def render_batch(bundle: SceneBundle, settings: RenderSettings, cam: CameraParam
     return film, s1, s2, stats
 
 
-def render_wavefront(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, valid=None):
+def render_wavefront(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, px, py, width, height, key, valid=None, sample=None):
     """Sampled radiance for a batch of pixels (raytrace_pixel).
 
     px, py: (P,) integer pixel coords on the bundle's device; key: (2,) RNG
-    key.  Returns (radiance (P, 3), counts (P,), stats [rays, tests, skipped]).
+    key; ``sample``: see :func:`sampler`, which it defaults to.  Returns
+    (radiance (P, 3), counts (P,), stats [rays, tests, skipped]).
     """
     n_px = px.shape[0]
     dev = px.device
-    base_keys = pixel_keys(key, px, py, width)
+    if sample is None:
+        sample = sampler(bundle, settings, cam, px, py, width, height, key, valid)
     spb = min(settings.samples_per_batch, settings.ns_aa)
     n_batches = -(-settings.ns_aa // spb)
     adaptive = settings.ns_aa > spb
@@ -544,11 +566,11 @@ def render_wavefront(bundle: SceneBundle, settings: RenderSettings, cam: CameraP
     count = torch.zeros(n_px, dtype=torch.int32, device=dev)
     converged = torch.zeros(n_px, dtype=torch.bool, device=dev)
     stats = torch.zeros(3, dtype=torch.float64, device=dev)
+    samples = torch.arange(n_batches * spb, dtype=torch.int64, device=dev)
     for b in range(n_batches if adaptive else 1):
         for j in range(spb):
             s_idx = b * spb + j
-            keys = _rng.fold_in(base_keys, s_idx)
-            rad, st = radiance_sample(bundle, settings, cam, keys, px, py, width, height, valid=valid)
+            rad, st = sample(samples[s_idx])
             use = ~converged & (s_idx < settings.ns_aa)
             rad = torch.where(use[:, None], rad, 0.0)
             illum = 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]

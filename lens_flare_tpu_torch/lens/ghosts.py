@@ -113,36 +113,48 @@ def ghost_corners(r1, r2, axis_ray, width, height):
     gb_mid_x = torch.ceil(axis_ray[0] * width)
     gb_mid_y = torch.ceil(axis_ray[1] * height)
     ca, sa = torch.cos(angle), torch.sin(angle)
-    base = torch.tensor([[-1.0, 1.0], [-1.0, -1.0], [1.0, 1.0], [1.0, -1.0]], dtype=r1.dtype, device=axis_ray.device)
-    sx = base[:, 0] * scale_amt[..., None]
-    sy = base[:, 1] * scale_amt[..., None]
+    # the corners' signs (-1, 1), (-1, -1), (1, 1), (1, -1) times the scale,
+    # made on the device (capturable) with the products' values
+    sx = torch.stack([-scale_amt, -scale_amt, scale_amt, scale_amt], dim=-1)
+    sy = torch.stack([scale_amt, -scale_amt, scale_amt, -scale_amt], dim=-1)
     rx = ca * sx - sa * sy + shift_amt[..., None] * ca
     ry = sa * sx + ca * sy + shift_amt[..., None] * sa
     intensity = 10.0 / torch.clamp_min(scale_amt * scale_amt, 1e-12)
     return gb_mid_x + rx, gb_mid_y + ry, intensity
 
 
+def _tri1(c):
+    """Corners [ul, ll, ur] of (..., 4) corners [ul, ll, ur, lr]: slices, no index tensor from the host."""
+    return c[..., :3]
+
+
+def _tri2(c):
+    """Corners [lr, ll, ur]."""
+    return torch.cat([c[..., 3:], c[..., 1:3]], dim=-1)
+
+
 def splat_eval(tex, r1s, r2s, colors, axis_ray, width, height, xs, ys, smooth=False):
     """Additive ghost field at pixel coords (P,) -> (P, 3); ``smooth`` as in :func:`_raster_triangle`."""
     h_a, w_a = tex.shape
     dev = tex.device
-    uv_u = torch.tensor([0.0, 0.0, 1.0 * w_a], dtype=tex.dtype, device=dev)
-    uv_v = torch.tensor([0.0, 1.0 * h_a, 0.0], dtype=tex.dtype, device=dev)
+    eye = torch.eye(3, dtype=tex.dtype, device=dev)  # the uv corners, made on the device
+    uv_u = eye[2] * w_a  # (0, 0, w)
+    uv_v = eye[1] * h_a  # (0, h, 0)
     buf = torch.zeros((xs.shape[0], 3), dtype=tex.dtype, device=dev)
     if smooth:
         # every ghost at once, (G, P) per triangle, summed over the ghosts
         cx, cy, intensity = ghost_corners(r1s, r2s, axis_ray, width, height)
         col = colors * intensity[:, None]
-        t1 = _raster_triangle(tex, width, height, cx[:, [0, 1, 2]].T, cy[:, [0, 1, 2]].T, uv_u, uv_v, col, xs, ys, True)
-        t2 = _raster_triangle(tex, width, height, cx[:, [3, 1, 2]].T, cy[:, [3, 1, 2]].T, uv_u, uv_v, col, xs, ys, True)
+        t1 = _raster_triangle(tex, width, height, _tri1(cx).T, _tri1(cy).T, uv_u, uv_v, col, xs, ys, True)
+        t2 = _raster_triangle(tex, width, height, _tri2(cx).T, _tri2(cy).T, uv_u, uv_v, col, xs, ys, True)
         return buf + (t1 + t2).sum(dim=0)
     for g in range(r1s.shape[0]):
         cx, cy, intensity = ghost_corners(r1s[g], r2s[g], axis_ray, width, height)
         col = colors[g] * intensity
         # triangle 1: (ul, uv 0,0), (ll, uv 0,h), (ur, uv w,0)  [draw_ghost:496]
-        t1 = _raster_triangle(tex, width, height, cx[[0, 1, 2]], cy[[0, 1, 2]], uv_u, uv_v, col, xs, ys)
+        t1 = _raster_triangle(tex, width, height, _tri1(cx), _tri1(cy), uv_u, uv_v, col, xs, ys)
         # triangle 2: (lr, uv 0,0), (ll, uv 0,h), (ur, uv w,0)  [draw_ghost:498]
-        t2 = _raster_triangle(tex, width, height, cx[[3, 1, 2]], cy[[3, 1, 2]], uv_u, uv_v, col, xs, ys)
+        t2 = _raster_triangle(tex, width, height, _tri2(cx), _tri2(cy), uv_u, uv_v, col, xs, ys)
         buf = buf + t1 + t2
     return buf
 

@@ -157,11 +157,20 @@ def physical_ghost_matrix(lens: LensPrescription, i: int, j: int, color: int):
     return M
 
 
-def trace_all_ghosts(lens: LensPrescription, theta):
-    """Sensor footprints (r1, r2), each (n_pairs, 3), of the +/- marginal rays."""
+def ghost_pair_table(device=None) -> torch.Tensor:
+    """``reference_ghost_pairs()`` as a (13, 2) int64 tensor: made once, outside a captured program."""
+    return torch.tensor(reference_ghost_pairs(), device=device)
+
+
+def trace_all_ghosts(lens: LensPrescription, theta, pairs=None):
+    """Sensor footprints (r1, r2), each (n_pairs, 3), of the +/- marginal rays.
+
+    ``pairs``: :func:`ghost_pair_table` on the lens's device (made here when None).
+    """
     T, R, L = build_matrices(lens)
     dev = T.device
-    pairs = torch.tensor(reference_ghost_pairs(), device=dev)
+    if pairs is None:
+        pairs = ghost_pair_table(dev)
     theta = torch.as_tensor(theta, dtype=T.dtype, device=dev)
     r_in = torch.stack([lens.marginal_r, -lens.marginal_r])
     out = trace_ghost(lens, T, R, L, pairs[:, 0], pairs[:, 1], r_in, theta)

@@ -78,7 +78,7 @@ def _intersect_surface(o, d, z_vertex, c):
     dz = d[..., 2]
     t_plane = (z_b - o[..., 2]) / torch.where(torch.abs(dz) < 1e-12, 1e-12, dz)
     n_plane = torch.zeros_like(o)
-    n_plane[..., 2] = -1.0
+    n_plane[..., 2].fill_(-1.0)  # a fill on the device: capturable
 
     # sphere: centre on the axis at z_vertex + R, R = 1/c
     R = 1.0 / torch.where(planar, 1.0, torch.broadcast_to(c, shape))
@@ -252,6 +252,42 @@ def trace_ghosts_batched(lens: LensPrescription, o, d, colors, surf, kind, bwd):
     return _to_sensor(zs, n_int, o, d, energy, valid)
 
 
+class GhostStackTables(NamedTuple):
+    """The static tables of :func:`render_ghosts_stack`, on its device."""
+
+    gx: torch.Tensor  # (S*S,) float32 pupil grid, x
+    gy: torch.Tensor  # (S*S,) float32 pupil grid, y
+    disc: torch.Tensor  # (S*S,) float32: 1 inside the unit disc
+    n_rays: int  # grid points inside the disc
+    surf: torch.Tensor  # (G, E) int64 event tables, one row per (pair, wavelength)
+    kind: torch.Tensor
+    bwd: torch.Tensor
+    colors: torch.Tensor  # (G,) int64 wavelength per ghost
+
+
+def ghost_stack_tables(lens: LensPrescription, pairs=None, pupil_samples: int = 32) -> GhostStackTables:
+    """The pupil grid, its disc mask and the event tables of every (pair, wavelength) ghost.
+
+    Made once per lens layout and pupil, on the lens's device, outside a
+    captured program (they come from the host).
+    """
+    pairs = reference_ghost_pairs() if pairs is None else list(pairs)
+    dev = lens.curvatures.device
+    lin = np.linspace(-1.0, 1.0, pupil_samples)
+    gx, gy = np.meshgrid(lin, lin)
+    in_disc = (gx**2 + gy**2 <= 1.0).reshape(-1)
+    surf, kind, bwd = (np.repeat(a, 3, axis=0) for a in build_event_table(pairs, lens.num_interfaces, lens.aperture_index))
+    colors = np.tile(np.arange(3), len(pairs))
+
+    def f32(a):
+        return torch.as_tensor(a.reshape(-1), dtype=torch.float32, device=dev)
+
+    return GhostStackTables(
+        f32(gx), f32(gy), torch.as_tensor(in_disc, dtype=torch.float32, device=dev), int(in_disc.sum()),
+        *(torch.as_tensor(a, device=dev).long() for a in (surf, kind, bwd, colors)),
+    )
+
+
 def render_ghosts_stack(
     lens: LensPrescription,
     angle_to_sun,
@@ -263,6 +299,7 @@ def render_ghosts_stack(
     sensor_scale: float = 0.4,
     intensity: float = 10.0,
     pairs: tuple | None = None,
+    tables: GhostStackTables | None = None,
 ):
     """Physically based ghost buffer (H, W, 3), differentiable in the prescription.
 
@@ -273,11 +310,16 @@ def render_ghosts_stack(
     ``sensor_scale`` pixels per sensor unit around the sun's pixel, and all
     G x N x 4 bilinear taps land in one ``index_add``.  ``radiance`` (3,)
     scales the channels; ``pairs`` defaults to ``reference_ghost_pairs()``.
-    The accumulation order of ``index_add`` on CUDA is not fixed, so the
-    card's buffer varies in its last bits from run to run.
+    ``tables``: :func:`ghost_stack_tables` of ``pairs`` and ``pupil_samples``
+    made ahead (a captured program's way); made here when None.  With
+    tensors on the lens's device for the sun's angle, radiance and axis,
+    nothing is copied from the host.  The accumulation order of
+    ``index_add`` on CUDA is not fixed, so the card's buffer varies in its
+    last bits from run to run.
     """
-    pairs = reference_ghost_pairs() if pairs is None else list(pairs)
     dev = lens.curvatures.device
+    if tables is None:
+        tables = ghost_stack_tables(lens, pairs, pupil_samples)
 
     def arg(a):
         """A tensor or array keeps its dtype; a Python number or list takes the lens's, as JAX's weak types do."""
@@ -291,17 +333,8 @@ def render_ghosts_stack(
     # collimated beam from the sun, meridional angle
     d0 = torch.stack([torch.sin(angle), torch.zeros_like(angle), torch.cos(angle)]).to(dt)
     # static pupil grid and disc mask, float32 as in the JAX package
-    lin = np.linspace(-1.0, 1.0, pupil_samples)
-    gx, gy = np.meshgrid(lin, lin)
-    in_disc = (gx**2 + gy**2 <= 1.0).reshape(-1)
-    n_rays = int(in_disc.sum())
-    disc = torch.as_tensor(in_disc, dtype=torch.float32, device=dev)
-
-    def f32(a):
-        return torch.as_tensor(a.reshape(-1), dtype=torch.float32, device=dev).to(dt)
-
-    o0 = torch.stack([f32(gx) * lens.marginal_r, f32(gy) * lens.marginal_r,
-                      torch.full((gx.size,), -1.0, dtype=dt, device=dev)], dim=-1)
+    o0 = torch.stack([tables.gx.to(dt) * lens.marginal_r, tables.gy.to(dt) * lens.marginal_r,
+                      torch.full((tables.gx.shape[0],), -1.0, dtype=dt, device=dev)], dim=-1)
 
     gb_x = torch.ceil(axis_ray[0] * width)
     gb_y = torch.ceil(axis_ray[1] * height)
@@ -309,10 +342,9 @@ def render_ghosts_stack(
     ca, sa = torch.cos(screen_angle), torch.sin(screen_angle)
 
     # one ghost per (pair, wavelength), all traced in lockstep
-    surf, kind, bwd = (np.repeat(a, 3, axis=0) for a in build_event_table(pairs, lens.num_interfaces, lens.aperture_index))
-    colors = np.tile(np.arange(3), len(pairs))
-    g = len(colors)
-    tr = trace_ghosts_batched(lens, o0.expand(g, -1, -1), d0.expand(g, o0.shape[0], 3), colors, surf, kind, bwd)
+    g = tables.colors.shape[0]
+    tr = trace_ghosts_batched(lens, o0.expand(g, -1, -1), d0.expand(g, o0.shape[0], 3), tables.colors,
+                              tables.surf, tables.kind, tables.bwd)
     xs, ys = tr.xy[..., 0], tr.xy[..., 1]  # (G, N)
 
     # rotate the sensor pattern into the sun's screen direction; a tap is
@@ -321,8 +353,8 @@ def render_ghosts_stack(
     # lands on the film and keeps every clamped one at weight 0
     fx = torch.clamp(gb_x + (ca * xs - sa * ys) * sensor_scale, -2.0, width + 1.0)
     fy = torch.clamp(gb_y + (sa * xs + ca * ys) * sensor_scale, -2.0, height + 1.0)
-    w = tr.energy * disc * (intensity / n_rays)
-    ch = torch.as_tensor(colors, device=dev)[:, None]
+    w = tr.energy * tables.disc * (intensity / tables.n_rays)
+    ch = tables.colors[:, None]
 
     x0, y0 = torch.floor(fx), torch.floor(fy)
     idxs, vals = [], []

@@ -18,6 +18,17 @@ fingerprint of the render, and an interrupted render resumes from it.
 ``composite_flare`` adds the flare: ghosts from the paraxial model or,
 with ``lens_model="realistic"``, from the Snell + Fresnel lens stack.  Not
 ported yet: multi-device rendering (ROADMAP Queue 1, item 9).
+
+On a CUDA device the samples of a tile's ``render_wavefront`` and of a
+chunk's ``render_batch`` run as captured CUDA graphs (``compiled.py``,
+the counterparts of the JAX package's ``_render_jit`` and ``_batch_jit``):
+per (settings, width, height, lanes), one program makes the pixel keys
+and one traces a sample, replayed once per sample index.  Pixel indices,
+``valid``, the keys, the sample index and the camera are copied into the
+programs' static inputs; the sums over samples, the CI tests, the film
+scatter, the stats sum and checkpoints run eagerly between replays, in
+the order of an eager render.  ``compiled.disabled()`` runs a render
+eagerly, as the CPU always does.
 """
 
 from __future__ import annotations
@@ -45,16 +56,19 @@ from .integrator.path import (
     RenderSettings,
     SceneBundle,
     make_settings,
+    pixel_keys,
+    radiance_sample,
     render_batch,
     render_wavefront,
     trace_closest,
 )
+from .compiled import Programs
 from .integrator.shading import bsdf_to_device
 from .lens.aperture import ApertureTexture
 from .ops.intersect import bvh_to_device, scene_to_device, shade_rows
 from .ops.intersect_cuda import CudaScene
 from .scene.build import FlatScene, load_scene
-from .scene.camera import Camera, camera_params, generate_rays, place_from_scene_info
+from .scene.camera import Camera, CameraParams, camera_params, generate_rays, place_from_scene_info
 from .utils import image as img
 
 
@@ -123,6 +137,13 @@ class Renderer:
     bundle: SceneBundle = None
     settings: RenderSettings = None
     stats: RenderStats = field(default_factory=RenderStats)
+    # captured programs on a CUDA device: the frames' samples and the flare's ghost buffers
+    _programs: Programs = field(default_factory=Programs, init=False, repr=False, compare=False)
+    _flare_programs: Programs = field(default_factory=Programs, init=False, repr=False, compare=False)
+
+    def _drop_programs(self) -> None:
+        self._programs.clear()
+        self._flare_programs.clear()
 
     def load(self, dae_path) -> None:
         """Load a COLLADA scene and place the camera as the reference does (``renderer.py:99-115``).
@@ -130,6 +151,7 @@ class Renderer:
         With ``camera_settings`` the file's intrinsics and pose are restored,
         but the frame stays ``width`` x ``height`` (main.cpp:187-194).
         """
+        self._drop_programs()
         scene, info = load_scene(dae_path)
         self.scene = scene
         self.camera = Camera()
@@ -143,6 +165,7 @@ class Renderer:
         self._build()
 
     def set_frame_size(self, width: int, height: int) -> None:
+        self._drop_programs()
         self.width, self.height = width, height
         if self.camera is not None:
             self.camera.set_screen_size(width, height)
@@ -163,6 +186,7 @@ class Renderer:
         self._build()
 
     def _build(self) -> None:
+        self._drop_programs()
         # any number of spheres; the route is decided before any build
         wide = takes_wide_tree(self.scene.num_triangles, self.use_wide_tree)
         # check the scene against the ported feature set before building
@@ -218,6 +242,7 @@ class Renderer:
 
     def update_settings(self) -> None:
         """Rebuild the RenderSettings from the current knobs (host only)."""
+        self._drop_programs()
         self.settings = make_settings(
             self.light_table(),
             bsdf_table=self.scene.bsdfs,
@@ -358,6 +383,23 @@ class Renderer:
             next_tile=next_tile, n_tiles=n_tiles, fp=fp,
         )
 
+    def _sampler(self, cam, key, px, py, valid):
+        """``path.sampler`` through this renderer's programs: on a CUDA device the pixel keys come
+        from one replay and each sample from another, both captured per (settings, width, height,
+        lanes); elsewhere, or under ``compiled.disabled()``, the same functions run eagerly."""
+        # the programs' closures hold the bundle and settings, not the renderer: a renderer that
+        # holds its programs and is held by them would be freed only by the cyclic collector
+        bundle, settings, w, h = self.bundle, self.settings, self.width, self.height
+
+        def trace(base_keys, s_idx, px, py, valid, *cam):
+            keys = _rng.fold_in(base_keys, s_idx)
+            return radiance_sample(bundle, settings, CameraParams(*cam), keys, px, py, w, h, valid=valid)
+
+        base_keys = self._programs.run(("keys", w), lambda px, py, key: pixel_keys(key, px, py, w), px, py, key)
+        return lambda s_idx: self._programs.run(
+            ("sample", settings, w, h), trace, base_keys, s_idx, px, py, valid, *cam
+        )
+
     def _tiled_render(self, cam, key, xs, ys, film, counts, progress, total, start_tile=0, ckpt=None):
         """Every pixel's ns_aa samples, one ``tile_pixels``-lane wavefront at a time.
 
@@ -381,7 +423,8 @@ class Renderer:
                 px = torch.cat([px, px[-1:].expand(need - m)])
                 py = torch.cat([py, py[-1:].expand(need - m)])
             rad, cnt, st = render_wavefront(
-                self.bundle, self.settings, cam, px, py, w, h, key, valid
+                self.bundle, self.settings, cam, px, py, w, h, key, valid,
+                sample=self._sampler(cam, key, px, py, valid),
             )
             total += st
             film[py[:m], px[:m]] = rad[:m]
@@ -441,19 +484,28 @@ class Renderer:
                 )
         n_active = active.shape[0]
         tile = self.tile_pixels
+        # a ragged chunk is padded with valid=False lanes to a bucket of this
+        # grain, as the JAX package pads (renderer.py:548-564): each bucket
+        # width is one pair of captured programs
+        grain = 8192 if tile > 16384 else 256
         self.stats.active_per_stage = []
         for si, ns in enumerate(schedule[start_stage:], start_stage):
             if n_active == 0:
                 break
             for i in range(0, n_active, tile):
                 idx = active[i : i + tile]
+                m = idx.shape[0]
+                bucket = max(min(-(-m // grain) * grain, tile), m)
+                lanes = torch.cat([idx, idx[-1:].expand(bucket - m)])
+                px, py = xs[lanes], ys[lanes]
+                valid = torch.arange(bucket, device=dev) < m
                 f, a1, a2, st = render_batch(
-                    self.bundle, self.settings, cam, xs[idx], ys[idx],
-                    self.width, self.height, key, s_done, ns,
+                    self.bundle, self.settings, cam, px, py, self.width, self.height, key, s_done, ns,
+                    valid=valid, sample=self._sampler(cam, key, px, py, valid),
                 )
-                film.index_add_(0, idx, f)
-                s1.index_add_(0, idx, a1.double())
-                s2.index_add_(0, idx, a2.double())
+                film.index_add_(0, idx, f[:m])
+                s1.index_add_(0, idx, a1[:m].double())
+                s2.index_add_(0, idx, a2[:m].double())
                 count[idx] += ns
                 stats += st
             s_done += ns

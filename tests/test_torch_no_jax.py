@@ -5,6 +5,8 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``lens_flare_tpu`` itself (the port keeps its own copies of the host
 modules it needs), then imports the port, renders a 16x12 frame of the
 port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
+renders it again under ``compiled.disabled()`` (``compiled.py`` and
+``ab_compiled.py`` imported),
 runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
 with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
@@ -54,6 +56,11 @@ SCRIPT = textwrap.dedent(
     out = sys.argv[1]
     hdr = r.render_to_file(out)
     assert hdr.shape == (12, 16, 3) and torch.isfinite(hdr).all()
+    from lens_flare_tpu_torch import ab_compiled, compiled  # the captured programs and their A/B
+
+    with compiled.disabled():
+        eager = r.render(progress=False)[0]
+    assert torch.equal(eager, r.render(progress=False)[0]) and len(r._programs) == 0
     art = bench_kernels.main(["--device", "cpu", "--n", "256", "--scenes", "8,40", "--out", sys.argv[2]])
     assert any(r.get("check") == "top_batch2_parity" for r in art["rows"])
 
