@@ -112,7 +112,28 @@ raises, so the script exits non-zero and prints no result):
     of the perturbation, ms per step, and the start gradient against the
     CPU's (1e-3 of its peak).
 
-20. compiled: every frame and ghost buffer above runs through captured CUDA
+20. upsample_1080p: terrain 256's file (131,072 triangles, four polylists)
+    through the command line with ``--upsample 1``: Loop-subdivided to
+    524,288 triangles (``scene/halfedge.py:subdivide_scene``), 1920x1080,
+    1 spp, depth 4, aperture PNGs and the flare (A, B); subdivide, load
+    (the subdivided scene's one build), frame and command-line seconds,
+    launches; the same renderer built
+    in this process, its frame replayed against an eager one, and a 64x64
+    cell at the centre held against the port's CPU path;
+21. interactive: the viewer's ``Application`` on that renderer at
+    1920x1080: the EDIT preview (256x144; its program replayed and eager,
+    ms per frame, and an orbit that replays without a new capture, bit-equal
+    to eager), VISUALIZE (the host binary BVH's first frame and later
+    frames), RENDER with ``ns_aa`` 4 and ``progressive_batch`` 1 (each of
+    the four frames replayed bit-equal to the eager one, launches equal,
+    the finished film equal to ``Renderer.render`` within rtol 1e-5, atol
+    1e-6), the ``=`` key (the settings change: the programs are dropped and
+    the next frame captures four, with its seconds and the peak device
+    MiB), ``frame_to_ansi`` of the last frame at 160x45 cells, and the
+    mesh-edit keys u, d, i, f, s and c on the Cornell box's block, on the
+    card and on the CPU: the same triangles after each key, the programs
+    dropped by each edit, the previews and a RENDER frame alike;
+22. compiled: every frame and ghost buffer above runs through captured CUDA
     graphs (``lens_flare_tpu_torch/compiled.py``) by default, so the CLI's
     one-shot frames (phases 8, 9, 16, 17, 19) include their capture in
     ``frame_s``, and the timed frames of phases 3, 5 and 11 follow a warm-up
@@ -126,11 +147,14 @@ raises, so the script exits non-zero and prints no result):
     trace shows what the graph ran); capture s, eager and replayed
     ``frame_s``, peak device MiB with and without capture, and the
     replay's busy share under ``torch.profiler``, one ``[compiled:<frame>]``
-    line each.  Phases 3, 5, 8 and 11 hold their main path's launches to
+    line each; so are phase 20's frame and phase 21's preview and
+    progressive frame (``upsample_1080p``, ``app_preview``,
+    ``app_progressive``).  Phases 3, 5, 8 and 11 hold their main path's launches to
     those traced calls.  Phase 19's realistic and paraxial ghost buffers
     are held to their eager ones per channel within ``GHOST_F32`` (energy,
-    centroid, radius: ``index_add`` reorders float sums).  The phase's line
-    sums the rows up.
+    centroid, radius: ``index_add`` reorders float sums).  Phases 20 and 21
+    hold the command line's and the progressive frame's launches to the
+    traced calls too.  The phase's line sums the rows up.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -190,7 +214,7 @@ G_CASES = {
 }
 # the frames of the compiled phase: each replayed against a compiled.disabled() frame in its own phase
 COMPILED_FRAMES = ("terrain_1080p", "config2_frame", "dae_small", "past_capacity", "env_1080p",
-                   "ghost_realistic", "ghost_paraxial")
+                   "ghost_realistic", "ghost_paraxial", "upsample_1080p", "app_preview", "app_progressive")
 # past_capacity's frame (1920x1080, 1 spp, depth 1): 32 camera and 32 shadow wavefronts, all through G
 PAST_CAPACITY_FRAME = {"launches": 64, "rays": 4_166_786, "isects_per_ray": "5.62"}
 PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past 512*128*256
@@ -1464,7 +1488,222 @@ def main() -> int:
           curvature7_left_of_perturbation=f"{c7_err:.4g}", start_grad_vs_cpu_maxrel=f"{design_grad_err:.3g}")
     del targets, curv, opt
 
-    # -- 20. compiled: the replayed frames against eager ones (rows printed in phases 3-19)
+    # -- 20. upsample_1080p: --upsample 1 on terrain 256's file, 524,288 triangles at 1920x1080 (A, B)
+    import copy
+
+    from lens_flare_tpu_torch import compiled
+    from lens_flare_tpu_torch.scene.halfedge import subdivide_scene
+
+    def close_rule(got, want):
+        """The CPU tests' rule (phase 4): share of pixels within 1e-4 + 1e-4 relative, mean relative diff."""
+        got, want = got.reshape(-1, 3).double(), want.reshape(-1, 3).double()
+        ok = ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(dim=-1).double().mean().item()
+        return ok, ((got - want).abs().sum() / want.abs().sum()).item()
+
+    t0 = time.perf_counter()
+    up_png = build_dir / "terrain256_upsample1_1080p.png"
+    up_flags = dict(width=1920, height=1080, ns_aa=1, max_ray_depth=4, indirect=True,
+                    aperture_path=str(ap_png), ghost_aperture_path=str(ghost_png), flare_intensity=1.5,
+                    flare_radius=30.0)
+    ic.reset_launch_counts()
+    cli_s, out = run_cli(["-r", "1920", "1080", "-s", "1", "-m", "4", "-x", str(ap_png), "-y", str(ghost_png),
+                          "-i", "1.5", "-n", "30", "--upsample", "1", "-f", str(up_png), "--device", "cuda",
+                          str(terrain_file)])
+    torch.cuda.synchronize()
+    up_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert up_launches["A"] > 0 and up_launches["B"] > 0, f"the subdivided frame skipped A or B: {up_launches}"
+    assert "Loop-subdivided x1: 131072 -> 524288 triangles" in out, out
+    import re
+
+    sub_s = float(re.search(r"Subdivided in ([0-9.]+) sec", out).group(1))
+    up_render_s, up_rays, up_load_s, up_bvh_s = cli_numbers(out)
+    up_frame = load_png(up_png)
+    assert up_frame.shape == (1080, 1920, 3) and up_frame.max() > 0 and up_frame.std() > 0, "the PNG is blank"
+    # the same renderer in this process, as the command line builds it, for the held frame and the viewer
+    ru = Renderer(device="cuda", **up_flags)
+    ru.load(terrain_file, build=False)
+    t_sub = time.perf_counter()
+    up_scene = subdivide_scene(ru.scene, 1)
+    sub_here_s = time.perf_counter() - t_sub
+    ru.load_flat_scene(up_scene, camera=ru.camera)
+    assert ru.scene.num_triangles == 524_288 and ru.bundle.cscene is not None and not ru.bundle.cscene.shade
+    compiled_row("upsample_1080p", ru, lambda: ru.render(progress=False))
+    held("upsample_1080p", up_launches)  # the command line's one frame is this one
+    # a 64x64 cell at the frame's centre, against the port's CPU path on the same scene and camera
+    up_cell = (928, 508, 64, 64)
+    got, _ = ru.render(cell=up_cell, progress=False)
+    rcpu = Renderer(device="cpu", **{k: v for k, v in up_flags.items() if not k.startswith(("aperture", "ghost"))})
+    rcpu.load_flat_scene(ru.scene, camera=copy.deepcopy(ru.camera))
+    want, _ = rcpu.render(cell=up_cell, progress=False)
+    x0, y0, dx, dy = up_cell
+    got, want = got.cpu()[y0 : y0 + dy, x0 : x0 + dx], want[y0 : y0 + dy, x0 : x0 + dx]
+    ok, rel = close_rule(got, want)
+    assert torch.isfinite(got).all() and got.sum() > 0 and ok >= 0.99 and rel < 1e-3, (ok, rel)
+    assert rcpu.stats.total_rays == ru.stats.total_rays, (rcpu.stats.total_rays, ru.stats.total_rays)
+    del rcpu
+    phase("upsample_1080p", t0, tris_in=131072, tris=ru.scene.num_triangles, width=1920, height=1080, spp=1,
+          depth=4, flare="on", subdivide_s=f"{sub_s:.4f}", subdivide_s_in_process=f"{sub_here_s:.4f}",
+          parse_build_s=f"{up_load_s:.4f}", bvh_build_s=f"{up_bvh_s:.4f}",
+          frame_s=f"{up_render_s:.4f}", frame_s_includes_capture="yes", cli_s=f"{cli_s:.4f}",
+          rays_traced=up_rays, mrays_traced_per_s=f"{up_rays / up_render_s / 1e6:.3f}",
+          cell=json.dumps(up_cell), cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}",
+          launches=json.dumps(up_launches), png=up_png.name)
+
+    # -- 21. interactive: the viewer's Application on that renderer, the mesh-edit keys, a tty frame
+    from lens_flare_tpu_torch.app import LEFT, Application, Mode
+    from lens_flare_tpu_torch.term_viewer import frame_to_ansi
+
+    def host_ms(fn, n):
+        """Host ms per call of ``fn`` (each ends in a copy to the host, which waits for the device)."""
+        t_fn = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t_fn) / n * 1e3
+
+    t0 = time.perf_counter()
+    ru.ns_aa = 4
+    app = Application(ru, preview_width=256, progressive_batch=1)
+
+    def preview():
+        """A fresh EDIT frame (the preview program), as tensors: colour, then the hit mask."""
+        app._preview_cache = None
+        app.frame()
+        return torch.as_tensor(app._preview_cache), torch.as_tensor(app._preview_hit)
+
+    # EDIT: 256 x 144, eager and replayed; an orbit replays without a new capture
+    compiled_row("app_preview", ru, preview)
+    programs = len(ru._programs)
+    first = preview()
+    assert first[0].shape == (144, 256, 3) and first[1].float().mean() > 0.2
+    preview_ms = host_ms(preview, 20)
+    with compiled.disabled():
+        preview_eager_ms = host_ms(preview, 5)
+    app.mouse_pressed(LEFT, 900.0, 500.0)
+    app.cursor_event(960.0, 470.0)  # a left drag: rotate_by
+    app.mouse_released(LEFT)
+    orbited = preview()
+    assert len(ru._programs) == programs, "an orbit captured anew"
+    assert not torch.equal(orbited[0], first[0]), "the orbit did not reach the replayed program"
+    with compiled.disabled():
+        orbited_eager = preview()
+    assert all(torch.equal(a, b) for a, b in zip(orbited, orbited_eager)), "the orbited replay differs from eager"
+    app.keyboard_event(" ")  # back to the canonical view
+    # VISUALIZE: the host binary BVH (built once) under the dimmed preview
+    app.keyboard_event("v")
+    t_vis = time.perf_counter()
+    vis = app.frame()
+    vis_first_s = time.perf_counter() - t_vis
+    for key in ("LEFT", "RIGHT"):
+        app.keyboard_event(key)
+    vis_ms = host_ms(app.frame, 5)
+    assert vis.shape == (144, 256, 3) and app.mode == Mode.VISUALIZE and len(app.selection_history) == 3
+    # RENDER: ns_aa 4, one sample per frame, eagerly and then replayed, frame for frame bit-equal
+    app.keyboard_event("r")
+
+    def progressive():
+        """The first progressive frame from a fresh start: film and counts on the card."""
+        app.start_raytracing()
+        app.frame()
+        return app._film, app._counts
+
+    compiled_row("app_progressive", ru, progressive)
+    # each program's capture seconds: the preview's, and a RENDER frame's keys and sample programs per lane width
+    program_capture_s = {f"{key[0]}@{shapes[0][0]}": round(sec, 4) for key, shapes, sec in ru._programs.capture_seconds()}
+    runs = {}
+    for tag in ("eager", "replayed"):
+        app.start_raytracing()
+        films, frame_times, counted = [], [], []
+        with compiled.disabled() if tag == "eager" else contextlib.nullcontext():
+            while not app.render_done:
+                ic.reset_launch_counts()
+                t_f = time.perf_counter()
+                last = app.frame()
+                frame_times.append(time.perf_counter() - t_f)
+                counted.append({k: v.launches for k, v in ic.KERNELS.items()})
+                films.append((app._film.clone(), app._counts.clone()))
+        runs[tag] = (films, frame_times, counted)
+    assert len(runs["replayed"][0]) == 4
+    for (f, c), (fe, ce) in zip(runs["replayed"][0], runs["eager"][0]):
+        assert torch.equal(f, fe) and torch.equal(c, ce), "a replayed progressive frame differs from eager"
+    assert runs["replayed"][2] == runs["eager"][2], "replayed progressive frames counted other launches"
+    prog_launches = runs["replayed"][2][1]
+    assert prog_launches["A"] > 0 and prog_launches["B"] > 0, f"the progressive frame skipped A or B: {prog_launches}"
+    held("app_progressive", prog_launches)
+    assert last.shape == (1080, 1920, 3) and np.isfinite(last).all() and (app._counts == 4).all()
+    # sample for sample the offline render (rtol 1e-5, atol 1e-6: tests/test_app.py:96's limits)
+    offline, _ = ru.render(progress=False)
+    prog_hdr = app._hdr()
+    assert torch.allclose(prog_hdr, offline, rtol=1e-5, atol=1e-6), "the progressive film is not the offline render"
+    prog_vs_offline = (prog_hdr - offline).abs().max().item()
+    # a key that changes the settings ('=': area-light samples x2) drops the programs; the next frame captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    c0 = ru._programs.capture_s
+    app.keyboard_event("=")
+    programs_dropped = len(ru._programs) == 0
+    t_key = time.perf_counter()
+    app.frame()
+    key_frame_s = time.perf_counter() - t_key
+    torch.cuda.synchronize()
+    programs_after_key = len(ru._programs)
+    key_program_capture_s = {f"{key[0]}@{shapes[0][0]}": round(sec, 4) for key, shapes, sec in ru._programs.capture_seconds()}
+    key_capture_s = ru._programs.capture_s - c0
+    key_peak = torch.cuda.max_memory_allocated() / 2**20
+    key_peak_above = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    assert programs_dropped and programs_after_key == 4, (programs_dropped, programs_after_key)
+    # the tty front end's frame: 160 x 45 cells, two film rows per cell
+    t_tty = time.perf_counter()
+    tty = frame_to_ansi(last, 160, 45)
+    tty_s = time.perf_counter() - t_tty
+    assert tty.count("▀") == 160 * 45 and tty.count("\n") == 44
+    # the mesh-edit keys on the Cornell box, on the card and on the CPU: the same scenes, previews alike
+    def box_app(dev):
+        rb = Renderer(device=dev, width=320, height=240, ns_aa=2, max_ray_depth=3, indirect=True, seed=0)
+        rb.load(cornell)
+        a = Application(rb, preview_width=256)
+        a.selected_mesh = 5  # the open block
+        a.frame()
+        return a
+
+    card, host = box_app("cuda"), box_app("cpu")
+    edits = {}
+    for key in "udifsc":
+        for a in (card, host):
+            a.keyboard_event(key)
+        sc, scpu = card.renderer.scene, host.renderer.scene
+        assert np.array_equal(sc.tri_p, scpu.tri_p) and np.array_equal(sc.tri_n, scpu.tri_n), key
+        changed = not card.log[-1].endswith(("(non-manifold input)", "manifoldness guard)", "; ignored"))
+        assert not changed or len(card.renderer._programs) == 0, f"{key}: the edit kept the old programs"
+        got, want = torch.as_tensor(card.frame()), torch.as_tensor(host.frame())
+        hit_same = torch.as_tensor(card._preview_hit) == torch.as_tensor(host._preview_hit)
+        ok, rel = close_rule(got, want)
+        assert hit_same.double().mean().item() >= 0.999 and ok >= 0.99 and rel < 1e-3, (key, ok, rel)
+        edits[key] = f"{sc.num_triangles}:{'edited' if changed else 'declined'}:{ok:.4f}"
+    assert sum(":edited:" in v for v in edits.values()) >= 3, edits
+    for a in (card, host):
+        a.keyboard_event("r")
+    ok, rel = close_rule(torch.as_tensor(card.frame()), torch.as_tensor(host.frame()))
+    assert ok >= 0.99 and rel < 1e-3, ("the edited box's RENDER frame", ok, rel)
+    rows = {k: compiled_rows[k] for k in ("app_preview", "app_progressive")}
+    phase("interactive", t0, tris=ru.scene.num_triangles, width=1920, height=1080, preview="256x144",
+          preview_ms=f"{preview_ms:.3f}", preview_eager_ms=f"{preview_eager_ms:.3f}",
+          preview_capture_s=f"{rows['app_preview']['capture_s']:.4f}",
+          visualize_first_s=f"{vis_first_s:.4f}", visualize_ms=f"{vis_ms:.3f}", ns_aa=4, progressive_batch=1,
+          progressive_ms=json.dumps([round(s * 1e3, 3) for s in runs["replayed"][1]]),
+          progressive_eager_ms=json.dumps([round(s * 1e3, 3) for s in runs["eager"][1]]),
+          progressive_capture_s=f"{rows['app_progressive']['capture_s']:.4f}",
+          progressive_vs_offline_max_abs=f"{prog_vs_offline:.3g}",
+          key_frame_s=f"{key_frame_s:.4f}", key_capture_s=f"{key_capture_s:.4f}",
+          program_capture_s=json.dumps(program_capture_s), key_program_capture_s=json.dumps(key_program_capture_s),
+          programs_after_key=programs_after_key, peak_mib_after_key=f"{key_peak:.1f}",
+          peak_mib_above_key=f"{key_peak_above:.1f}", tty_s=f"{tty_s:.4f}",
+          launches_per_progressive_frame=json.dumps(prog_launches),
+          traced=json.dumps({k: v["traced_launches"] for k, v in rows.items()}),
+          mesh_edits=json.dumps(edits))
+    del app, ru, card, host
+
+    # -- 22. compiled: the replayed frames against eager ones (rows printed in phases 3-21)
     assert sorted(compiled_rows) == sorted(COMPILED_FRAMES), sorted(compiled_rows)
     phase("compiled", t_start, frames=len(compiled_rows),
           bit_equal=json.dumps(sorted(k for k, v in compiled_rows.items() if v["bit_equal"])),
@@ -1474,7 +1713,7 @@ def main() -> int:
           **{f"{k}_capture_s": f"{v['capture_s']:.4f}" for k, v in compiled_rows.items()},
           **{f"{k}_busy": f"{v['busy_share']:.4f}" for k, v in compiled_rows.items()})
 
-    # -- 21. results -------------------------------------------------------
+    # -- 23. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

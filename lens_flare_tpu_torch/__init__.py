@@ -6,7 +6,8 @@ its layout so each module's counterpart sits at the same path:
 - ``scene``       the COLLADA loader, the host scene arrays, procedural
                   terrain, the host camera, camera parameters on the device
                   and ray generation; COLLADA files and skies written in
-                  code (``writer``)
+                  code (``writer``); the halfedge mesh, its edit operations
+                  and Loop subdivision (``halfedge``)
 - ``accel``       the two-level cluster tree, the binary SAH BVH, and their
                   native (g++) builder
 - ``ops``         scene tables, hit finalization, and the hand-written CUDA
@@ -24,6 +25,9 @@ its layout so each module's counterpart sits at the same path:
 - ``compiled``    captured CUDA graphs of one sample of a tile or adaptive
                   chunk and of the ghost buffers, replayed per call (``compiled.disabled()``
                   runs eagerly)
+- ``app``         the interactive Application: EDIT preview and mesh edits,
+                  VISUALIZE, progressive RENDER (headless)
+- ``term_viewer`` its terminal front end (``--view``)
 - ``cli``         the command line (``python -m lens_flare_tpu_torch.cli``)
 - ``bench_kernels``  the kernel bench: every trace kernel on terrain
                   wavefronts (``python -m lens_flare_tpu_torch.bench_kernels``)
@@ -31,7 +35,8 @@ its layout so each module's counterpart sits at the same path:
 
 It imports torch and NumPy, never JAX, and nothing of the JAX package: the
 host modules it needs (COLLADA loader, scene arrays, terrain, camera, BVH
-and cluster-tree builders, image transforms) are copies kept under the
+and cluster-tree builders, halfedge mesh, terminal viewer, image
+transforms) are copies kept under the
 same module names.
 """
 

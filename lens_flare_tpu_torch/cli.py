@@ -10,11 +10,14 @@ runs on the CUDA card unless ``--device cpu`` asks for the CPU.  Example::
 ``-e sky.exr`` lights the scene with an equirect environment map read by
 the port's ``utils/exr.py``; ``--lens-model realistic`` draws the ghosts
 with the sequential Snell + Fresnel lens stack (``lens/realistic.py``), with
-or without aperture PNGs; the two together are BASELINE config 3.  Flags
-whose features are not ported yet raise NotImplementedError naming their
-ROADMAP Queue 1 item: ``--upsample`` and ``--view`` (item 10), and
-``--devices`` or ``-t`` above 1 (item 9).  ``--trace DIR`` writes a
-``torch.profiler`` Chrome trace of the render to ``DIR/trace.json``.
+or without aperture PNGs; the two together are BASELINE config 3.
+``--upsample N`` Loop-subdivides every mesh N levels before the render
+(``scene/halfedge.py:subdivide_scene``); ``--view`` opens the terminal
+viewer (``term_viewer.py``) on the configured, loaded renderer in place of
+the render to ``-f``.  ``--devices`` or ``-t`` above 1 raise
+NotImplementedError naming ROADMAP Queue 1 item 9, which is not ported
+yet.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the
+render to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -55,11 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="ghost model: paraxial 2x2 matrices, or the realistic Snell + Fresnel lens stack",
     )
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--upsample", type=int, default=0, metavar="N", help="Loop-subdivide meshes N levels; not ported yet")
+    p.add_argument("--upsample", type=int, default=0, metavar="N",
+                   help="Loop-subdivide every scene mesh N levels before rendering (EDIT mode's 'u' key, offline)")
     p.add_argument("--devices", type=int, default=0, help="rendering devices (0 = all available; 1 only)")
     p.add_argument("--trace", dest="trace_dir", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render to DIR/trace.json")
-    p.add_argument("--view", action="store_true", help="interactive terminal viewer; not ported yet")
+    p.add_argument("--view", action="store_true",
+                   help="open the interactive terminal viewer instead of rendering to -f (keys: r/v/e/s, "
+                   "[ ] - = < > k l ; ' C d, space, arrows; mouse orbit/pan/autofocus)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the CUDA card (default) or on the CPU")
     return p
@@ -67,14 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose feature the port does not have yet, naming its ROADMAP item."""
-    refused = [
-        (args.upsample > 0, "--upsample", 10),
-        (args.view, "--view", 10),
-        (max(args.devices, args.num_threads) > 1, "--devices / -t above 1", 9),
-    ]
-    for given, flag, item in refused:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1, item {item})")
+    if max(args.devices, args.num_threads) > 1:
+        raise NotImplementedError("--devices / -t above 1 is not ported yet (ROADMAP Queue 1, item 9)")
 
 
 def main(argv=None) -> int:
@@ -118,13 +118,32 @@ def main(argv=None) -> int:
     )
     print(f"[PathTracer] Loading scene {args.scene}")
     t0 = time.perf_counter()
-    r.load(args.scene)
+    r.load(args.scene, build=args.upsample == 0)  # a subdivided scene is built once, after the subdivision
+    sub_s = 0.0
+    if args.upsample > 0:
+        from .scene.halfedge import subdivide_scene
+
+        n_tris = r.scene.num_triangles
+        t_sub = time.perf_counter()
+        scene = subdivide_scene(r.scene, args.upsample)
+        sub_s = time.perf_counter() - t_sub
+        print(f"[PathTracer] Loop-subdivided x{args.upsample}: {n_tris} -> {scene.num_triangles} triangles")
+        print(f"[PathTracer] Subdivided in {sub_s:.4f} sec")
+        r.load_flat_scene(scene, camera=r.camera)
     route = "cluster tree" if r.bundle.cscene is not None else "binary BVH"
     print(
         f"[PathTracer] Scene loaded: {r.scene.num_triangles} triangles, {r.scene.num_spheres} spheres, "
-        f"{len(r.scene.lights.light_type)} lights, {route}; parse + build {time.perf_counter() - t0:.4f} sec "
+        f"{len(r.scene.lights.light_type)} lights, {route}; parse + build {time.perf_counter() - t0 - sub_s:.4f} sec "
         f"(BVH build {r.stats.bvh_build_time:.4f} sec)"
     )
+    if args.view:
+        # the viewer takes the configured, loaded renderer: every flag above applies
+        if args.trace_dir:
+            print("[PathTracer] --trace applies to offline renders only; ignoring it for the interactive viewer")
+        from .app import Application
+        from .term_viewer import run_viewer
+
+        return run_viewer(Application(r, filename=str(Path(args.output).with_suffix(""))))
     cell = tuple(args.p) if args.p else None
     if args.trace_dir:
         from torch.profiler import ProfilerActivity, profile

@@ -68,6 +68,7 @@ class Program:
         self.outputs = outputs
         self.launches = launches
         self.single = single  # the function returned one tensor, not a tuple
+        self.capture_s = 0.0  # host seconds of its warm-up, capture and instantiation
 
     def replay(self, inputs):
         """Copy ``inputs`` (of the captured shapes, dtypes and device) into the static buffers, replay,
@@ -104,6 +105,11 @@ class Programs:
     def __len__(self) -> int:
         return len(self._programs)
 
+    def capture_seconds(self) -> list:
+        """(key, input shapes, seconds) of each cached program's capture."""
+        return [(key, [shape for shape, _, _ in inputs], prog.capture_s)
+                for (key, inputs), prog in self._programs.items()]
+
     def clear(self) -> None:
         self._programs.clear()
 
@@ -130,8 +136,10 @@ class Programs:
         finally:
             for k, n in before.items():
                 KERNELS[k].launches = n
-        self.capture_s += time.perf_counter() - t0
-        return Program(fn, graph, static, _flat(out), captured, single=torch.is_tensor(out))
+        prog = Program(fn, graph, static, _flat(out), captured, single=torch.is_tensor(out))
+        prog.capture_s = time.perf_counter() - t0
+        self.capture_s += prog.capture_s
+        return prog
 
 
 # The capture backend: module functions, so that a test can stand in for the card.

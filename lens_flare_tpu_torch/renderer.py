@@ -93,6 +93,22 @@ def blocked_order(xs: np.ndarray, ys: np.ndarray, width: int, bs: int = 32) -> n
     )
 
 
+def pad_lanes(px: torch.Tensor, py: torch.Tensor, tile: int, grain: int):
+    """Pad a ragged chunk of ``m`` pixels to a bucket of ``grain`` lanes, at most ``tile``.
+
+    The padded lanes repeat the last pixel and are ``valid=False``: they
+    trace nothing.  Each bucket width is one pair of captured programs, as
+    each is one compile in the JAX package (``renderer.py:548-564``,
+    ``app.py:627-638``).  Returns (px, py, valid, m).
+    """
+    m = px.shape[0]
+    bucket = max(min(-(-m // grain) * grain, tile), m)
+    if bucket > m:
+        px = torch.cat([px, px[-1:].expand(bucket - m)])
+        py = torch.cat([py, py[-1:].expand(bucket - m)])
+    return px, py, torch.arange(bucket, device=px.device) < m, m
+
+
 @dataclass
 class Renderer:
     """Offline renderer on one device (``"cuda"`` or ``"cpu"``).
@@ -145,11 +161,13 @@ class Renderer:
         self._programs.clear()
         self._flare_programs.clear()
 
-    def load(self, dae_path) -> None:
+    def load(self, dae_path, build: bool = True) -> None:
         """Load a COLLADA scene and place the camera as the reference does (``renderer.py:99-115``).
 
         With ``camera_settings`` the file's intrinsics and pose are restored,
         but the frame stays ``width`` x ``height`` (main.cpp:187-194).
+        ``build=False`` leaves the trees and the device bundle unbuilt, for a
+        caller that edits the scene and hands it to :meth:`load_flat_scene`.
         """
         self._drop_programs()
         scene, info = load_scene(dae_path)
@@ -162,7 +180,10 @@ class Renderer:
             self.camera.screen_w, self.camera.screen_h = self.width, self.height
         self.camera.lens_radius = self.lens_radius
         self.camera.focal_distance = self.focal_distance
-        self._build()
+        if build:
+            self._build()
+        else:
+            self.bundle = None  # not the last scene's
 
     def set_frame_size(self, width: int, height: int) -> None:
         self._drop_programs()
@@ -241,9 +262,13 @@ class Renderer:
         return lt
 
     def update_settings(self) -> None:
-        """Rebuild the RenderSettings from the current knobs (host only)."""
-        self._drop_programs()
-        self.settings = make_settings(
+        """Rebuild the RenderSettings from the current knobs (host only).
+
+        The programs are dropped when the settings change: the viewer calls
+        this on every restart of its progressive render, and a restart with
+        the same knobs (after an orbit, say) replays what it captured.
+        """
+        settings = make_settings(
             self.light_table(),
             bsdf_table=self.scene.bsdfs,
             ns_aa=self.ns_aa,
@@ -255,6 +280,9 @@ class Renderer:
             indirect=self.indirect,
             use_thin_lens=self.lens_radius > 0,
         )
+        if settings != self.settings:
+            self._drop_programs()
+        self.settings = settings
 
     def _checkpoint_fingerprint(self, cell) -> str:
         """Identity of a render for resuming (``renderer.py:257-291``).
@@ -484,21 +512,14 @@ class Renderer:
                 )
         n_active = active.shape[0]
         tile = self.tile_pixels
-        # a ragged chunk is padded with valid=False lanes to a bucket of this
-        # grain, as the JAX package pads (renderer.py:548-564): each bucket
-        # width is one pair of captured programs
-        grain = 8192 if tile > 16384 else 256
+        grain = 8192 if tile > 16384 else 256  # the JAX package's buckets (renderer.py:548-564)
         self.stats.active_per_stage = []
         for si, ns in enumerate(schedule[start_stage:], start_stage):
             if n_active == 0:
                 break
             for i in range(0, n_active, tile):
                 idx = active[i : i + tile]
-                m = idx.shape[0]
-                bucket = max(min(-(-m // grain) * grain, tile), m)
-                lanes = torch.cat([idx, idx[-1:].expand(bucket - m)])
-                px, py = xs[lanes], ys[lanes]
-                valid = torch.arange(bucket, device=dev) < m
+                px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain)
                 f, a1, a2, st = render_batch(
                     self.bundle, self.settings, cam, px, py, self.width, self.height, key, s_done, ns,
                     valid=valid, sample=self._sampler(cam, key, px, py, valid),

@@ -2,8 +2,9 @@
 
 Counterpart of ``lens_flare_tpu/scene/camera.py``.  :class:`Camera` is a
 copy of the JAX package's NumPy host class (orbit placement, the FOV
-fix-up, ``set_screen_size``, world -> screen projection, the settings files
-and ``params()``, ``camera.py:42-240``), with ``place_from_scene_info``
+fix-up, ``set_screen_size``, the viewer's moves ``move_by``, ``move_forward``
+and ``rotate_by``, world -> screen projection, the settings files and
+``params()``, ``camera.py:42-240``), with ``place_from_scene_info``
 (``:243``), the placement a loaded COLLADA scene gets;
 the device half holds ``CameraParams`` as tensors, pinhole, thin-lens and
 bokeh ray generation (``camera.py:242-306``) and
@@ -118,6 +119,25 @@ class Camera:
         c2w[:, 1] = screen_y
         c2w[:, 2] = dir_to_camera / np.linalg.norm(dir_to_camera)
         self.c2w = c2w
+
+    def move_by(self, dx: float, dy: float, d: float) -> None:
+        """Pan the camera and its target in the screen plane, scaled to distance ``d`` (JAX ``camera.py:140``)."""
+        scale = d / self.screen_dist
+        disp = self.c2w[:, 0] * (dx * scale) + self.c2w[:, 1] * (dy * scale)
+        self.pos = self.pos + disp
+        self.target_pos = self.target_pos + disp
+
+    def move_forward(self, dist: float) -> None:
+        """Dolly toward the target, the orbit radius clamped to [min_r, max_r] (JAX ``camera.py:146``)."""
+        new_r = min(max(self.r - dist, self.min_r), self.max_r)
+        self.pos = self.target_pos + (self.pos - self.target_pos) * (new_r / self.r)
+        self.r = new_r
+
+    def rotate_by(self, d_phi: float, d_theta: float) -> None:
+        """Orbit around the target, phi clamped to [0, pi] (JAX ``camera.py:151``)."""
+        self.phi = min(max(self.phi + d_phi, 0.0), math.pi)
+        self.theta += d_theta
+        self.compute_position()
 
     def analyze_world_coord(self, pos_world) -> tuple[float, float]:
         """World point -> normalized screen coords in [0,1]^2 (camera.cpp:245-273)."""

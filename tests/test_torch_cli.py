@@ -24,6 +24,13 @@ Tolerances and why:
 The third case renders a frame with ``Renderer(use_wide_tree=False)``,
 kernel G's binary-BVH walk (its plain version on the CPU), against the
 JAX ``Renderer`` at the same rule.
+
+``--upsample 1`` (Loop subdivision of every mesh) through both command
+lines prints the same triangle counts and gives PNGs within one level;
+the subdivided scene's HDR, through each package's ``subdivide_scene`` and
+``Renderer``, within ``_close``.  ``--view`` runs the port's terminal
+viewer on a scripted tty (keys ``r``, then ``q``) and returns 0.  Only
+``--devices`` and ``-t`` above 1 are still refused.
 """
 
 import numpy as np
@@ -32,12 +39,15 @@ import torch
 
 import chip_smoke
 from lens_flare_tpu import cli as j_cli
+from lens_flare_tpu.scene import halfedge as j_halfedge
 from lens_flare_tpu.renderer import Renderer as JaxRenderer
 from lens_flare_tpu.scene import build as j_build
 from lens_flare_tpu.scene import camera as j_camera
 from lens_flare_tpu_torch import cli
 from lens_flare_tpu_torch.lens.aperture import polygon_mask
+from lens_flare_tpu_torch import term_viewer
 from lens_flare_tpu_torch.renderer import Renderer
+from lens_flare_tpu_torch.scene import halfedge
 from lens_flare_tpu_torch.utils.image import load_png, save_png
 
 W, H = 48, 36
@@ -132,3 +142,69 @@ def test_trace_writes_a_chrome_trace(files, tmp_path):
                      str(files / "cornell.dae")]) == 0
     text = (out / "trace.json").read_text()
     assert '"traceEvents"' in text and (tmp_path / "t.png").exists()
+
+
+def test_upsample_matches_jax(files, capsys):
+    """--upsample 1: the same Loop-subdivided scene through both command lines, and its HDR."""
+    d = files
+    flags = ["-r", str(W), str(H), "-s", "2", "-m", "3", "--upsample", "1"]
+    assert cli.main([*flags, "-f", str(d / "port_up.png"), "--device", "cpu", str(d / "cornell.dae")]) == 0
+    port_out = capsys.readouterr().out
+    assert j_cli.main([*flags, "-f", str(d / "jax_up.png"), str(d / "cornell.dae")]) == 0
+    jax_out = capsys.readouterr().out
+    line = [ln for ln in port_out.splitlines() if "Loop-subdivided" in ln]
+    assert line == [ln for ln in jax_out.splitlines() if "Loop-subdivided" in ln]
+    assert line == ["[PathTracer] Loop-subdivided x1: 22 -> 88 triangles"]
+    got, want = load_png(d / "port_up.png"), load_png(d / "jax_up.png")
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert got.shape == (H, W, 3) and (diff <= 1).mean() >= 0.99, (diff <= 1).mean()
+    kw = dict(KW, ns_aa=2, max_ray_depth=3)
+    r = Renderer(device="cpu", **kw)
+    r.load(d / "cornell.dae")
+    r.load_flat_scene(halfedge.subdivide_scene(r.scene, 1), camera=r.camera)
+    j = JaxRenderer(use_pallas=False, **kw)
+    j.load(d / "cornell.dae")
+    j.load_flat_scene(j_halfedge.subdivide_scene(j.scene, 1), camera=j.camera)
+    np.testing.assert_array_equal(r.scene.tri_p, j.scene.tri_p)
+    hdr, counts = r.render(progress=False)
+    j_hdr, j_counts = j.render(progress=False)
+    assert (counts.numpy() == np.asarray(j_counts)).all() and hdr.numpy().sum() > 0
+    _close(hdr.numpy(), j_hdr)
+
+
+class ScriptedTTY:
+    """Stands in for ``term_viewer.TerminalIO``: yields one scripted event per ``events`` call."""
+
+    def __init__(self, script=(("key", "r"), ("key", "q"))):
+        self.script = list(script)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self, timeout=0.0):
+        if self.script:
+            yield self.script.pop(0)
+
+
+def test_view_runs_the_terminal_viewer(files, monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(term_viewer, "TerminalIO", ScriptedTTY)
+    monkeypatch.setattr(term_viewer.os, "get_terminal_size", lambda *fd: term_viewer.os.terminal_size((24, 10)))
+    rc = cli.main(["-r", "24", "16", "-s", "2", "-m", "2", "--view", "--trace", str(tmp_path / "t"),
+                   "-f", str(tmp_path / "v.png"), "--device", "cpu", str(files / "cornell.dae")])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "--trace applies to offline renders only" in out
+    # one frame drawn after 'r': 8 rows of 24 half-block cells, and the RENDER HUD line
+    assert out.count("\u2580") == 8 * 24 and "[RENDER] spp=2" in out
+    assert not (tmp_path / "v.png").exists() and not (tmp_path / "t").exists()
+
+
+@pytest.mark.parametrize("flags", [["--devices", "2"], ["-t", "2"]], ids=["devices", "threads"])
+def test_only_multi_device_is_refused(flags, files, tmp_path):
+    args = ["-r", "8", "6", "-f", str(tmp_path / "x.png"), "--device", "cpu", str(files / "cornell.dae")]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cli.main([*flags, *args])
+    assert cli.main(["--devices", "1", "-t", "1", *args]) == 0  # one device is served

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules give the same arrays.
 
 ``lens_flare_tpu_torch`` keeps its own ``make_terrain_scene``, ``FlatScene``,
-``build_wide_bvh`` (native and NumPy builders), host ``Camera``, image
+``build_wide_bvh`` (native and NumPy builders), host ``Camera`` (its
+viewer moves too), image
 transforms and EXR reader and writer.  Each is held here to the JAX
 package's original on the same inputs, exactly: they are the same NumPy
 (or C++) code.  The port's EXR writer also writes HALF channels, which the
@@ -93,6 +94,30 @@ def test_camera_params_equal_jax():
         assert np.asarray(a).dtype == np.asarray(b).dtype, f
     for p in ([4.0, -4.0, 8.0], [-6.0, 7.0, 9.0]):
         assert mine.analyze_world_coord(np.array(p)) == ref.analyze_world_coord(np.array(p))
+
+
+def test_camera_moves_equal_jax():
+    """The viewer's moves: pan (move_by), dolly (move_forward, clamped at min_r and max_r) and orbit
+    (rotate_by, phi clamped to [0, pi]), in turn from the same placement."""
+    info = j_collada.CameraInfo(h_fov=40.0, v_fov=30.0, n_clip=0.01, f_clip=500.0)
+    moves = [("rotate_by", 0.3, -0.7), ("move_by", -12.0, 5.0, 30.0), ("move_forward", 4.5),
+             ("move_forward", -1e3), ("rotate_by", -5.0, 0.2), ("move_forward", 1e3), ("rotate_by", 9.0, 3.0),
+             ("move_by", 3.0, -8.0, 7.5), ("place", np.array([0.5, -1.0, 2.0]), 1.0, 0.5, 30.0, 3.0, 300.0)]
+    cams = []
+    for cls in (Camera, j_camera.Camera):
+        cam = cls()
+        cam.configure(info, 320, 240)
+        cam.place(np.array([0.5, -1.0, 2.0]), math.pi / 3, math.pi / 4, 30.0, 3.0, 300.0)
+        cams.append(cam)
+    mine, ref = cams
+    for name, *args in moves:
+        getattr(mine, name)(*args)
+        getattr(ref, name)(*args)
+        for f in ("pos", "target_pos", "c2w", "phi", "theta", "r"):
+            a, b = np.asarray(getattr(mine, f)), np.asarray(getattr(ref, f))
+            np.testing.assert_array_equal(a, b, err_msg=f"{name}: {f}")
+            assert a.dtype == b.dtype
+    assert mine.r == 30.0 and mine.phi == 1.0
 
 
 def test_image_transforms_equal_jax():

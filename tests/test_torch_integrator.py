@@ -222,10 +222,10 @@ def test_triangle_limit_is_named():
 
 
 def test_unported_features_raise():
-    """What stays unported raises, naming its ROADMAP item: the CLI's --upsample, --view and
-    --devices above 1."""
+    """What stays unported raises, naming its ROADMAP item: the CLI's --devices or -t above 1.
+    (--upsample and --view are ported: tests/test_torch_cli.py runs them.)"""
     from lens_flare_tpu_torch import cli
 
-    for flags, item in ((["--upsample", "1"], "item 10"), (["--view"], "item 10"), (["--devices", "2"], "item 9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
+    for flags in (["--devices", "2"], ["-t", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
             cli.main(["--device", "cpu", *flags, "scene.dae"])

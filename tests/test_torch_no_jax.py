@@ -5,13 +5,15 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``lens_flare_tpu`` itself (the port keeps its own copies of the host
 modules it needs), then imports the port, renders a 16x12 frame of the
 port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
-renders it again under ``compiled.disabled()`` (``compiled.py`` and
-``ab_compiled.py`` imported),
+renders it again under ``compiled.disabled()`` (``compiled.py``,
+``ab_compiled.py`` and ``ab_cli.py`` imported),
 runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
 with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
 on a terrain file under a HALF sky map written by the port's
 ``utils/exr.write`` (``-e``) and with ``--lens-model realistic``, runs
+``--upsample 1`` (Loop subdivision), drives the interactive ``Application``
+through one frame in each mode and a mesh edit, runs
 ``optimize_lens`` for three steps with a checkpoint (``torch.optim`` and
 ``torch.save`` in place of optax and orbax), and takes the gradient of a
 ``render_image`` with respect to an albedo.  Any import of a refused
@@ -56,7 +58,7 @@ SCRIPT = textwrap.dedent(
     out = sys.argv[1]
     hdr = r.render_to_file(out)
     assert hdr.shape == (12, 16, 3) and torch.isfinite(hdr).all()
-    from lens_flare_tpu_torch import ab_compiled, compiled  # the captured programs and their A/B
+    from lens_flare_tpu_torch import ab_cli, ab_compiled, compiled  # the captured programs and the A/Bs
 
     with compiled.disabled():
         eager = r.render(progress=False)[0]
@@ -87,6 +89,26 @@ SCRIPT = textwrap.dedent(
     rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "1", "--lens-model", "realistic", "-f", str(d / "real.png"),
                    "--device", "cpu", str(terrain)])
     assert rc == 0 and load_png(d / "real.png").shape == (12, 16, 3)
+    rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "2", "--upsample", "1", "-f", str(d / "up.png"),
+                   "--device", "cpu", str(dae)])
+    assert rc == 0 and load_png(d / "up.png").shape == (12, 16, 3)
+
+    # the interactive application: one frame in each mode, and a mesh edit
+    from lens_flare_tpu_torch.app import Application
+    from lens_flare_tpu_torch.term_viewer import frame_to_ansi
+
+    ra = Renderer(width=16, height=12, ns_aa=2, device="cpu")
+    ra.load(dae)
+    app = Application(ra, preview_width=16)
+    frames = [app.frame()]
+    for key in ("v", "r"):
+        app.keyboard_event(key)
+        frames.append(app.frame())
+    app.keyboard_event("e")
+    app.keyboard_event("u")
+    frames.append(app.frame())
+    assert all(f.shape == (12, 16, 3) and np.isfinite(f).all() for f in frames)
+    assert ra.scene.num_triangles == 28 and frame_to_ansi(frames[2], 8, 3).count("\u2580") == 24
 
     # lens design with a checkpoint, and the gradient of a render
     from lens_flare_tpu_torch import _rng
@@ -133,3 +155,4 @@ def test_port_renders_without_jax(tmp_path):
     assert (tmp_path / "cornell.png").read_bytes().startswith(b"\x89PNG")
     assert (tmp_path / "sky.png").read_bytes().startswith(b"\x89PNG")
     assert (tmp_path / "real.png").read_bytes().startswith(b"\x89PNG")
+    assert (tmp_path / "up.png").read_bytes().startswith(b"\x89PNG")
