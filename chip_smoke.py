@@ -154,7 +154,21 @@ raises, so the script exits non-zero and prints no result):
     are held to their eager ones per channel within ``GHOST_F32`` (energy,
     centroid, radius: ``index_add`` reorders float sums).  Phases 20 and 21
     hold the command line's and the progressive frame's launches to the
-    traced calls too.  The phase's line sums the rows up.
+    traced calls too.  The phase's line sums the rows up;
+23. sharded: ``terrain_1080p`` through ``Renderer(devices=0)`` on a mesh of
+    two stand-in shards of ``cuda:0`` (``parallel.mesh.available_devices``
+    replaced for the build; printed as stand-ins), and on every card where
+    there are more than one: eager, capturing and replayed frames bit-equal
+    to one device's, equal stats, each kernel launched once per shard;
+    capture s and ``frame_s``; the command line's ``--devices 0`` on the
+    stand-ins writes the PNG of ``--devices 1``; the row-sharded
+    lens-design step (``parallel.render.make_train_step``, 128x128) equal
+    to the unsharded one for 3 steps (rtol 1e-6); and a one-rank NCCL group
+    (``torch.distributed.init_process_group``; ``nccl_world=1``: not
+    two-card evidence)
+    running ``render_sharded`` on the frame's first 65,536-lane wavefront,
+    bit-equal to ``render_wavefront``, the train step, and the frame
+    through ``Renderer(devices=0)`` on the stand-ins, bit-equal.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -1713,7 +1727,147 @@ def main() -> int:
           **{f"{k}_capture_s": f"{v['capture_s']:.4f}" for k, v in compiled_rows.items()},
           **{f"{k}_busy": f"{v['busy_share']:.4f}" for k, v in compiled_rows.items()})
 
-    # -- 23. results -------------------------------------------------------
+    # -- 23. sharded: terrain_1080p on a mesh of stand-in shards (and of every card, where there are more)
+    import socket
+
+    from lens_flare_tpu_torch import _rng
+    from lens_flare_tpu_torch.diff.optimize import LENS_FIELDS
+    from lens_flare_tpu_torch.integrator.path import render_wavefront
+    from lens_flare_tpu_torch.lens.prescription import reference_prescription
+    from lens_flare_tpu_torch.parallel import mesh as pmesh
+    from lens_flare_tpu_torch.parallel import render as prender
+    from lens_flare_tpu_torch.renderer import blocked_order
+    from lens_flare_tpu_torch.scene.camera import camera_params
+
+    def timed_frame(rr, eager=False):
+        """One synchronized frame of ``rr``: (hdr, counts, (rays, tests, skipped), launches of A-G,
+        frame_s); replayed unless ``eager``."""
+        with compiled.disabled() if eager else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            ic.reset_launch_counts()
+            t_f = time.perf_counter()
+            hdr, cnt = rr.render(progress=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t_f
+        st = rr.stats
+        return hdr, cnt, (st.total_rays, st.total_isects, st.total_zero_skipped), compiled.launch_counts(), seconds
+
+    t0 = time.perf_counter()
+    r, _, _ = terrain_1080p("cuda")  # phase 3's frame on a renderer of its own: the one-device frame
+    timed_frame(r)  # captures the frame's programs
+    want = timed_frame(r)
+    want_eager = timed_frame(r, eager=True)
+    assert torch.equal(want_eager[0], want[0]) and want_eager[2] == want[2]
+    assert want[3]["A"] > 0 and want[3]["B"] > 0, f"the frame skipped A or B: {want[3]}"
+    meshes = {"stand_in": [torch.device("cuda", 0)] * 2}
+    if torch.cuda.device_count() > 1:
+        meshes["devices"] = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    enumerate_devices = pmesh.available_devices
+    sharded_report = {"device_count": torch.cuda.device_count()}
+    for case, devices in meshes.items():
+        pmesh.available_devices = lambda device, devices=devices: list(devices)  # what Renderer enumerates
+        try:
+            rm, _, _ = terrain_1080p("cuda", devices=0)
+        finally:
+            pmesh.available_devices = enumerate_devices
+        assert rm.n_shards == len(devices) and len(rm._replicas) == len(set(devices))
+        print(f"[sharded:{case}] {len(devices)} shards on {len(set(devices))} distinct device(s): "
+              f"{', '.join(map(str, devices))}" + (" (stand-ins: one card, two shards)" if case == "stand_in" else ""),
+              flush=True)
+        eager = timed_frame(rm, eager=True)
+        c0 = rm._programs.capture_s
+        first = timed_frame(rm)
+        capture_s = rm._programs.capture_s - c0
+        replayed = timed_frame(rm)
+        for got in (eager, first, replayed):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"{case}: the frame differs"
+            # every wavefront is split: each kernel launches once per shard
+            assert got[2] == want[2] and got[3] == {k: n * len(devices) for k, n in want[3].items()}, (
+                case, got[2:4], want[2:4])
+        sharded_report.update({
+            f"{case}_shards": len(devices), f"{case}_distinct_devices": len(set(devices)),
+            f"{case}_capture_s": f"{capture_s:.4f}", f"{case}_frame_s": f"{replayed[4]:.4f}",
+            f"{case}_eager_frame_s": f"{eager[4]:.4f}", f"{case}_programs": len(rm._programs),
+            f"{case}_launches": json.dumps({k: replayed[3][k] for k in "AB"}),
+        })
+        del rm
+    # the command line: --devices 0 over the stand-ins writes the PNG of --devices 1
+    cli_pngs = {}
+    for flag in ("1", "0"):
+        png = build_dir / f"terrain256_devices{flag}.png"
+        pmesh.available_devices = lambda device: [torch.device("cuda", 0)] * 2
+        try:
+            _, out = run_cli(["-r", "640", "360", "-s", "1", "-m", "4", "--devices", flag, "-f", str(png),
+                              "--device", "cuda", str(terrain_file)])
+        finally:
+            pmesh.available_devices = enumerate_devices
+        assert f"Rendering on {2 if flag == '0' else 1} shard(s) over 1 device(s)" in out, out
+        cli_pngs[flag] = png.read_bytes()
+    assert cli_pngs["0"] == cli_pngs["1"], "--devices 0 wrote another PNG"
+    # the row-sharded lens-design step on the stand-ins against the unsharded one
+    stand_in = pmesh.make_mesh(devices=meshes["stand_in"])
+    tex = torch.as_tensor(polygon_mask(64, 6), dtype=torch.float32, device="cuda")
+    axis = torch.tensor([0.6, 0.55], device="cuda")
+    lens0 = reference_prescription(device="cuda")
+    img_u = prender.ghost_image_from_lens(lens0, tex, axis, 0.4, 128, 128)
+    img_s = prender.ghost_image_from_lens(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
+    target = img_u * 1.05
+    lens_u, step_u = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128)
+    lens_s, step_s = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
+
+    def step_rel(lens_a, lens_b):
+        return max(((getattr(lens_a, f) - getattr(lens_b, f)).abs().max()
+                    / getattr(lens_b, f).abs().max().clamp_min(1e-30)).item() for f in LENS_FIELDS)
+
+    for _ in range(3):
+        loss_u, loss_s = step_u(target), step_s(target)
+        assert abs(loss_s.item() - loss_u.item()) <= 1e-6 * abs(loss_u.item()), (loss_s.item(), loss_u.item())
+        assert step_rel(lens_s, lens_u) <= 1e-6, step_rel(lens_s, lens_u)
+    # a one-rank NCCL group: the collectives of render_sharded and the train step run (all_gather, all_reduce)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        nccl_port = sock.getsockname()[1]
+    torch.distributed.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{nccl_port}",
+                                         world_size=1, rank=0)
+    try:
+        backend, world = torch.distributed.get_backend(), pmesh.group()[1]
+        assert "cuda:nccl" in backend and world == 1, (backend, world)
+        tile = r.tile_pixels
+        ys_, xs_ = np.mgrid[0:1080, 0:1920]
+        order = blocked_order(xs_.ravel(), ys_.ravel(), 1920)[:tile]
+        px = torch.as_tensor(xs_.ravel()[order], device="cuda")
+        py = torch.as_tensor(ys_.ravel()[order], device="cuda")
+        cam, key = camera_params(r.camera, "cuda"), _rng.prng_key(0, device="cuda")
+        one = render_wavefront(r.bundle, r.settings, cam, px, py, 1920, 1080, key)
+        two = prender.render_sharded(r.bundle, r.settings, cam, px, py, 1920, 1080, key, mesh=stand_in)
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), "render_sharded under NCCL differs"
+        lens_g, step_g = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
+        lens_1, step_1 = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128)
+        loss_g, loss_1 = step_g(target), step_1(target)
+        assert torch.isfinite(loss_g) and abs(loss_g.item() - loss_1.item()) <= 1e-6 * abs(loss_1.item())
+        assert step_rel(lens_g, lens_1) <= 1e-6
+        # the Renderer under the group: its shards' lanes gathered through the group's collectives too
+        pmesh.available_devices = lambda device: list(meshes["stand_in"])
+        try:
+            rg, _, _ = terrain_1080p("cuda", devices=0)
+        finally:
+            pmesh.available_devices = enumerate_devices
+        timed_frame(rg)  # captures
+        got = timed_frame(rg)
+        assert rg.n_shards == 2 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "Renderer under NCCL"
+        assert got[2] == want[2], (got[2], want[2])
+        nccl_frame_s = got[4]
+        del rg
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("sharded", t0, tris=r.scene.num_triangles, width=1920, height=1080, spp=1, depth=4,
+          one_device_frame_s=f"{want[4]:.4f}", one_device_eager_frame_s=f"{want_eager[4]:.4f}",
+          **sharded_report, cli_devices0_png_equal=True,
+          ghost_image_bit_equal=torch.equal(img_u, img_s), train_steps=3, train_step_max_rel=f"{step_rel(lens_s, lens_u):.3g}",
+          nccl_world=world, nccl_backend=json.dumps(backend), nccl_lanes=tile, nccl_render_bit_equal=True, nccl_loss=f"{loss_g.item():.6g}",
+          nccl_renderer_frame_s=f"{nccl_frame_s:.4f}")
+
+    # -- 24. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

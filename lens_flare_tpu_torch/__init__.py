@@ -22,6 +22,9 @@ its layout so each module's counterpart sits at the same path:
                   lens design with Adam and resumable checkpoints
 - ``utils``       image transforms, PNG input and output
 - ``renderer``    the tiled wavefront ``Renderer`` (``load`` a COLLADA file)
+- ``parallel``    multi-device rendering: wavefronts sharded over a mesh of
+                  devices, the scene replicated (``Renderer(devices=)``,
+                  ``render_sharded``, the row-sharded lens-design step)
 - ``compiled``    captured CUDA graphs of one sample of a tile or adaptive
                   chunk and of the ghost buffers, replayed per call (``compiled.disabled()``
                   runs eagerly)

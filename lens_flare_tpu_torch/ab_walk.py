@@ -105,17 +105,18 @@ def config2_renderer(nq: int, device="cuda", **kw) -> tuple[Renderer, dict]:
     return r, settings
 
 
-def terrain_1080p(device="cuda"):
+def terrain_1080p(device="cuda", **kw):
     """The ``terrain_1080p`` frame: 524,288 triangles, 1920x1080, 1 spp, depth 4, NEE + RR, with the flare.
 
-    Returns (renderer, flare pipeline, frame), where frame() renders and
-    composites one frame -> (hdr, counts, flared).
+    ``kw``: more ``Renderer`` fields (``devices``).  Returns (renderer, flare
+    pipeline, frame), where frame() renders and composites one frame ->
+    (hdr, counts, flared).
     """
     r = Renderer(
         width=1920, height=1080, ns_aa=1, max_ray_depth=4, ns_area_light=1, indirect=True,
         seed=0, flare_intensity=1.5, flare_radius=30.0, device=device,
         aperture=ApertureTexture.from_array(polygon_mask(256, 5, rotation=0.3)),
-        ghost_aperture=ApertureTexture.from_array(polygon_mask(64, 6)),
+        ghost_aperture=ApertureTexture.from_array(polygon_mask(64, 6)), **kw,
     )
     r.load_flat_scene(make_terrain_scene(512))
     pipeline = r.flare_pipeline()

@@ -22,7 +22,9 @@ Where the JAX package jits the preview (``app.py:57``) and the sample batch
 (``compiled.py``) on a CUDA device: the preview is one program per preview
 size, and a RENDER frame replays, per tile of its cell, the pixel-keys
 program and the one-sample program of ``Renderer._sampler`` that offline
-renders replay.  The camera is an input of every program, so an orbit
+renders replay (``Renderer.render_chunk``, sharded as the offline render
+over a renderer's ``devices``; the preview runs on its first device, as
+in the JAX package).  The camera is an input of every program, so an orbit
 between frames replays; the renderer drops its programs when its scene is
 rebuilt (a mesh edit) or its settings change (a key such as ``]``).  On
 the CPU, and under ``compiled.disabled()``, the same code runs eagerly.
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from . import _rng
-from .integrator.path import render_batch, trace_closest
+from .integrator.path import trace_closest
 from .renderer import Renderer, pad_lanes
 from .scene.camera import CameraParams, camera_params, generate_rays
 
@@ -649,11 +651,8 @@ class Application:
             tile = r.tile_pixels
             grain = 4096 if tile > 8192 else 256  # the JAX package's buckets (app.py:627-638)
             for i in range(0, xs.shape[0], tile):
-                px, py, valid, m = pad_lanes(xs[i : i + tile], ys[i : i + tile], tile, grain)
-                film, _, _, _ = render_batch(
-                    r.bundle, r.settings, cam, px, py, r.width, r.height, key, self._sample_idx, ns,
-                    valid=valid, sample=r._sampler(cam, key, px, py, valid),
-                )
+                px, py, valid, m = pad_lanes(xs[i : i + tile], ys[i : i + tile], tile, grain, r.n_shards)
+                film, _, _, _ = r.render_chunk(cam, key, px, py, valid, self._sample_idx, ns)
                 self._film[py[:m], px[:m]] += film[:m]
                 self._counts[py[:m], px[:m]] += ns
             self._sample_idx += ns

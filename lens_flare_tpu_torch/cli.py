@@ -14,10 +14,11 @@ or without aperture PNGs; the two together are BASELINE config 3.
 ``--upsample N`` Loop-subdivides every mesh N levels before the render
 (``scene/halfedge.py:subdivide_scene``); ``--view`` opens the terminal
 viewer (``term_viewer.py``) on the configured, loaded renderer in place of
-the render to ``-f``.  ``--devices`` or ``-t`` above 1 raise
-NotImplementedError naming ROADMAP Queue 1 item 9, which is not ported
-yet.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the
-render to ``DIR/trace.json``.
+the render to ``-f``.  ``--devices N`` (or ``-t N``, the reference's
+worker count; ``--devices`` takes precedence) shards every wavefront over
+the first N CUDA devices, 0 (the default) over all of them: on a machine
+with one card that is one device.  ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of the render to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("scene", help="COLLADA (.dae) scene file")
     p.add_argument("-s", type=int, default=1, dest="ns_aa", help="camera rays per pixel")
     p.add_argument("-l", type=int, default=1, dest="ns_area_light", help="samples per area light")
-    p.add_argument("-t", type=int, default=0, dest="num_threads", help="rendering devices, as --devices (1 only)")
+    p.add_argument("-t", type=int, default=0, dest="num_threads",
+                   help="worker parallelism (reference: thread-pool size; here: rendering devices, as --devices)")
     p.add_argument("-m", type=int, default=1, dest="max_ray_depth", help="maximum ray depth")
     p.add_argument("-e", dest="envmap", default=None, help="environment map (.exr)")
     p.add_argument("-b", type=float, default=0.0, dest="lens_radius", help="aperture (lens) radius")
@@ -60,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--upsample", type=int, default=0, metavar="N",
                    help="Loop-subdivide every scene mesh N levels before rendering (EDIT mode's 'u' key, offline)")
-    p.add_argument("--devices", type=int, default=0, help="rendering devices (0 = all available; 1 only)")
+    p.add_argument("--devices", type=int, default=0, help="shard the render over the first N devices (0 = all available)")
     p.add_argument("--trace", dest="trace_dir", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render to DIR/trace.json")
     p.add_argument("--view", action="store_true",
@@ -71,15 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Raise for a flag whose feature the port does not have yet, naming its ROADMAP item."""
-    if max(args.devices, args.num_threads) > 1:
-        raise NotImplementedError("--devices / -t above 1 is not ported yet (ROADMAP Queue 1, item 9)")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     from .renderer import Renderer
 
@@ -115,6 +110,9 @@ def main(argv=None) -> int:
         camera_settings=args.cam_settings,
         seed=args.seed,
         device=args.device,
+        # -t is the reference's parallelism knob (its thread-pool size, main.cpp:106-108); both
+        # flags drive the mesh the wavefronts are sharded over, --devices first, 0 = all
+        devices=args.devices if args.devices > 0 else (args.num_threads or 0),
     )
     print(f"[PathTracer] Loading scene {args.scene}")
     t0 = time.perf_counter()
@@ -136,6 +134,9 @@ def main(argv=None) -> int:
         f"{len(r.scene.lights.light_type)} lights, {route}; parse + build {time.perf_counter() - t0 - sub_s:.4f} sec "
         f"(BVH build {r.stats.bvh_build_time:.4f} sec)"
     )
+    mesh = r._mesh or (r.bundle.scene.tri_shade.device,)
+    print(f"[PathTracer] Rendering on {r.n_shards} shard(s) over {len(set(mesh))} device(s): "
+          f"{', '.join(str(d) for d in mesh)}")
     if args.view:
         # the viewer takes the configured, loaded renderer: every flag above applies
         if args.trace_dir:

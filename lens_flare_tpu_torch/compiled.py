@@ -31,6 +31,7 @@ import time
 import torch
 
 from .ops.intersect_cuda import KERNELS
+from .parallel.mesh import device_scope
 
 _eager = contextvars.ContextVar("lens_flare_tpu_torch_eager", default=False)
 
@@ -93,13 +94,15 @@ class Programs:
     (scene tables, settings) is captured by address and must stay alive
     and unchanged in shape while the program is cached: its owner
     :meth:`clear` s the cache when they change.  The programs share one
-    memory pool, and replays run in the order of the calls, on the
-    current stream.
+    memory pool per device, and replays run in the order of the calls, on
+    the current stream.  A program belongs to its inputs' device: on a mesh
+    (``parallel/``) each device captures its own, under that device, on a
+    side stream of it, and the shards of one device share theirs.
     """
 
     def __init__(self):
         self._programs: dict = {}
-        self._pool = None
+        self._pools: dict = {}
         self.capture_s = 0.0  # host seconds spent capturing: warm-up, capture, instantiation
 
     def __len__(self) -> int:
@@ -125,13 +128,15 @@ class Programs:
     def _capture(self, fn, inputs) -> Program:
         t0 = time.perf_counter()
         static = [x.clone() for x in inputs]
+        dev = static[0].device
         before = launch_counts()
         try:
-            _warm_up(fn, static)
-            warm = launch_counts()
-            if self._pool is None:
-                self._pool = _new_pool()
-            graph, out = _graph(fn, static, self._pool)
+            with device_scope(dev):
+                _warm_up(fn, static)
+                warm = launch_counts()
+                if dev not in self._pools:
+                    self._pools[dev] = _new_pool()
+                graph, out = _graph(fn, static, self._pools[dev])
             captured = {k: n - warm[k] for k, n in launch_counts().items() if n != warm[k]}
         finally:
             for k, n in before.items():
@@ -166,7 +171,8 @@ def _new_pool():
 
 
 def _graph(fn, static, pool):
-    """(graph, outputs): ``fn(*static)`` captured into a new CUDA graph in ``pool``.
+    """(graph, outputs): ``fn(*static)`` captured into a new CUDA graph in ``pool``, on a side
+    stream of the current device (the inputs').
 
     The cyclic garbage collector is off during the capture: a dead
     program's graph destroyed inside it frees memory, which a capture

@@ -45,6 +45,17 @@ def ghost_image(lens: LensPrescription, ghost_tex, axis_ray, angle, width, heigh
     return splat_ghosts(ghost_tex, r1.reshape(-1), r2.reshape(-1), colors, axis_ray, width, height, smooth=True)
 
 
+def adam_over(lens0: LensPrescription, device, learning_rate: float):
+    """(lens, optimizer): a trainable copy of ``lens0`` on ``device`` (its float fields leaves that
+    require a gradient) and ``torch.optim.Adam`` over them with optax's defaults."""
+    lens = LensPrescription(
+        **{f: getattr(lens0, f).detach().to(device).clone().requires_grad_(True) for f in LENS_FIELDS},
+        aperture_index=lens0.aperture_index,
+    )
+    params = [getattr(lens, f) for f in LENS_FIELDS]
+    return lens, torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
 def optimize_lens(
     target,
     ghost_tex,
@@ -68,12 +79,7 @@ def optimize_lens(
     axis_ray = torch.as_tensor(axis_ray, device=dev)
     height, width = target.shape[:2]
     lens0 = init_lens if init_lens is not None else reference_prescription(device=dev)
-    lens = LensPrescription(
-        **{f: getattr(lens0, f).detach().to(dev).clone().requires_grad_(True) for f in LENS_FIELDS},
-        aperture_index=lens0.aperture_index,
-    )
-    params = [getattr(lens, f) for f in LENS_FIELDS]
-    optimizer = torch.optim.Adam(params, lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    lens, optimizer = adam_over(lens0, dev, config.learning_rate)
 
     ckpt_mgr = None
     start_step = 0

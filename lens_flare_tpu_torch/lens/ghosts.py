@@ -147,7 +147,12 @@ def splat_eval(tex, r1s, r2s, colors, axis_ray, width, height, xs, ys, smooth=Fa
         col = colors * intensity[:, None]
         t1 = _raster_triangle(tex, width, height, _tri1(cx).T, _tri1(cy).T, uv_u, uv_v, col, xs, ys, True)
         t2 = _raster_triangle(tex, width, height, _tri2(cx).T, _tri2(cy).T, uv_u, uv_v, col, xs, ys, True)
-        return buf + (t1 + t2).sum(dim=0)
+        # summed ghost by ghost, in order: a pixel's value does not depend on which other pixels are
+        # evaluated with it (a reduction over the ghosts orders its sums by the shape), so a slab of
+        # rows gives the whole image's rows bit for bit (``parallel/render.py``)
+        for t in t1 + t2:
+            buf = buf + t
+        return buf
     for g in range(r1s.shape[0]):
         cx, cy, intensity = ghost_corners(r1s[g], r2s[g], axis_ray, width, height)
         col = colors[g] * intensity

@@ -911,33 +911,35 @@ def _launch(key: str, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, tb: int = 
     outs = [out_t.data_ptr(), out_slot.data_ptr(), out_bary.data_ptr(), out_tests.data_ptr()]
     tree = [cs.top.data_ptr(), cs.child.data_ptr()]
     shape = [n, cs.b1, cs.b2, cs.k, cs.n_spheres]
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    if key == "C":
-        rc = lib.lf_brute(
-            *rays, cs.tri_brute.data_ptr(), cs.sph.data_ptr(),
-            n, cs.s_real, cs.s_pad, cs.n_spheres, int(closest), *outs, stream,
-        )
-    elif key == "A":
-        cb = 2 if cs.b1 == 1 else 1  # _auto_chunk_batch
-        rc = lib.lf_tree_closest(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, cb, *outs, stream)
-    elif key == "D":
-        rc = lib.lf_tree_closest_shade(
-            *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
-            *shape, *outs, out_rows.data_ptr(), stream,
-        )
-    elif key == "E":
-        rc = lib.lf_tree_closest_mxu(
-            *rays, *tree, cs.mxu_rows.data_ptr(), cs.mxu_centers.data_ptr(), cs.sph.data_ptr(),
-            *shape, *outs, stream,
-        )
-    elif key == "F":
-        rc = lib.lf_tree_group(
-            *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
-            *shape, tb, group_tile(not closest), int(not closest), int(shade), *outs,
-            out_rows.data_ptr() if shade else None, stream,
-        )
-    else:
-        rc = lib.lf_tree_any_hit(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, *outs, stream)
+    # the launch runs on the rays' device, on its current stream: a shard's, on a mesh
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        if key == "C":
+            rc = lib.lf_brute(
+                *rays, cs.tri_brute.data_ptr(), cs.sph.data_ptr(),
+                n, cs.s_real, cs.s_pad, cs.n_spheres, int(closest), *outs, stream,
+            )
+        elif key == "A":
+            cb = 2 if cs.b1 == 1 else 1  # _auto_chunk_batch
+            rc = lib.lf_tree_closest(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, cb, *outs, stream)
+        elif key == "D":
+            rc = lib.lf_tree_closest_shade(
+                *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
+                *shape, *outs, out_rows.data_ptr(), stream,
+            )
+        elif key == "E":
+            rc = lib.lf_tree_closest_mxu(
+                *rays, *tree, cs.mxu_rows.data_ptr(), cs.mxu_centers.data_ptr(), cs.sph.data_ptr(),
+                *shape, *outs, stream,
+            )
+        elif key == "F":
+            rc = lib.lf_tree_group(
+                *rays, *tree, cs.tri.data_ptr(), cs.slot_shade.data_ptr(), cs.sph.data_ptr(),
+                *shape, tb, group_tile(not closest), int(not closest), int(shade), *outs,
+                out_rows.data_ptr() if shade else None, stream,
+            )
+        else:
+            rc = lib.lf_tree_any_hit(*rays, *tree, cs.tri.data_ptr(), cs.sph.data_ptr(), *shape, *outs, stream)
     if rc != 0:
         raise RuntimeError(f"kernel {KERNELS[key].symbol} failed to launch: cudaError {rc}")
     KERNELS[key].launches += 1
@@ -985,12 +987,13 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
     out_b2 = torch.empty(n, dtype=torch.float32, device=dev)
     out_found = torch.empty(n, dtype=torch.bool, device=dev)
     out_tests = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.lf_bvh_walk(
-        o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-        bv.root.data_ptr(), bv.nodes.data_ptr(), bv.rows.data_ptr(), n, bv.num_tris, int(any_hit),
-        counter.data_ptr(), out_t.data_ptr(), out_prim.data_ptr(), out_b1.data_ptr(), out_b2.data_ptr(),
-        out_found.data_ptr(), out_tests.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # G sizes its grid for the current device and launches on its stream
+        rc = lib.lf_bvh_walk(
+            o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+            bv.root.data_ptr(), bv.nodes.data_ptr(), bv.rows.data_ptr(), n, bv.num_tris, int(any_hit),
+            counter.data_ptr(), out_t.data_ptr(), out_prim.data_ptr(), out_b1.data_ptr(), out_b2.data_ptr(),
+            out_found.data_ptr(), out_tests.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"kernel lf_bvh_walk failed to launch: cudaError {rc}")
     KERNELS["G"].launches += 1

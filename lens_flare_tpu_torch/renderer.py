@@ -16,8 +16,9 @@ map: NEE samples it as one more light and camera rays that miss see it.
 adaptive render: its accumulators and active set after each stage) with a
 fingerprint of the render, and an interrupted render resumes from it.
 ``composite_flare`` adds the flare: ghosts from the paraxial model or,
-with ``lens_model="realistic"``, from the Snell + Fresnel lens stack.  Not
-ported yet: multi-device rendering (ROADMAP Queue 1, item 9).
+with ``lens_model="realistic"``, from the Snell + Fresnel lens stack.
+``devices`` shards every wavefront over several devices (``parallel/``),
+each shard on its device's replica of the scene, bit-equal to one device.
 
 On a CUDA device the samples of a tile's ``render_wavefront`` and of a
 chunk's ``render_batch`` run as captured CUDA graphs (``compiled.py``,
@@ -67,6 +68,9 @@ from .integrator.shading import bsdf_to_device
 from .lens.aperture import ApertureTexture
 from .ops.intersect import bvh_to_device, scene_to_device, shade_rows
 from .ops.intersect_cuda import CudaScene
+from .parallel import mesh as parallel_mesh
+from .parallel.mesh import group, make_mesh, replicate
+from .parallel.render import shard_call
 from .scene.build import FlatScene, load_scene
 from .scene.camera import Camera, CameraParams, camera_params, generate_rays, place_from_scene_info
 from .utils import image as img
@@ -93,16 +97,19 @@ def blocked_order(xs: np.ndarray, ys: np.ndarray, width: int, bs: int = 32) -> n
     )
 
 
-def pad_lanes(px: torch.Tensor, py: torch.Tensor, tile: int, grain: int):
+def pad_lanes(px: torch.Tensor, py: torch.Tensor, tile: int, grain: int, multiple: int = 1):
     """Pad a ragged chunk of ``m`` pixels to a bucket of ``grain`` lanes, at most ``tile``.
 
     The padded lanes repeat the last pixel and are ``valid=False``: they
     trace nothing.  Each bucket width is one pair of captured programs, as
     each is one compile in the JAX package (``renderer.py:548-564``,
-    ``app.py:627-638``).  Returns (px, py, valid, m).
+    ``app.py:627-638``).  On a mesh of ``multiple`` shards the grain and
+    the bucket are multiples of it (``tile`` already is).  Returns (px, py,
+    valid, m).
     """
     m = px.shape[0]
-    bucket = max(min(-(-m // grain) * grain, tile), m)
+    grain = -(-grain // multiple) * multiple
+    bucket = max(min(-(-m // grain) * grain, tile), -(-m // multiple) * multiple)
     if bucket > m:
         px = torch.cat([px, px[-1:].expand(bucket - m)])
         py = torch.cat([py, py[-1:].expand(bucket - m)])
@@ -118,6 +125,21 @@ class Renderer:
     (kernels A-D) up to its capacity and walks the binary BVH (kernel G, the
     JAX package's XLA walk) past it; False always walks the binary BVH; True
     always takes the cluster tree, and raises past its capacity.
+
+    ``devices`` (``renderer.py:84-90``): 1 renders on ``device``; 0 on
+    every device that ``parallel.mesh.available_devices`` finds (every CUDA
+    device, or the one CPU), N on the first N of them.  Above one device
+    each wavefront (a tile, or an adaptive chunk padded to a multiple of the
+    mesh) is split into one contiguous shard per device, traced there
+    against that device's replica of the scene through that device's
+    captured programs, and gathered in order (``parallel.render.shard_call``);
+    ``tile_pixels`` is rounded up to a multiple of the shard count.  Under a
+    ``torch.distributed`` group, as the JAX mesh spans every host's
+    devices, a ``devices`` other than 1 shards over every rank: each rank
+    takes its block of each wavefront over its own devices (``devices``
+    counts per process), and every rank gets the whole film.  The film,
+    counts and stats equal one device's bit for bit, so a checkpoint
+    resumes on any device count.
     """
 
     width: int = 800
@@ -147,6 +169,7 @@ class Renderer:
     seed: int = 0
     device: str = "cuda"
     use_wide_tree: bool | None = None  # None: by scene size (accel/wide.py:takes_wide_tree)
+    devices: int = 1  # 1: one device; 0: all available; N: the first N
 
     scene: FlatScene = None
     camera: Camera = None
@@ -156,6 +179,9 @@ class Renderer:
     # captured programs on a CUDA device: the frames' samples and the flare's ghost buffers
     _programs: Programs = field(default_factory=Programs, init=False, repr=False, compare=False)
     _flare_programs: Programs = field(default_factory=Programs, init=False, repr=False, compare=False)
+    # the mesh the wavefronts are sharded over (None: one device) and the scene on each of its devices
+    _mesh: tuple | None = field(default=None, init=False, repr=False, compare=False)
+    _replicas: dict | None = field(default=None, init=False, repr=False, compare=False)
 
     def _drop_programs(self) -> None:
         self._programs.clear()
@@ -183,7 +209,7 @@ class Renderer:
         if build:
             self._build()
         else:
-            self.bundle = None  # not the last scene's
+            self.bundle = self._replicas = None  # not the last scene's
 
     def set_frame_size(self, width: int, height: int) -> None:
         self._drop_programs()
@@ -242,6 +268,15 @@ class Renderer:
             bvh=bvh,
             env=None if self.envmap is None else build_env(self.envmap, dev),
         )
+        avail = parallel_mesh.available_devices(self.device)  # looked up here: a stand-in may replace it
+        n_dev = len(avail) if self.devices == 0 else min(self.devices, len(avail))
+        ranks = 1 if self.devices == 1 else group()[1]
+        self._mesh = make_mesh(devices=avail[:n_dev]) if n_dev * ranks > 1 else None
+        self._replicas = None
+        if self._mesh is not None:
+            self._replicas = replicate(self.bundle, self._mesh)  # once per build, not per tile
+            # every wavefront divides over the shards of every rank
+            self.tile_pixels = -(-self.tile_pixels // self.n_shards) * self.n_shards
 
     def light_table(self):
         """The scene's light table, with an LT_ENV row appended when there is an ``envmap``.
@@ -411,13 +446,20 @@ class Renderer:
             next_tile=next_tile, n_tiles=n_tiles, fp=fp,
         )
 
-    def _sampler(self, cam, key, px, py, valid):
+    @property
+    def n_shards(self) -> int:
+        """The shards a wavefront is split into: the mesh's, over every rank of a process group."""
+        return 1 if self._mesh is None else len(self._mesh) * group()[1]
+
+    def _sampler(self, cam, key, px, py, valid, bundle=None):
         """``path.sampler`` through this renderer's programs: on a CUDA device the pixel keys come
         from one replay and each sample from another, both captured per (settings, width, height,
-        lanes); elsewhere, or under ``compiled.disabled()``, the same functions run eagerly."""
+        lanes, device); elsewhere, or under ``compiled.disabled()``, the same functions run eagerly.
+        ``bundle``: the scene on the lanes' device (a shard's replica), the renderer's by default."""
         # the programs' closures hold the bundle and settings, not the renderer: a renderer that
         # holds its programs and is held by them would be freed only by the cyclic collector
-        bundle, settings, w, h = self.bundle, self.settings, self.width, self.height
+        bundle = self.bundle if bundle is None else bundle
+        settings, w, h = self.settings, self.width, self.height
 
         def trace(base_keys, s_idx, px, py, valid, *cam):
             keys = _rng.fold_in(base_keys, s_idx)
@@ -427,6 +469,22 @@ class Renderer:
         return lambda s_idx: self._programs.run(
             ("sample", settings, w, h), trace, base_keys, s_idx, px, py, valid, *cam
         )
+
+    def _sharded(self, cam, key, px, py, valid, call):
+        """``call(bundle, cam, key, px, py, valid)`` on the wavefront, or through
+        ``parallel.render.shard_call`` over the mesh: per-lane outputs, then the stats."""
+        if self._mesh is None:
+            return call(self.bundle, cam, key, px, py, valid)
+        return shard_call(self._mesh, self._replicas, call, cam, key, px, py, valid)
+
+    def render_chunk(self, cam, key, px, py, valid, s_offset, n_samples: int):
+        """``render_batch`` of samples ``s_offset ..`` on a padded chunk, through the programs and the
+        mesh: the adaptive render's and the progressive viewer's unit."""
+        w, h = self.width, self.height
+        return self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_batch(
+            b, self.settings, c, x, y, w, h, k, s_offset, n_samples, valid=v,
+            sample=self._sampler(c, k, x, y, v, bundle=b),
+        ))
 
     def _tiled_render(self, cam, key, xs, ys, film, counts, progress, total, start_tile=0, ckpt=None):
         """Every pixel's ns_aa samples, one ``tile_pixels``-lane wavefront at a time.
@@ -444,16 +502,15 @@ class Renderer:
             px = xs[ti * tile : (ti + 1) * tile]
             py = ys[ti * tile : (ti + 1) * tile]
             m = px.shape[0]
-            # pad to the common tile width; padded lanes are valid=False
-            need = tile if n_tiles > 1 else m
+            # pad to the common tile width (a lone tile: to a multiple of the mesh); padded lanes are valid=False
+            need = tile if n_tiles > 1 else -(-m // self.n_shards) * self.n_shards
             valid = torch.arange(need, device=dev) < m
             if need > m:
                 px = torch.cat([px, px[-1:].expand(need - m)])
                 py = torch.cat([py, py[-1:].expand(need - m)])
-            rad, cnt, st = render_wavefront(
-                self.bundle, self.settings, cam, px, py, w, h, key, valid,
-                sample=self._sampler(cam, key, px, py, valid),
-            )
+            rad, cnt, st = self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_wavefront(
+                b, self.settings, c, x, y, w, h, k, v, sample=self._sampler(c, k, x, y, v, bundle=b),
+            ))
             total += st
             film[py[:m], px[:m]] = rad[:m]
             counts[py[:m], px[:m]] = cnt[:m]
@@ -519,11 +576,8 @@ class Renderer:
                 break
             for i in range(0, n_active, tile):
                 idx = active[i : i + tile]
-                px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain)
-                f, a1, a2, st = render_batch(
-                    self.bundle, self.settings, cam, px, py, self.width, self.height, key, s_done, ns,
-                    valid=valid, sample=self._sampler(cam, key, px, py, valid),
-                )
+                px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain, self.n_shards)
+                f, a1, a2, st = self.render_chunk(cam, key, px, py, valid, s_done, ns)
                 film.index_add_(0, idx, f[:m])
                 s1.index_add_(0, idx, a1[:m].double())
                 s2.index_add_(0, idx, a2[:m].double())

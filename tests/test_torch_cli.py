@@ -203,8 +203,16 @@ def test_view_runs_the_terminal_viewer(files, monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["-t", "2"]], ids=["devices", "threads"])
-def test_only_multi_device_is_refused(flags, files, tmp_path):
-    args = ["-r", "8", "6", "-f", str(tmp_path / "x.png"), "--device", "cpu", str(files / "cornell.dae")]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main([*flags, *args])
-    assert cli.main(["--devices", "1", "-t", "1", *args]) == 0  # one device is served
+def test_only_multi_device_is_refused(flags, files, tmp_path, monkeypatch):
+    """The name is from when these flags were refused.  Multi-device rendering is ported (ROADMAP Queue 1
+    item 9): the flags shard the render over two devices (two stand-ins of the CPU) and write the
+    one-device PNG."""
+    from lens_flare_tpu_torch.parallel import mesh
+
+    def args(name):
+        return ["-r", "8", "6", "-f", str(tmp_path / name), "--device", "cpu", str(files / "cornell.dae")]
+
+    assert cli.main(["--devices", "1", "-t", "1", *args("one.png")]) == 0
+    monkeypatch.setattr(mesh, "available_devices", lambda device: [torch.device("cpu")] * 2)
+    assert cli.main([*flags, *args("two.png")]) == 0
+    assert (tmp_path / "one.png").read_bytes() == (tmp_path / "two.png").read_bytes()

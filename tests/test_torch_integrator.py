@@ -221,11 +221,15 @@ def test_triangle_limit_is_named():
         r._build()
 
 
-def test_unported_features_raise():
-    """What stays unported raises, naming its ROADMAP item: the CLI's --devices or -t above 1.
-    (--upsample and --view are ported: tests/test_torch_cli.py runs them.)"""
+def test_unported_features_raise(tmp_path, capsys):
+    """The name is from when the port refused features it lacked.  The last flags it refused, the CLI's
+    --devices and -t above 1 (ROADMAP Queue 1 item 9), now render on the devices that exist (one CPU
+    here; tests/test_torch_parallel.py shards over stand-ins).  --upsample and --view:
+    tests/test_torch_cli.py."""
     from lens_flare_tpu_torch import cli
+    from lens_flare_tpu_torch.scene.writer import cornell_box
 
+    dae = cornell_box().write(tmp_path / "cornell.dae")
     for flags in (["--devices", "2"], ["-t", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
-            cli.main(["--device", "cpu", *flags, "scene.dae"])
+        assert cli.main(["--device", "cpu", "-r", "8", "6", "-f", str(tmp_path / "x.png"), *flags, str(dae)]) == 0
+        assert "Rendering on 1 shard(s) over 1 device(s): cpu" in capsys.readouterr().out

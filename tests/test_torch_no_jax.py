@@ -6,7 +6,8 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 modules it needs), then imports the port, renders a 16x12 frame of the
 port's 128-triangle terrain with the flare on the CPU, writes its PNGs,
 renders it again under ``compiled.disabled()`` (``compiled.py``,
-``ab_compiled.py`` and ``ab_cli.py`` imported),
+``ab_compiled.py`` and ``ab_cli.py`` imported), renders its pixels with
+``parallel.render.render_sharded`` on two shards (bit-equal to one),
 runs the kernel bench on the CPU at a tiny size, and runs the port's
 command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
 with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
@@ -63,6 +64,16 @@ SCRIPT = textwrap.dedent(
     with compiled.disabled():
         eager = r.render(progress=False)[0]
     assert torch.equal(eager, r.render(progress=False)[0]) and len(r._programs) == 0
+    from lens_flare_tpu_torch import _rng
+    from lens_flare_tpu_torch.integrator.path import render_wavefront
+    from lens_flare_tpu_torch.parallel import make_mesh
+    from lens_flare_tpu_torch.parallel.render import render_sharded
+    from lens_flare_tpu_torch.scene.camera import camera_params
+
+    px, py, cam = torch.arange(192) % 16, torch.arange(192) // 16, camera_params(r.camera, "cpu")
+    one = render_wavefront(r.bundle, r.settings, cam, px, py, 16, 12, _rng.prng_key(0))
+    two = render_sharded(r.bundle, r.settings, cam, px, py, 16, 12, _rng.prng_key(0), mesh=make_mesh(devices=["cpu"] * 2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
     art = bench_kernels.main(["--device", "cpu", "--n", "256", "--scenes", "8,40", "--out", sys.argv[2]])
     assert any(r.get("check") == "top_batch2_parity" for r in art["rows"])
 
