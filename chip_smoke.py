@@ -63,15 +63,24 @@ raises, so the script exits non-zero and prints no result):
     depth 2, camera on the emitter; the render and its gradients in the
     emitter's BSDF row, the area light's row and a wall's albedo, through A
     and C, held to the CPU's plain path (1e-4 of their peak), then
-    ``recover_emitter`` (80 steps from (2, 2, 2)) to the true colour;
+    ``recover_emitter`` (80 steps from (2, 2, 2)) to the true colour, twice
+    eager (``compiled.disabled()``) and once captured (``compiled.Step``:
+    step 1 warms up, step 2 captures, the rest replay): the captured
+    losses and colour bit-equal to the eager ones where the two eager runs
+    are (else within 1e-4 relative, the eager spread printed beside it);
+    eager and captured ms per step, the warm-up and capture steps, capture
+    s, programs, launches per step and peak MiB (``step_numbers``);
 13. diff_cell: a 512x512 cell of terrain 256's 1080p frame (262,144 lanes,
     1 spp, depth 4, D and B), the gradients in the area light's row and the
     diffuse albedo, each held to a central difference along itself (1e-4
     relative for the light row, 1e-3 for the albedo); forward and backward
-    seconds and peak device memory;
+    seconds and peak device memory; then ``recover_emitter`` of the area
+    light's colour on the cell, 20 steps, eager twice and captured, held
+    and reported as in phase 12;
 14. lens_design: ``optimize_lens`` at 128x128 from a perturbed curvature,
     its forward model and gradient held to the CPU's (1e-6 and 5e-6 of
-    their peak), 35 steps, and a run
+    their peak), 35 steps eager and 35 captured (bit-equal losses and
+    lens; the numbers of phase 12), and a captured run
     checkpointed at 30 and resumed to 35 giving the same losses and lens;
 15. render_resume: the small frame (tiled) and config2_small (adaptive),
     each interrupted after its first tile or stage and resumed from its
@@ -104,8 +113,10 @@ raises, so the script exits non-zero and prints no result):
     order), each ghost that reaches the film, rendered alone, held to the
     CPU's in energy, centroid and radius (``ghost_checks``: float32 to
     ``GHOST_F32``, float64 to ``GHOST_F64``) and the whole buffer in
-    float64 (1e-9 of the peak), and the largest difference between two
-    card runs; then
+    float64 (1e-9 of the peak), and two card runs of the buffer, which
+    must be equal (``ghost_two_card_runs_maxabs=0``: the taps are summed in
+    a fixed order, ``realistic.ordered_sum``); the CLI's PNG equals the
+    flared frame's; then
     ``realistic_design``: curvature 7 recovered from 1.25x through the
     stack by 150 Adam steps (64x64, 12x12 pupil, pairs (0, 1), (2, 4),
     (6, 8)), the loss below 1e-3 of its start and the curvature within 5%
@@ -150,9 +161,10 @@ raises, so the script exits non-zero and prints no result):
     line each; so are phase 20's frame and phase 21's preview and
     progressive frame (``upsample_1080p``, ``app_preview``,
     ``app_progressive``).  Phases 3, 5, 8 and 11 hold their main path's launches to
-    those traced calls.  Phase 19's realistic and paraxial ghost buffers
-    are held to their eager ones per channel within ``GHOST_F32`` (energy,
-    centroid, radius: ``index_add`` reorders float sums).  Phases 20 and 21
+    those traced calls.  A flared film is held bit for bit too.  Phase
+    19's realistic and paraxial ghost buffers are compared with their
+    eager ones bit for bit (``bit_equal``; the realistic one must be) and
+    per channel within ``GHOST_F32`` (energy, centroid, radius).  Phases 20 and 21
     hold the command line's and the progressive frame's launches to the
     traced calls too.  The phase's line sums the rows up;
 23. sharded: ``terrain_1080p`` through ``Renderer(devices=0)`` on a mesh of
@@ -161,14 +173,25 @@ raises, so the script exits non-zero and prints no result):
     there are more than one: eager, capturing and replayed frames bit-equal
     to one device's, equal stats, each kernel launched once per shard;
     capture s and ``frame_s``; the command line's ``--devices 0`` on the
-    stand-ins writes the PNG of ``--devices 1``; the row-sharded
-    lens-design step (``parallel.render.make_train_step``, 128x128) equal
-    to the unsharded one for 3 steps (rtol 1e-6); and a one-rank NCCL group
+    stand-ins writes the PNG of ``--devices 1``; the lens-design step
+    (``parallel.render.make_train_step``, 128x128) unsharded and
+    row-sharded over the stand-ins, 10 steps each eager and captured
+    (bit-equal; the numbers of phase 12), the sharded equal to the
+    unsharded (rtol 1e-6); and a one-rank NCCL group
     (``torch.distributed.init_process_group``; ``nccl_world=1``: not
     two-card evidence)
     running ``render_sharded`` on the frame's first 65,536-lane wavefront,
-    bit-equal to ``render_wavefront``, the train step, and the frame
-    through ``Renderer(devices=0)`` on the stand-ins, bit-equal.
+    bit-equal to ``render_wavefront``, the train step (eager when sharded
+    under the group: its gradients' ``all_reduce``), and the frame
+    through ``Renderer(devices=0)`` on the stand-ins, bit-equal;
+24. turntable: terrain 512's COLLADA file (524,288 triangles) through
+    ``python -m lens_flare_tpu_torch.turntable`` at 1920x1080, ``-s 1 -m
+    4``, 8 frames (A, B): seconds of frame 0 (with the capture) and of the
+    later frames, the programs after frames 0, 1 and the last (equal: the
+    camera is a program input), 8 PNGs and 8 dumped camera files; then the
+    last frame rendered again through the command line with ``-c
+    frames/frame_8.txt`` and the same size, ``-s`` and ``-m``: its PNG
+    equal to ``frame_007.png``.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 nvidia-smi line and a JSON line with every kernel's numbers: launches on
@@ -441,6 +464,95 @@ def compare(got, want):
         err = max((t_g[both] - t_w[both]).abs().max().item(), db)
     exact = all(torch.equal(a, b) for a, b in zip(got, want))
     return err, exact
+
+
+def step_clock():
+    """A context in which the optimisation entry points' steps (``compiled.Step`` as ``diff/render.py``,
+    ``diff/optimize.py`` and ``parallel/render.py`` make it) synchronize after each call and append its
+    host seconds to the list it yields, and each step made is appended to that list's ``steps``.
+    Every entry point reads each step's loss back to the host right after it anyway, so the sync adds
+    nothing that a step does not wait for."""
+    import contextlib
+
+    import torch
+
+    from lens_flare_tpu_torch import compiled
+    from lens_flare_tpu_torch.diff import optimize, render
+    from lens_flare_tpu_torch.parallel import render as prender
+
+    class Seconds(list):
+        steps: list
+
+    seconds = Seconds()
+    seconds.steps = []
+
+    class Timed(compiled.Step):
+        def __init__(self, *args):
+            super().__init__(*args)
+            seconds.steps.append(self)
+
+        def __call__(self, *inputs):
+            t = time.perf_counter()
+            out = super().__call__(*inputs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            return out
+
+    @contextlib.contextmanager
+    def swapped():
+        modules = (render, optimize, prender)
+        for m in modules:
+            m.Step = Timed
+        try:
+            yield seconds
+        finally:
+            for m in modules:
+                m.Step = compiled.Step
+
+    return swapped()
+
+
+def step_run(call, eager: bool) -> dict:
+    """One optimisation run, ``call()``, on the card: eager (``compiled.disabled()``) or captured.
+    Returns its result (``out``), each step's seconds (``step_s``; captured: step 1 the warm-up, step 2
+    the capture and its replay), the launches of A-G, the peak device MiB above the start, and the
+    programs captured and their seconds."""
+    import contextlib
+
+    import torch
+
+    from lens_flare_tpu_torch import compiled
+    from lens_flare_tpu_torch.ops import intersect_cuda as ic
+
+    with compiled.disabled() if eager else contextlib.nullcontext(), step_clock() as step_s:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        ic.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+    return {"out": out, "step_s": list(step_s), "launches": compiled.launch_counts(),
+            "peak_mib": (torch.cuda.max_memory_allocated() - mem0) / 2**20,
+            "programs": sum(len(st.programs) for st in step_s.steps),
+            "capture_s": sum(st.programs.capture_s for st in step_s.steps)}
+
+
+def step_numbers(eager: dict, captured: dict) -> dict:
+    """The numbers a config-5 phase prints for its eager and captured runs of one step: ms per step
+    (eager: every step; captured: steps 3 on, the replays), the warm-up and capture steps, capture s,
+    programs, launches of A-G per step (equal on both) and peak MiB."""
+    n = len(captured["step_s"])
+    assert len(eager["step_s"]) == n >= 3 and eager["programs"] == 0 and captured["programs"] >= 1, (eager, captured)
+    assert eager["launches"] == captured["launches"], (eager["launches"], captured["launches"])
+    return {
+        "eager_ms_per_step": f"{sum(eager['step_s']) / n * 1e3:.3f}",
+        "captured_ms_per_step": f"{sum(captured['step_s'][2:]) / (n - 2) * 1e3:.3f}",
+        "warm_up_step_ms": f"{captured['step_s'][0] * 1e3:.3f}",
+        "capture_step_ms": f"{captured['step_s'][1] * 1e3:.3f}",
+        "capture_s": f"{captured['capture_s']:.4f}", "programs": captured["programs"],
+        "launches_per_step": json.dumps({k: v / n for k, v in captured["launches"].items() if v}),
+        "eager_peak_mib": f"{eager['peak_mib']:.1f}", "captured_peak_mib": f"{captured['peak_mib']:.1f}",
+    }
 
 
 def main() -> int:
@@ -1059,11 +1171,32 @@ def main() -> int:
     assert all(g.abs().max() > 1e-4 for g in g_cpu.values())
     true_color = (0.9, 0.55, 0.2)
     target = diff_render(dgpu, dr.set_emitter_color(dgpu.bundle, emit_row, light_row, true_color))
-    t_rec = time.perf_counter()
-    color, rec_losses = dr.recover_emitter(
-        dgpu.bundle, dgpu.settings, dgpu.cam, dgpu.px, dgpu.py, 320, 240, target, emit_row, light_row,
-        init_color=(2.0, 2.0, 2.0), n_samples=4, steps=80, learning_rate=0.2, key=dgpu.key)
-    rec_s = (time.perf_counter() - t_rec) / 80
+
+    def recover(c, tgt, bsdf_row, light, **kw):
+        return lambda: dr.recover_emitter(c.bundle, c.settings, c.cam, c.px, c.py, c.width, c.height, tgt, bsdf_row,
+                                          light, n_samples=c.n, key=c.key, **kw)
+
+    def held_steps(name, eager, captured, rtol):
+        """Captured recover_emitter against two eager runs: bit for bit where the eager runs are equal,
+        else within ``rtol`` (the gathers' backward sums may reorder); the numbers a phase prints."""
+        (c0, l0), (c1, l1), (cc, lc) = (r["out"] for r in (*eager, captured))
+        eager_equal = l0 == l1 and torch.equal(c0, c1)
+        spread = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+        if eager_equal:
+            assert lc == l0 and torch.equal(cc, c0), f"{name}: the captured steps differ from the eager ones"
+        else:
+            worst = max(max(abs(a - b) / abs(b) for a, b in zip(lc, l0)), ((cc - c0).abs() / c0.abs()).max().item())
+            assert worst <= rtol, (name, worst, spread)
+        return {**step_numbers(eager[0], captured), "eager_runs_bit_equal": eager_equal,
+                "eager_spread_maxrel": f"{spread:.3g}",
+                "captured_vs_eager": "bit_equal" if lc == l0 and torch.equal(cc, c0) else
+                f"{max(abs(a - b) / abs(b) for a, b in zip(lc, l0)):.3g}"}
+
+    rec_call = recover(dgpu, target, emit_row, light_row, init_color=(2.0, 2.0, 2.0), steps=80, learning_rate=0.2)
+    rec_eager = [step_run(rec_call, eager=True) for _ in range(2)]
+    rec = step_run(rec_call, eager=False)
+    color, rec_losses = rec["out"]
+    rec_numbers = held_steps("diff_small", rec_eager, rec, 1e-4)
     color = color.cpu().numpy()
     assert rec_losses[-1] < rec_losses[0] * 1e-3, rec_losses[::20]
     assert np.abs(color - np.asarray(true_color)).max() <= 0.05, color
@@ -1072,8 +1205,9 @@ def main() -> int:
           image_vs_cpu_maxrel=f"{img_err:.3g}", grads_vs_cpu_maxrel=json.dumps({k: float(f"{v:.3g}") for k, v in
                                                                                 grad_err.items()}),
           recover_first_loss=f"{rec_losses[0]:.6g}", recover_last_loss=f"{rec_losses[-1]:.6g}",
-          recovered_color=json.dumps([round(float(x), 5) for x in color]), recover_s_per_step=f"{rec_s:.4f}",
-          launches=json.dumps(dsm_launches))
+          recovered_color=json.dumps([round(float(x), 5) for x in color]),
+          recover_s_per_step=f"{sum(rec['step_s']) / 80:.4f}", recover_steps=80,
+          **{f"recover_{k}": v for k, v in rec_numbers.items()}, launches=json.dumps(dsm_launches))
     del dcpu, img_cpu
 
     # -- 13. diff_cell: a 512x512 cell of the 1080p terrain file through D and B
@@ -1119,12 +1253,25 @@ def main() -> int:
           f"busy_share={prof['busy_share_traced']:.4f} D_ms={prof['D_ms']:.3f} B_ms={prof['B_ms']:.3f} "
           f"top_kernels={json.dumps([[n[:60], round(ms, 3), c] for n, ms, c in prof['top_kernels'][:5]])}",
           flush=True)
+    # recover_emitter on the cell: the area light's colour from the file's (4, 4, 3.6), 20 steps.  The
+    # light has no emitting surface, so the BSDF row it names is the diffuse one, which no lane emits from
+    light0 = dcell.bundle.lights.radiance[area_row].cpu().tolist()
+    cell_target = diff_render(dcell, dr.set_emitter_color(dcell.bundle, diffuse_row, area_row,
+                                                          [v * f for v, f in zip(light0, (0.8, 0.9, 1.1))]))
+    cell_call = recover(dcell, cell_target, diffuse_row, area_row, init_color=tuple(light0), steps=20,
+                        learning_rate=0.2)
+    cell_eager = [step_run(cell_call, eager=True) for _ in range(2)]
+    cell_rec = step_run(cell_call, eager=False)
+    cell_losses = cell_rec["out"][1]
+    cell_numbers = held_steps("diff_cell", cell_eager, cell_rec, 1e-4)
+    assert cell_losses[-1] < cell_losses[0] and cell_rec["launches"]["D"] > 0, (cell_losses[::5], cell_rec["launches"])
     phase("diff_cell", t0, tris=sc.num_triangles, frame="1920x1080", cell=json.dumps(cell), lanes=512 * 512, spp=1,
           depth=4, forward_s=f"{fwd_s:.4f}", backward_s=f"{bwd_s:.4f}", peak_device_mib=f"{peak_cell:.1f}",
           grad_light=json.dumps([round(float(x), 4) for x in g_cell["light"]]),
           grad_albedo=json.dumps([round(float(x), 4) for x in g_cell["albedo"]]),
           fd_along_grad_relerr=json.dumps({k: float(f"{v:.3g}") for k, v in fd_err.items()}),
-          launches=json.dumps(dcl_launches))
+          recover_steps=20, recover_first_loss=f"{cell_losses[0]:.6g}", recover_last_loss=f"{cell_losses[-1]:.6g}",
+          **{f"recover_{k}": v for k, v in cell_numbers.items()}, launches=json.dumps(dcl_launches))
     del dcell, img_cell, g_cell
 
     # -- 14. lens_design: optimize_lens at 128x128, checkpointed and resumed -
@@ -1155,10 +1302,14 @@ def main() -> int:
     assert lens_err["image"] <= 1e-6 and max(lens_err.values()) <= 5e-6, lens_err
     run = dict(target=target, ghost_tex=ghost_tex, axis_ray=axis, angle=angle, init_lens=perturbed("cuda"),
                device="cuda")
-    t_opt = time.perf_counter()
-    lens_full, full = optimize_lens(config=OptimizeConfig(steps=35, log_every=0), **run)
-    ms_step = (time.perf_counter() - t_opt) / 35 * 1e3
+    opt_eager = step_run(lambda: optimize_lens(config=OptimizeConfig(steps=35, log_every=0), **run), eager=True)
+    opt = step_run(lambda: optimize_lens(config=OptimizeConfig(steps=35, log_every=0), **run), eager=False)
+    lens_full, full = opt["out"]
+    ms_step = sum(opt["step_s"]) / 35 * 1e3
     assert full[-1] < full[0], full
+    # the smooth splat sums in a fixed order and Adam(capturable=True) runs the same kernels: bit for bit
+    assert full == opt_eager["out"][1] and all(
+        torch.equal(getattr(lens_full, f), getattr(opt_eager["out"][0], f)) for f in LENS_FIELDS), "captured != eager"
     ck_dir = build_dir / "lens_checkpoints"
     for old in ck_dir.glob("*"):
         old.unlink()
@@ -1168,8 +1319,8 @@ def main() -> int:
     assert first == full[:30] and rest == full[30:], (first[-2:], rest, full[28:])
     assert all(torch.equal(getattr(lens_resumed, f), getattr(lens_full, f)) for f in LENS_FIELDS)
     phase("lens_design", t0, width=cfg.width, height=cfg.height, ghosts=39, steps=35, resumed_at=30,
-          ms_per_step=f"{ms_step:.3f}", first_loss=f"{full[0]:.6g}", last_loss=f"{full[-1]:.6g}",
-          resumed_losses_equal=True, vs_cpu_maxrel=json.dumps({k: float(f"{v:.3g}") for k, v in lens_err.items()}),
+          ms_per_step=f"{ms_step:.3f}", **step_numbers(opt_eager, opt), captured_vs_eager="bit_equal",
+          first_loss=f"{full[0]:.6g}", last_loss=f"{full[-1]:.6g}", resumed_losses_equal=True, vs_cpu_maxrel=json.dumps({k: float(f"{v:.3g}") for k, v in lens_err.items()}),
           curvature0=f"{float(lens_full.curvatures[0]):.7g}")
 
     # -- 15. render_resume: interrupted renders resume bit for bit ----------
@@ -1406,14 +1557,15 @@ def main() -> int:
     assert pipe is not None and pipe.lens_model == "realistic" and pipe.ghost_aperture is None
     assert 0 < pipe.axis_ray.min() and pipe.axis_ray.max() < 1, f"the sun is off screen: {pipe.axis_ray}"
     compiled_row("ghost_realistic", rr, pipe.ghost_buffer, ghosts=pipe.axis_ray)
+    assert compiled_rows["ghost_realistic"]["bit_equal"], "the replayed realistic ghosts differ from the eager ones"
     ghost = pipe.ghost_buffer()
     flared = hdr_real + ghost + pipe.starburst() + pipe.falloff()
     assert bool((ghost >= 0).all()) and ghost.sum().item() > 0, "the realistic ghosts have no energy"
     assert bool(torch.isfinite(flared).all()) and bool((flared >= hdr_real).all()), "the flare is not additive"
-    # index_add accumulates in no fixed order on the card: the CLI's ghosts may differ in their last bits
+    # the ghosts sum in a fixed order (realistic.ordered_sum): the CLI's ghosts are these, bit for bit
     want_px = np.clip(np.round(img.to_color(flared.cpu().numpy())[::-1] * 255.0), 0, 255).astype(np.int64)
     png_levels = int(np.abs(load_png(real_png).astype(np.int64) - want_px).max())
-    assert png_levels <= 1, f"the PNG is not the flared frame's: {png_levels} levels"
+    assert png_levels == 0, f"the PNG is not the flared frame's: {png_levels} levels"
     # the ghost buffer alone against the paraxial one of the same pipeline, then the card against the CPU
     prof_real = frame_profile(pipe.ghost_buffer)
     paraxial_pipe = dataclasses.replace(pipe, lens_model="paraxial", ghost_aperture=ApertureTexture.load(ghost_png))
@@ -1425,6 +1577,7 @@ def main() -> int:
     ghost_vs_cpu = ((ghost.cpu() - ghost_cpu).abs().max() / ghost_cpu.abs().max()).item()
     ghost_card_runs = (ghost_again - ghost).abs().max().item()
     assert ghost_vs_cpu <= 1e-3, ghost_vs_cpu
+    assert ghost_card_runs == 0 and torch.equal(ghost_again, ghost), f"two card runs differ: {ghost_card_runs}"
     # ghost by ghost, so that a dim one can fail: float32 to GHOST_F32 and float64 to GHOST_F64, then
     # the whole buffer in float64 (the peak's reading above, without float32's rounding)
     ghost_args = (pipe.angle_to_sun, pipe.flare_radiances.sum(axis=0), pipe.axis_ray, 1920, 1080)
@@ -1812,17 +1965,30 @@ def main() -> int:
     img_u = prender.ghost_image_from_lens(lens0, tex, axis, 0.4, 128, 128)
     img_s = prender.ghost_image_from_lens(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
     target = img_u * 1.05
-    lens_u, step_u = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128)
-    lens_s, step_s = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
 
     def step_rel(lens_a, lens_b):
         return max(((getattr(lens_a, f) - getattr(lens_b, f)).abs().max()
                     / getattr(lens_b, f).abs().max().clamp_min(1e-30)).item() for f in LENS_FIELDS)
 
-    for _ in range(3):
-        loss_u, loss_s = step_u(target), step_s(target)
-        assert abs(loss_s.item() - loss_u.item()) <= 1e-6 * abs(loss_u.item()), (loss_s.item(), loss_u.item())
-        assert step_rel(lens_s, lens_u) <= 1e-6, step_rel(lens_s, lens_u)
+    def train(mesh, n_steps=10):
+        """``n_steps`` of make_train_step toward ``target`` -> (lens, losses): a captured Step, eager
+        under compiled.disabled()."""
+        lens_t, step_t = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128, mesh=mesh)
+        assert isinstance(step_t, compiled.Step), "the train step is not captured"
+        return lens_t, [step_t(target).item() for _ in range(n_steps)]
+
+    train_numbers = {}
+    trained = {}
+    for name, mesh_t in (("unsharded", None), ("stand_ins", stand_in)):
+        eager_t = step_run(lambda: train(mesh_t), eager=True)
+        trained[name] = step_run(lambda: train(mesh_t), eager=False)
+        (lens_e, loss_e), (lens_c, loss_c) = eager_t["out"], trained[name]["out"]
+        assert loss_c == loss_e and all(torch.equal(getattr(lens_c, f), getattr(lens_e, f)) for f in LENS_FIELDS), (
+            f"{name}: the captured train steps differ from the eager ones", loss_c, loss_e)
+        train_numbers.update({f"train_{name}_{k}": v for k, v in step_numbers(eager_t, trained[name]).items()})
+    (lens_u, losses_u), (lens_s, losses_s) = trained["unsharded"]["out"], trained["stand_ins"]["out"]
+    assert max(abs(a - b) / abs(b) for a, b in zip(losses_s, losses_u)) <= 1e-6, (losses_s, losses_u)
+    assert step_rel(lens_s, lens_u) <= 1e-6, step_rel(lens_s, lens_u)
     # a one-rank NCCL group: the collectives of render_sharded and the train step run (all_gather, all_reduce)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1841,8 +2007,10 @@ def main() -> int:
         one = render_wavefront(r.bundle, r.settings, cam, px, py, 1920, 1080, key)
         two = prender.render_sharded(r.bundle, r.settings, cam, px, py, 1920, 1080, key, mesh=stand_in)
         assert all(torch.equal(a, b) for a, b in zip(one, two)), "render_sharded under NCCL differs"
+        # under the group the sharded step all-reduces its gradients, and runs eagerly (by design)
         lens_g, step_g = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128, mesh=stand_in)
         lens_1, step_1 = prender.make_train_step(lens0, tex, axis, 0.4, 128, 128)
+        assert not isinstance(step_g, compiled.Step) and isinstance(step_1, compiled.Step)
         loss_g, loss_1 = step_g(target), step_1(target)
         assert torch.isfinite(loss_g) and abs(loss_g.item() - loss_1.item()) <= 1e-6 * abs(loss_1.item())
         assert step_rel(lens_g, lens_1) <= 1e-6
@@ -1863,11 +2031,60 @@ def main() -> int:
     phase("sharded", t0, tris=r.scene.num_triangles, width=1920, height=1080, spp=1, depth=4,
           one_device_frame_s=f"{want[4]:.4f}", one_device_eager_frame_s=f"{want_eager[4]:.4f}",
           **sharded_report, cli_devices0_png_equal=True,
-          ghost_image_bit_equal=torch.equal(img_u, img_s), train_steps=3, train_step_max_rel=f"{step_rel(lens_s, lens_u):.3g}",
+          ghost_image_bit_equal=torch.equal(img_u, img_s), train_steps=10, train_step_max_rel=f"{step_rel(lens_s, lens_u):.3g}",
+          train_captured_vs_eager="bit_equal", **train_numbers,
           nccl_world=world, nccl_backend=json.dumps(backend), nccl_lanes=tile, nccl_render_bit_equal=True, nccl_loss=f"{loss_g.item():.6g}",
           nccl_renderer_frame_s=f"{nccl_frame_s:.4f}")
 
-    # -- 24. results -------------------------------------------------------
+    # -- 24. turntable: terrain 512's file orbited in 8 frames at 1920x1080, the last rendered again with -c
+    import re
+
+    from lens_flare_tpu_torch import turntable
+
+    t0 = time.perf_counter()
+    t512_file = terrain_dae(512).write(build_dir / "terrain512.dae")
+    turn_dir = build_dir / "turntable"
+    for old in [*turn_dir.glob("*.png"), *turn_dir.glob("frames/*.txt")]:
+        old.unlink()
+    n_frames = 8
+    buf = io.StringIO()
+    ic.reset_launch_counts()
+    t_turn = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        assert turntable.main([str(t512_file), "--frames", str(n_frames), "--out", str(turn_dir), "--size", "1920",
+                               "1080", "-s", "1", "-m", "4", "--device", "cuda"]) == 0
+    turn_s = time.perf_counter() - t_turn
+    turn_launches = compiled.launch_counts()
+    rows = re.findall(r"\[Turntable\] frame (\d+)/\d+: ([0-9.]+) sec, (\d+) programs, capture ([0-9.]+) sec",
+                      buf.getvalue())
+    assert len(rows) == n_frames, buf.getvalue()
+    frame_secs = [float(r[1]) for r in rows]
+    programs_after = [int(r[2]) for r in rows]
+    capture_after = [float(r[3]) for r in rows]
+    # the camera is a program input: frame 0 captures, every later frame replays
+    assert programs_after[0] == programs_after[1] == programs_after[-1] > 0, programs_after
+    assert capture_after[0] == capture_after[-1] > 0, capture_after
+    assert turn_launches["A"] > 0 and turn_launches["B"] > 0, f"the turntable skipped A or B: {turn_launches}"
+    pngs = sorted(turn_dir.glob("frame_*.png"))
+    dumps = sorted((turn_dir / "frames").glob("frame_*.txt"))
+    assert [p.name for p in pngs] == [f"frame_{i:03d}.png" for i in range(n_frames)], pngs
+    assert sorted(p.name for p in dumps) == sorted(f"frame_{i}.txt" for i in range(1, n_frames + 1)), dumps
+    frames_px = [load_png(p) for p in (pngs[0], pngs[-1])]
+    assert all(f.shape == (1080, 1920, 3) and f.max() > 0 for f in frames_px)
+    assert not np.array_equal(*frames_px), "the camera did not orbit"
+    again_png = build_dir / "turntable_again.png"
+    again_s, _ = run_cli(["-c", str(turn_dir / "frames" / f"frame_{n_frames}.txt"), "-r", "1920", "1080", "-s", "1",
+                          "-m", "4", "-f", str(again_png), "--device", "cuda", str(t512_file)])
+    assert np.array_equal(load_png(again_png), frames_px[-1]), "the last frame rendered again with -c differs"
+    phase("turntable", t0, tris=524288, width=1920, height=1080, spp=1, depth=4, frames=n_frames,
+          frame0_s=f"{frame_secs[0]:.4f}", frame_s=f"{sum(frame_secs[1:]) / (n_frames - 1):.4f}",
+          frame_s_max=f"{max(frame_secs[1:]):.4f}", turntable_s=f"{turn_s:.4f}",
+          programs_after_frame0=programs_after[0], programs_after_frame1=programs_after[1],
+          programs_after_last=programs_after[-1], capture_s=f"{capture_after[-1]:.4f}",
+          pngs=len(pngs), dumped_files=len(dumps), launches=json.dumps(turn_launches),
+          again_with_c=f"frames/frame_{n_frames}.txt", again_cli_s=f"{again_s:.4f}", again_png_bit_equal=True)
+
+    # -- 25. results -------------------------------------------------------
     # each kernel's launches from the main path that runs it; B's rows on
     # terrain 256 count config2_frame's launches, where that tree is traced
     count = {"A": launches["A"], "B": launches["B"], "C": small_launches["C"], "D": c2_launches["D"],

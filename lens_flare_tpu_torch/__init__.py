@@ -26,12 +26,15 @@ its layout so each module's counterpart sits at the same path:
                   devices, the scene replicated (``Renderer(devices=)``,
                   ``render_sharded``, the row-sharded lens-design step)
 - ``compiled``    captured CUDA graphs of one sample of a tile or adaptive
-                  chunk and of the ghost buffers, replayed per call (``compiled.disabled()``
+                  chunk, of the ghost buffers and of the optimisation steps
+                  (``Step``), replayed per call (``compiled.disabled()``
                   runs eagerly)
 - ``app``         the interactive Application: EDIT preview and mesh edits,
                   VISUALIZE, progressive RENDER (headless)
 - ``term_viewer`` its terminal front end (``--view``)
 - ``cli``         the command line (``python -m lens_flare_tpu_torch.cli``)
+- ``turntable``   an orbit of frames with the camera dumped per move
+                  (``python -m lens_flare_tpu_torch.turntable``)
 - ``bench_kernels``  the kernel bench: every trace kernel on terrain
                   wavefronts (``python -m lens_flare_tpu_torch.bench_kernels``)
 - ``convert``     the JAX package's state as the port's tensors (tests)

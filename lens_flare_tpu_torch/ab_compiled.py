@@ -4,9 +4,10 @@
 
 Each frame is first rendered under ``compiled.disabled()`` (eager, one
 launch per op) and then through its captured programs (``compiled.py``),
-and :func:`compare` holds the two bit for bit (film, counts, rays, tests,
-skipped; the ghost buffers per channel within ``flare.moments.GHOST_F32``,
-since ``index_add`` accumulates in no fixed order).  Their launch counts
+and :func:`compare` holds the two bit for bit (film, counts, the flared
+film, rays, tests, skipped); a ghost buffer is compared bit for bit and
+the finding reported, beside its moments per channel, held within
+``flare.moments.GHOST_F32``.  Their launch counts
 must be equal, and equal to the kernels that ``torch.profiler`` sees in
 a replayed frame: a replay counts what its capture recorded, and the
 trace shows that the graph launched just that.  It reports capture s
@@ -81,12 +82,13 @@ def _timed(frame):
 def compare(r, frame, ghosts=None) -> dict:
     """Eager against compiled on ``r``'s ``frame()`` (before anything of ``r`` was captured).
 
-    ``frame()`` returns tensors, film and counts first; those two must
-    equal bit for bit, as must ``r``'s stats and the launch counts (a
-    flared film after them is not compared: its ghosts may come from
-    ``index_add``).  ``ghosts``: the frame is a ghost buffer whose sun
-    sits at ``ghosts`` (the pipeline's ``axis_ray``), held per channel
-    within ``GHOST_F32``.  Each kernel's launches in the replayed frames
+    ``frame()`` returns tensors, film and counts first; every one of them
+    (a flared film after the two too) must equal bit for bit, as must
+    ``r``'s stats and the launch counts.  ``ghosts``: the frame is a ghost
+    buffer whose sun sits at ``ghosts`` (the pipeline's ``axis_ray``): it
+    is compared bit for bit and ``bit_equal`` says what was found, and its
+    moments per channel (energy, centroid, radius), a diagnostic kept
+    beside it, are held within ``GHOST_F32``.  Each kernel's launches in the replayed frames
     (the count its capture recorded, added per replay) must equal the
     eager frame's and the calls of it in a profiled replayed frame
     (``frame_profile``; a trace short of them, which the profiler's lost
@@ -103,9 +105,10 @@ def compare(r, frame, ghosts=None) -> dict:
     assert capture_s > 0 and len(r._programs) + len(r._flare_programs) > 0, "nothing was captured"
     again, frame_s, launches, _ = _timed(frame)
     want, got, again = (x if isinstance(x, tuple) else (x,) for x in (want, got, again))
+    bit_equal = all(torch.equal(a, b) for out in (got, again) for a, b in zip(out, want))
     if ghosts is None:
         for name, out in (("first", got), ("steady", again)):
-            assert all(torch.equal(a, b) for a, b in zip(out[:2], want[:2])), f"the {name} compiled frame differs"
+            assert all(torch.equal(a, b) for a, b in zip(out, want)), f"the {name} compiled frame differs"
         assert _stats(r) == want_stats, (_stats(r), want_stats)
         worst = None
     else:
@@ -134,7 +137,7 @@ def compare(r, frame, ghosts=None) -> dict:
         "capture_s": capture_s, "first_s": first_s, "eager_s": eager_s, "frame_s": frame_s,
         "programs": len(r._programs) + len(r._flare_programs), "launches": launches,
         "eager_peak_mib": eager_mib, "capture_peak_mib": capture_mib,
-        "bit_equal": ghosts is None, "ghost_worst": worst, "traced_launches": traced, "short_traces": short,
+        "bit_equal": bit_equal, "ghost_worst": worst, "traced_launches": traced, "short_traces": short,
         "busy_share": prof["busy_share_traced"], "kernel_ms": prof["kernel_ms"],
         "device_launches": prof["kernel_launches"],
         "trace_kernel_ms": {k: round(prof[f"{k}_ms"], 3) for k in TRACE_NAMES if traced[k]},

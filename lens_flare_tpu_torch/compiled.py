@@ -12,6 +12,13 @@ between calls are copied into the program's static input buffers first.
 On the CPU, and inside :func:`disabled` (the counterpart of
 ``jax.disable_jit()``), the function runs eagerly and nothing is cached.
 
+A :class:`Step` is the counterpart of a jitted optimisation step
+(``lens_flare_tpu/diff/render.py:91``, ``diff/optimize.py:71``,
+``parallel/render.py:88``): the forward pass, the loss, ``backward()``
+and the optimiser's update as one captured program per input shape.  Its
+first call is the warm-up and is step 1; the second captures and replays,
+which is step 2; so the steps taken are the calls made, as when eager.
+
 A capture or a replay that fails raises; nothing falls back to eager.
 
 The wrappers of ``ops/intersect_cuda.py`` count kernel launches on the
@@ -119,20 +126,25 @@ class Programs:
     def run(self, key, fn, *inputs):
         if not _captures(inputs[0]) or _eager.get():
             return fn(*inputs)
-        full_key = (key, tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
+        return self.replay(key, fn, inputs, inputs[0].device)
+
+    def replay(self, key, fn, inputs, dev, warm_up: bool = True):
+        """``fn(*inputs)`` through the program of ``key`` and the inputs' signature on ``dev``,
+        captured first if there is none (after an eager warm-up call unless ``warm_up`` is False)."""
+        full_key = (key, _signature(inputs))
         prog = self._programs.get(full_key)
         if prog is None:
-            prog = self._programs[full_key] = self._capture(fn, inputs)
+            prog = self._programs[full_key] = self._capture(fn, inputs, dev, warm_up)
         return prog.replay(inputs)
 
-    def _capture(self, fn, inputs) -> Program:
+    def _capture(self, fn, inputs, dev, warm_up) -> Program:
         t0 = time.perf_counter()
         static = [x.clone() for x in inputs]
-        dev = static[0].device
         before = launch_counts()
         try:
             with device_scope(dev):
-                _warm_up(fn, static)
+                if warm_up:
+                    _warm_up(fn, static, dev)
                 warm = launch_counts()
                 if dev not in self._pools:
                     self._pools[dev] = _new_pool()
@@ -147,6 +159,54 @@ class Programs:
         return prog
 
 
+def _signature(inputs) -> tuple:
+    return tuple((tuple(x.shape), x.dtype, x.device) for x in inputs)
+
+
+class Step:
+    """One optimisation step, ``fn(*inputs)``, run per call; captured on a CUDA device.
+
+    ``fn`` runs the forward pass, the loss, ``backward()`` and the
+    optimiser's update of the state it closes over (parameters, their
+    gradients, the optimiser's moments), and returns tensors (the loss).
+    ``probe`` is a tensor on the step's device (a parameter).  On a CUDA
+    device the first call of an input signature runs ``fn`` eagerly on a
+    side stream, as a frame's warm-up does, and returns its outputs: it
+    is step 1, and it makes the optimiser's state, which the program then
+    updates in place.  The second call captures ``fn`` (a capture records
+    the launches without running them) and replays the program, which
+    runs step 2; later calls replay.  No call runs ``fn`` twice.  On the
+    CPU and under :func:`disabled` every call runs ``fn`` eagerly.
+
+    The graph holds the addresses of the parameters, the optimiser's state
+    and the tensors ``fn`` closes over: the state must be made and
+    restored (a checkpoint's ``load_state_dict`` replaces its tensors)
+    before the first call, and the optimiser must keep its step count on
+    the device (``torch.optim.Adam(capturable=True)``).  ``fn`` must not
+    read a value back to the host: the caller reads the returned loss.
+    The gradients must be ``None`` when the capture starts (``fn`` zeroes
+    them with ``set_to_none=True``), so that the program's backward writes
+    them rather than adding to them.
+    """
+
+    def __init__(self, fn, probe: torch.Tensor):
+        self.fn = fn
+        self.probe = probe
+        self.programs = Programs()
+        self._warm: set = set()
+
+    def __call__(self, *inputs):
+        if not _captures(self.probe) or _eager.get():
+            return self.fn(*inputs)
+        dev, sig = self.probe.device, _signature(inputs)
+        if sig not in self._warm:
+            with device_scope(dev):
+                out = _warm_up(self.fn, inputs, dev)
+            self._warm.add(sig)
+            return out
+        return self.programs.replay("step", self.fn, inputs, dev, warm_up=False)
+
+
 # The capture backend: module functions, so that a test can stand in for the card.
 
 
@@ -155,15 +215,16 @@ def _captures(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def _warm_up(fn, static) -> None:
-    """One eager call on a side stream: lazy initialisation (the kernel library, cuBLAS, module
-    loading) happens before the capture, not in it."""
-    dev = static[0].device
+def _warm_up(fn, static, dev):
+    """One eager call on a side stream of ``dev``, its outputs returned: lazy initialisation (the
+    kernel library, cuBLAS, module loading, an optimiser's state) happens before the capture, not
+    in it."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        fn(*static)
+        out = fn(*static)
     torch.cuda.current_stream(dev).wait_stream(side)
+    return out
 
 
 def _new_pool():

@@ -8,7 +8,10 @@ the aperture height and the marginal ray height.  ``torch.optim.Adam``
 float leaf; ``aperture_index`` stays an int.  Checkpoints (the lens
 fields, the optimizer's state and the step) go through ``torch.save``, so
 an interrupted optimization resumes at the saved step with Adam's moments
-intact.
+intact.  On a CUDA device the step (ghost image, loss, backward, Adam's
+update) is one captured program (:class:`lens_flare_tpu_torch.compiled.Step`),
+the counterpart of the JAX package's jitted step, and Adam keeps its step
+count on the device (``capturable=True``).
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from pathlib import Path
 
 import torch
 
+from ..compiled import Step
 from ..lens.ghosts import splat_ghosts
-from ..lens.paraxial import trace_all_ghosts
+from ..lens.paraxial import ghost_pair_table, trace_all_ghosts
 from ..lens.prescription import LensPrescription, reference_prescription
 
 LENS_FIELDS = ("spacings", "curvatures", "iors", "aperture_height", "marginal_r")
@@ -37,9 +41,13 @@ class OptimizeConfig:
     log_every: int = 20
 
 
-def ghost_image(lens: LensPrescription, ghost_tex, axis_ray, angle, width, height):
-    """Differentiable forward model: prescription -> (H, W, 3) ghost buffer."""
-    r1, r2 = trace_all_ghosts(lens, angle)
+def ghost_image(lens: LensPrescription, ghost_tex, axis_ray, angle, width, height, pairs=None):
+    """Differentiable forward model: prescription -> (H, W, 3) ghost buffer.
+
+    ``pairs``: ``paraxial.ghost_pair_table`` on the lens's device, made here when None; a captured
+    step makes it, and the angle as a tensor, ahead (host data cannot enter a capture).
+    """
+    r1, r2 = trace_all_ghosts(lens, angle, pairs)
     n_pairs = r1.shape[0]
     colors = torch.eye(3, dtype=r1.dtype, device=r1.device).repeat(n_pairs, 1)
     return splat_ghosts(ghost_tex, r1.reshape(-1), r2.reshape(-1), colors, axis_ray, width, height, smooth=True)
@@ -47,13 +55,16 @@ def ghost_image(lens: LensPrescription, ghost_tex, axis_ray, angle, width, heigh
 
 def adam_over(lens0: LensPrescription, device, learning_rate: float):
     """(lens, optimizer): a trainable copy of ``lens0`` on ``device`` (its float fields leaves that
-    require a gradient) and ``torch.optim.Adam`` over them with optax's defaults."""
+    require a gradient) and ``torch.optim.Adam`` over them with optax's defaults; on a CUDA device
+    its step count stays there (``capturable=True``), so that a captured step can update it."""
+    device = torch.device(device)
     lens = LensPrescription(
         **{f: getattr(lens0, f).detach().to(device).clone().requires_grad_(True) for f in LENS_FIELDS},
         aperture_index=lens0.aperture_index,
     )
     params = [getattr(lens, f) for f in LENS_FIELDS]
-    return lens, torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    return lens, torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                  capturable=device.type == "cuda")
 
 
 def optimize_lens(
@@ -69,8 +80,11 @@ def optimize_lens(
 
     Runs on ``device`` (the card unless the caller asks for the CPU).  With
     ``config.checkpoint_dir`` it resumes from the directory's latest
-    checkpoint and saves every ``checkpoint_every`` steps and at the end.
-    Returns (lens, losses), one loss per step run.
+    checkpoint, before the first step, and saves every ``checkpoint_every``
+    steps and at the end.  On a CUDA device the steps replay one captured
+    program (``compiled.Step``: the first step run warms up, the second
+    captures), eager under ``compiled.disabled()``.  Returns (lens, losses),
+    one loss per step run.
     """
     config = config or OptimizeConfig()
     dev = torch.device(device)
@@ -87,14 +101,21 @@ def optimize_lens(
         ckpt_mgr = _CheckpointManager(config.checkpoint_dir)
         start_step = ckpt_mgr.restore(lens, optimizer)
 
-    losses = []
-    for s in range(start_step, config.steps):
+    pairs = ghost_pair_table(dev)
+    angle = torch.as_tensor(angle, dtype=lens.curvatures.dtype, device=dev)
+
+    def step():
         optimizer.zero_grad(set_to_none=True)
-        img = ghost_image(lens, ghost_tex, axis_ray, angle, width, height)
+        img = ghost_image(lens, ghost_tex, axis_ray, angle, width, height, pairs)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()
-        losses.append(loss.item())
+        return loss.detach()
+
+    run = Step(step, lens.curvatures)
+    losses = []
+    for s in range(start_step, config.steps):
+        losses.append(run().item())
         if config.log_every and s % config.log_every == 0:
             print(f"[LensOpt] step {s}: loss {losses[-1]:.6e}")
         if ckpt_mgr and config.checkpoint_every and (s + 1) % config.checkpoint_every == 0:

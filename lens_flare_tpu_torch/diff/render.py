@@ -14,7 +14,10 @@ a texel's gradient comes through the radiance the miss lookup and the
 environment light's NEE samples read, not through where they sample.
 
 :func:`recover_emitter` recovers an emitter's colour (its BSDF radiance row
-and its NEE light-table row) from a target render with Adam.
+and its NEE light-table row) from a target render with Adam.  On a CUDA
+device its step (render, loss, backward, Adam's update) is one captured
+program (:class:`lens_flare_tpu_torch.compiled.Step`), the counterpart of
+the JAX package's jitted step.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import _rng
+from ..compiled import Step
 from ..integrator.path import RenderSettings, SceneBundle, render_batch
 
 
@@ -91,15 +95,19 @@ def recover_emitter(
 
     The loss is the mean squared difference between the render and
     ``target`` with the same RNG key at every step, so its optimum is the
-    true colour (no Monte-Carlo floor).  Adam with optax's defaults.
+    true colour (no Monte-Carlo floor).  Adam with optax's defaults; on a
+    CUDA device it keeps its step count there (``capturable=True``) and
+    the step is a captured program (``compiled.Step``: step 1 warms up,
+    step 2 captures, the rest replay), eager under ``compiled.disabled()``.
     """
     dev = bundle.bsdfs.radiance.device
     if key is None:
         key = _rng.prng_key(7, device=dev)
     color = torch.tensor(init_color, dtype=torch.float32, device=dev, requires_grad=True)
-    optimizer = torch.optim.Adam([color], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    losses = []
-    for _ in range(steps):
+    optimizer = torch.optim.Adam([color], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=dev.type == "cuda")
+
+    def step():
         optimizer.zero_grad(set_to_none=True)
         img = render_image(
             set_emitter_color(bundle, bsdf_row, light_row, color),
@@ -108,5 +116,8 @@ def recover_emitter(
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()
-        losses.append(loss.item())
+        return loss.detach()
+
+    run = Step(step, color)
+    losses = [run().item() for _ in range(steps)]
     return color.detach(), losses

@@ -1,12 +1,13 @@
 """The ghost buffers' moments, and the limits that hold two of them together.
 
-A ghost buffer is a sum of splats whose float atomics (``index_add``) add
-in no fixed order, so two runs of one buffer, or the card's and the CPU's,
-differ in the last bits.  They are compared ghost by ghost and channel by
-channel through moments that do not magnify those bits: energy on the
-film, the centroid of that energy and the RMS radius about it.
-``chip_smoke.py`` holds the card's realistic ghosts against the CPU's with
-them, and a replayed buffer against an eager one (``ab_compiled.py``).
+A ghost buffer is a sum of splats, which the card and the CPU round in
+other orders, so their buffers differ in the last bits.  They are
+compared ghost by ghost and channel by channel through moments that do
+not magnify those bits: energy on the film, the centroid of that energy
+and the RMS radius about it.  ``chip_smoke.py`` holds the card's
+realistic ghosts against the CPU's with them; a replayed buffer, which
+must equal an eager one bit for bit, reports them beside that finding
+(``ab_compiled.py``).
 """
 
 from __future__ import annotations

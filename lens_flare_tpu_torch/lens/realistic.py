@@ -308,14 +308,14 @@ def render_ghosts_stack(
     every (pair, wavelength) ghost is traced by :func:`trace_ghosts_batched`,
     its sensor pattern rotated into the sun's screen direction and scaled by
     ``sensor_scale`` pixels per sensor unit around the sun's pixel, and all
-    G x N x 4 bilinear taps land in one ``index_add``.  ``radiance`` (3,)
+    G x N x 4 bilinear taps are summed into their pixels by
+    :func:`ordered_sum`, whose order of adds is fixed, so the buffer is the
+    same on every run, on the card too.  ``radiance`` (3,)
     scales the channels; ``pairs`` defaults to ``reference_ghost_pairs()``.
     ``tables``: :func:`ghost_stack_tables` of ``pairs`` and ``pupil_samples``
     made ahead (a captured program's way); made here when None.  With
     tensors on the lens's device for the sun's angle, radiance and axis,
-    nothing is copied from the host.  The accumulation order of
-    ``index_add`` on CUDA is not fixed, so the card's buffer varies in its
-    last bits from run to run.
+    nothing is copied from the host.
     """
     dev = lens.curvatures.device
     if tables is None:
@@ -366,5 +366,33 @@ def render_ghosts_stack(
             inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height)
             idxs.append((torch.clamp(yi * width + xi, 0, height * width - 1) * 3 + ch).reshape(-1))
             vals.append((w * wgt * inb.to(w.dtype)).reshape(-1))
-    buf = torch.zeros(height * width * 3, dtype=dt, device=dev).index_add(0, torch.cat(idxs), torch.cat(vals).to(dt))
+    buf = ordered_sum(torch.cat(idxs), torch.cat(vals).to(dt), height * width * 3)
     return buf.reshape(height, width, 3) * radiance
+
+
+def ordered_sum(idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
+    """``zeros(size).index_add(0, idx, vals)`` with its adds in an order fixed by the data alone.
+
+    ``index_add`` on CUDA adds with float atomics, whose order changes from
+    run to run.  Here the taps are stably sorted by index, a segmented
+    inclusive scan (log2(n) steps, each adding the partial sum ``d`` places
+    back where it belongs to the same index) sums each run of equal
+    indices, and each run's last partial sum is written to its index (the
+    other lanes write to a slot past the end, which is dropped).  Every
+    shape is the taps', so nothing waits for the host; differentiable in
+    ``vals`` (the backward is gathers and the scan's shifts, in a fixed
+    order too).  A prefix sum over all taps differenced at the runs' ends
+    would lose small taps against a large prefix; the segmented scan adds
+    only taps of one index.
+    """
+    keys, order = torch.sort(idx, stable=True)
+    v = vals[order]
+    n, d = v.shape[0], 1
+    while d < n:
+        same = keys[d:] == keys[:-d]
+        v = torch.cat([v[:d], torch.where(same, v[d:] + v[:-d], v[d:])])
+        d *= 2
+    last = torch.ones_like(keys, dtype=torch.bool)
+    last[:-1] = keys[1:] != keys[:-1]
+    slot = torch.where(last, keys, size)
+    return torch.zeros(size + 1, dtype=vals.dtype, device=vals.device).scatter(0, slot, v)[:size]

@@ -23,10 +23,11 @@ import functools
 
 import torch
 
+from ..compiled import Step
 from ..diff.optimize import LENS_FIELDS, adam_over, ghost_image
 from ..integrator.path import render_wavefront
 from ..lens.ghosts import splat_eval
-from ..lens.paraxial import trace_all_ghosts
+from ..lens.paraxial import ghost_pair_table, trace_all_ghosts
 from .mesh import device_scope, distributed, group, make_mesh, replicate, shard_batch, to_device
 
 
@@ -115,17 +116,18 @@ def render_sharded(bundle, settings, cam, px, py, width, height, key, mesh=None)
     )
 
 
-def _ghost_rows(lens, ghost_tex, axis_ray, angle, width, height, mesh):
+def _ghost_rows(lens, ghost_tex, axis_ray, angle, width, height, mesh, pairs=None):
     """This rank's block of film rows of the smooth ghost buffer, each shard's slab on its device
-    (``splat_eval`` on the slab's pixels only), concatenated on the first device; differentiable."""
+    (``splat_eval`` on the slab's pixels only), concatenated on the first device; differentiable.
+    ``pairs`` as in ``diff.optimize.ghost_image``."""
     rows = torch.arange(height, device=ghost_tex.device)[_rank_block(height, len(mesh))]
-    r1, r2 = trace_all_ghosts(lens, angle)
+    r1, r2 = trace_all_ghosts(lens, angle, pairs)
     colors = torch.eye(3, dtype=r1.dtype, device=r1.device).repeat(r1.shape[0], 1)
     args = (ghost_tex, r1.reshape(-1), r2.reshape(-1), colors, axis_ray)
 
     def slab(d, rows_d):
         n_rows = rows_d.shape[0]
-        ys = rows_d.repeat_interleave(width)
+        ys = rows_d[:, None].expand(n_rows, width).reshape(-1)
         xs = torch.arange(width, device=d).repeat(n_rows)
         # the copies to d are differentiable: the backward sums every shard's cotangents
         tex, r1f, r2f, col, axis = (a.to(d) for a in args)
@@ -161,18 +163,32 @@ def make_train_step(lens, ghost_tex, axis_ray, angle, width, height, mesh=None, 
     through the device copies sums the lens cotangents; under a process
     group each rank takes its block of rows, and the loss and the gradients
     are all-reduced before Adam's update.
+
+    On a CUDA device ``step`` is a captured program per target shape
+    (``compiled.Step``, the counterpart of the JAX package's jitted step:
+    the first call warms up and is step 1, the second captures), without a
+    mesh and on a mesh whose shards are all one device (stand-ins).  Two
+    cases run eagerly, by design and not on a failed capture: under a
+    process group with a mesh (the gradients' ``all_reduce`` between the
+    backward and Adam's update), and on a mesh of several devices (one
+    graph records one device's work); both wait for a machine with more
+    than one card (ROADMAP Queue 1 item 9).  The group and the mesh are
+    read when the step is made.
     """
-    params, optimizer = adam_over(lens, ghost_tex.device, learning_rate)
+    dev = ghost_tex.device
+    params, optimizer = adam_over(lens, dev, learning_rate)
+    pairs = ghost_pair_table(dev)
+    angle = torch.as_tensor(angle, dtype=params.curvatures.dtype, device=dev)
+    # unsharded, every rank computes the whole image; sharded, each its rows, and the sums are all-reduced
+    reduce = mesh is not None and distributed()
+    ranks = group()[1] if reduce else 1
 
     def step(target):
         optimizer.zero_grad(set_to_none=True)
-        # unsharded, every rank computes the whole image; sharded, each its rows, and the sums are all-reduced
-        reduce = mesh is not None and distributed()
-        ranks = group()[1] if reduce else 1
         if mesh is None:
-            loss = torch.mean((ghost_image(params, ghost_tex, axis_ray, angle, width, height) - target) ** 2)
+            loss = torch.mean((ghost_image(params, ghost_tex, axis_ray, angle, width, height, pairs) - target) ** 2)
         else:
-            img = _ghost_rows(params, ghost_tex, axis_ray, angle, width, height, mesh)
+            img = _ghost_rows(params, ghost_tex, axis_ray, angle, width, height, mesh, pairs)
             err = (img - target[_rank_block(height, len(mesh))].to(img.device)) ** 2
             loss = torch.mean(err) if ranks == 1 else err.sum() / target.numel()
         loss.backward()
@@ -184,4 +200,6 @@ def make_train_step(lens, ghost_tex, axis_ray, angle, width, height, mesh=None, 
         optimizer.step()
         return loss
 
-    return params, step
+    if reduce or len(set(mesh or ())) > 1:
+        return params, step
+    return params, Step(step, params.curvatures)

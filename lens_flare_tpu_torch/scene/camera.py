@@ -4,7 +4,8 @@ Counterpart of ``lens_flare_tpu/scene/camera.py``.  :class:`Camera` is a
 copy of the JAX package's NumPy host class (orbit placement, the FOV
 fix-up, ``set_screen_size``, the viewer's moves ``move_by``, ``move_forward``
 and ``rotate_by``, world -> screen projection, the settings files and
-``params()``, ``camera.py:42-240``), with ``place_from_scene_info``
+``params()``, the per-move settings dump of ``frame_dump_dir``,
+``camera.py:42-240``), with ``place_from_scene_info``
 (``:243``), the placement a loaded COLLADA scene gets;
 the device half holds ``CameraParams`` as tensors, pinhole, thin-lens and
 bokeh ray generation (``camera.py:242-306``) and
@@ -15,6 +16,7 @@ as explicit sums so that they round as XLA's three-term dot products do.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -60,6 +62,9 @@ class Camera:
     max_r: float = math.inf
     lens_radius: float = 0.0
     focal_distance: float = 0.0
+    # every move dumps the settings before it to frame_dump_dir/frame_N.txt (camera.cpp:175-180)
+    frame_dump_dir: str | None = None
+    frame_num: int = 0
 
     def configure(self, info, screen_w: int, screen_h: int) -> None:
         """Clip planes and FOVs from ``info``, widened to the screen's aspect (camera.cpp:69-88)."""
@@ -96,7 +101,17 @@ class Camera:
         self.compute_position()
 
     def compute_position(self) -> None:
-        """Position and camera-to-world frame from the orbit angles (camera.cpp:181-203)."""
+        """Position and camera-to-world frame from the orbit angles (camera.cpp:181-203).
+
+        With ``frame_dump_dir`` every call after the first dumps the settings
+        as they are before it to ``frame_{frame_num - 1}.txt`` there (the
+        reference's turntable scripting, camera.cpp:171-180), so that a
+        frame rendered before a move can be rendered again with ``-c``.
+        """
+        self.frame_num += 1
+        if self.frame_dump_dir and self.frame_num > 1:
+            os.makedirs(self.frame_dump_dir, exist_ok=True)
+            self.dump_settings(os.path.join(self.frame_dump_dir, f"frame_{self.frame_num - 1}.txt"))
         sin_phi = math.sin(self.phi)
         if sin_phi == 0:
             self.phi += EPS_F

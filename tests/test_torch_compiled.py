@@ -36,12 +36,23 @@ included (counted on the CPU by a wrapper of the kernel dispatch).
 On the card (``-m gpu``): replayed frames through A and C, D and B, and G,
 with and without the sky, tiled and adaptive, equal ``compiled.disabled()``
 frames bit for bit (film, counts, rays, tests, skipped) with the same
-launch counts; the ghost buffers equal the eager ones within
-``flare.moments.GHOST_F32`` per channel (energy, centroid, radius), since
-``index_add``'s float atomics reorder sums from run to run.
+launch counts; the ghost buffers equal the eager ones bit for bit (the
+realistic one sums its taps in a fixed order, ``realistic.ordered_sum``),
+and within ``flare.moments.GHOST_F32`` per channel (energy, centroid,
+radius).
+
+Captured optimisation steps (``compiled.Step``, config 5):
+``recover_emitter`` on the Cornell box (A and C), ``optimize_lens`` (plain,
+and checkpointed then resumed) and ``make_train_step`` (without a mesh and
+on two stand-in shards) give, step for step, the losses, parameters and
+launch counts of ``compiled.disabled()`` runs bit for bit: on the CPU
+stand-in, which follows the card's protocol (step 1 the warm-up, step 2
+the capture, one run of the step per call), and on the card
+(``-m gpu``), where both sides use ``Adam(capturable=True)``.
 """
 
 import gc
+import tempfile
 import weakref
 
 import numpy as np
@@ -223,7 +234,12 @@ def test_ghost_buffers_with_tables_made_ahead(case, terrain_file):
 class CpuGraph:
     """Stands in for a CUDA graph: a replay re-runs the captured function into its static outputs.
 
-    The re-run's own launch counts are taken back, as a graph's replay runs no wrapper.
+    On the card a capture records without running, and the first replay
+    runs what it recorded.  The stand-in's capture ran the function on the
+    static inputs, which the first replay copies in again unchanged, so that
+    replay has nothing left to run: each call runs the function as often as
+    on the card (a training step, which updates its state, once).  The
+    re-run's own launch counts are taken back, as a graph's replay runs no wrapper.
     """
 
     def __init__(self, fn, static, outputs):
@@ -231,6 +247,9 @@ class CpuGraph:
         self.replays = 0
 
     def replay(self):
+        self.replays += 1
+        if self.replays == 1:
+            return  # the capture ran it
         counts = compiled.launch_counts()
         with NoHostSync():
             out = self.fn(*self.static)
@@ -238,7 +257,6 @@ class CpuGraph:
             ic.KERNELS[k].launches = n
         for o, n in zip(self.outputs, compiled._flat(out)):
             o.copy_(n)
-        self.replays += 1
 
 
 class NoHostSync(torch.utils._python_dispatch.TorchDispatchMode):
@@ -262,10 +280,27 @@ class NoHostSync(torch.utils._python_dispatch.TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+def _paused(call):
+    """``call`` with :class:`NoHostSync` off: what the card runs otherwise, or is built to capture."""
+
+    def run(*args, **kw):
+        NoHostSync.paused += 1
+        try:
+            return call(*args, **kw)
+        finally:
+            NoHostSync.paused -= 1
+
+    return run
+
+
 @pytest.fixture
 def cpu_capture(monkeypatch):
     """The compiled path on the CPU: ``Programs`` captures through :class:`CpuGraph`, and the kernel
-    wrappers count their (plain-version) launches.  Yields the list of graphs made."""
+    wrappers count their (plain-version) launches.  Yields the list of graphs made.
+
+    ``torch.optim.Adam.step`` runs with :class:`NoHostSync` off: the card's
+    Adam keeps its step count on the device (``capturable=True``), which the
+    CPU's cannot, and reads it on the host."""
     graphs = []
 
     def graph(fn, static, pool):
@@ -276,19 +311,16 @@ def cpu_capture(monkeypatch):
         return g, out
 
     monkeypatch.setattr(compiled, "_captures", lambda x: True)
-    monkeypatch.setattr(compiled, "_warm_up", lambda fn, static: fn(*static))
+    monkeypatch.setattr(compiled, "_warm_up", lambda fn, static, dev: fn(*static))
     monkeypatch.setattr(compiled, "_new_pool", lambda: "pool")
     monkeypatch.setattr(compiled, "_graph", graph)
+    monkeypatch.setattr(torch.optim.Adam, "step", _paused(torch.optim.Adam.step))
     dispatch, walk = ic._dispatch, tpath.bvh_walk
 
     def counted(key, call):
         def run(*args, **kw):
             ic.KERNELS[key if isinstance(key, str) else key(args)].launches += 1
-            NoHostSync.paused += 1
-            try:
-                return call(*args, **kw)
-            finally:
-                NoHostSync.paused -= 1
+            return _paused(call)(*args, **kw)
         return run
 
     monkeypatch.setattr(ic, "_dispatch", counted(lambda a: a[0], dispatch))
@@ -314,12 +346,13 @@ def test_launches_recorded_once_and_added_per_replay(cpu_capture):
     fn = _stub(calls, {"A": 2, "G": 1})
     x = torch.arange(6.0)
     out, total = programs.run("k", fn, x)
-    # warm-up, capture and the first replay ran the function; the counts are one call's
-    assert len(calls) == 3 and len(cpu_capture) == 1 and cpu_capture[0].replays == 1
+    # the warm-up and the capture ran the function (the first replay runs what the capture did, as on
+    # the card); the counts are one call's
+    assert len(calls) == 2 and len(cpu_capture) == 1 and cpu_capture[0].replays == 1
     assert compiled.launch_counts() == {**{k: 0 for k in "ABCDEF"}, "A": 2, "G": 1}
     assert torch.equal(out, x * 2.0) and total.item() == 15.0
     out2, _ = programs.run("k", fn, x + 1.0)
-    assert len(calls) == 4 and len(programs) == 1 and cpu_capture[0].replays == 2
+    assert len(calls) == 3 and len(programs) == 1 and cpu_capture[0].replays == 2
     assert torch.equal(out2, (x + 1.0) * 2.0) and torch.equal(out, x * 2.0)  # a replay's outputs are new tensors
     assert compiled.launch_counts()["A"] == 4 and compiled.launch_counts()["G"] == 2
     programs.run("k", fn, torch.arange(4.0))  # another shape: another program
@@ -340,6 +373,31 @@ def test_failed_capture_leaves_counts_and_cache(cpu_capture):
     with pytest.raises(AssertionError, match="boolean index"):
         programs.run("k", broken, torch.arange(3.0))
     assert len(programs) == 0 and compiled.launch_counts()["B"] == 0
+
+
+def test_step_runs_once_per_call(cpu_capture):
+    """A ``compiled.Step``: the first call is the warm-up and a step of its own, the second captures and
+    replays, later ones replay; the function runs once per call, so the state moves one step per call."""
+    ic.reset_launch_counts()
+    state, calls = torch.zeros(()), []
+
+    def fn(x):
+        calls.append(1)
+        ic.KERNELS["C"].launches += 3
+        state.add_(x.sum())
+        return state * 1.0
+
+    step = compiled.Step(fn, state)
+    outs = [step(torch.ones(())).item() for _ in range(4)]
+    assert outs == [1.0, 2.0, 3.0, 4.0] and len(calls) == 4 and state.item() == 4.0
+    assert len(step.programs) == 1 and len(cpu_capture) == 1 and cpu_capture[0].replays == 3
+    assert compiled.launch_counts()["C"] == 12  # the warm-up's, then the capture's added per replay
+    assert step.programs.capture_s > 0
+    step(torch.ones(2))  # another input shape: a warm-up of its own, no capture yet
+    assert len(step.programs) == 1 and len(calls) == 5
+    with compiled.disabled():
+        step(torch.ones(()))
+    assert len(calls) == 6 and len(cpu_capture) == 1
 
 
 def test_disabled_nests(cpu_capture):
@@ -468,6 +526,89 @@ def test_a_dropped_renderer_frees_its_programs_at_once(cpu_capture, terrain_file
 
 
 # ---------------------------------------------------------------------------
+# captured optimisation steps (config 5) against compiled.disabled()
+# ---------------------------------------------------------------------------
+
+# recover_emitter on the Cornell box (kernels A and C), optimize_lens from a perturbed curvature (plain,
+# and 3 steps checkpointed then resumed to 6), and make_train_step without a mesh and on two stand-in
+# shards of one device: (case, programs captured)
+STEPS = {"recover_emitter": 1, "optimize_lens": 1, "optimize_lens_resumed": 2, "train_step": 1,
+         "train_step_stand_ins": 1}
+SW, SH = 24, 18  # the render's film; the lens design's is 32 x 32
+
+
+@pytest.fixture(scope="module")
+def cornell_file(tmp_path_factory):
+    return cornell_box().write(tmp_path_factory.mktemp("steps") / "cornell.dae")
+
+
+def run_steps(case, device, cornell, tmp_path):
+    """(losses, parameters on the CPU, launches of A-G) of a few steps of ``case`` on ``device``."""
+    import chip_smoke
+    from lens_flare_tpu_torch.diff import render as dr
+    from lens_flare_tpu_torch.diff.optimize import LENS_FIELDS, OptimizeConfig, ghost_image, optimize_lens
+    from lens_flare_tpu_torch.lens.prescription import reference_prescription
+    from lens_flare_tpu_torch.parallel import render as prender
+    from lens_flare_tpu_torch.parallel.mesh import make_mesh
+
+    ic.reset_launch_counts()
+    if case == "recover_emitter":
+        c = chip_smoke.diff_case(cornell, device, SW, SH, 2, 2, aim=True)
+        rows = chip_smoke.emitter_params(c.r.scene)
+        er, lr = rows["emitter"][2], rows["light"][2]
+        target = chip_smoke.diff_render(c, dr.set_emitter_color(c.bundle, er, lr, (0.9, 0.55, 0.2)))
+        ic.reset_launch_counts()
+        color, losses = dr.recover_emitter(c.bundle, c.settings, c.cam, c.px, c.py, SW, SH, target, er, lr,
+                                           init_color=(2.0, 2.0, 2.0), n_samples=2, steps=5, learning_rate=0.2,
+                                           key=c.key)
+        return losses, [color.cpu()], compiled.launch_counts()
+    tex = torch.as_tensor(polygon_mask(32, 6), device=device)
+    axis = torch.tensor([0.6, 0.55], device=device)
+    target = ghost_image(reference_prescription(device=device), tex, axis, 0.35, 32, 32).detach()
+    lens0 = reference_prescription(device=device)
+    lens0.curvatures = lens0.curvatures * torch.tensor([1.03] + [1.0] * 9, device=device)
+    if case.startswith("optimize_lens"):
+        run = dict(init_lens=lens0, device=device)
+        if case == "optimize_lens":
+            lens, losses = optimize_lens(target, tex, axis, 0.35, OptimizeConfig(steps=6, log_every=0), **run)
+        else:
+            ck = tempfile.mkdtemp(dir=tmp_path)  # a run of its own: no checkpoint of an earlier run
+            cfg = dict(log_every=0, checkpoint_dir=str(ck), checkpoint_every=2)
+            _, losses = optimize_lens(target, tex, axis, 0.35, OptimizeConfig(steps=3, **cfg), **run)
+            lens, rest = optimize_lens(target, tex, axis, 0.35, OptimizeConfig(steps=6, **cfg), **run)
+            assert len(losses) == len(rest) == 3
+            losses += rest
+    else:
+        mesh = make_mesh(devices=[device] * 2) if case == "train_step_stand_ins" else None
+        lens, step = prender.make_train_step(lens0, tex, axis, 0.35, 32, 32, mesh=mesh)
+        losses = [step(target).item() for _ in range(5)]
+    return losses, [getattr(lens, f).detach().cpu() for f in LENS_FIELDS], compiled.launch_counts()
+
+
+def _same_steps(got, want):
+    assert got[0] == want[0], (got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert got[2] == want[2], (got[2], want[2])
+
+
+@pytest.mark.parametrize("case", list(STEPS))
+def test_captured_step_equals_eager_on_the_cpu_stand_in(case, cpu_capture, cornell_file, tmp_path):
+    """Each step, the warm-up (step 1) and the resumed run's first included, gives the losses and
+    parameters of ``compiled.disabled()`` bit for bit, with the same launch counts: no step is run
+    twice or skipped, and nothing in a step's body syncs with the host."""
+    with compiled.disabled():
+        want = run_steps(case, "cpu", cornell_file, tmp_path)
+    assert not cpu_capture
+    got = run_steps(case, "cpu", cornell_file, tmp_path)
+    _same_steps(got, want)
+    assert len(cpu_capture) == STEPS[case]
+    assert sum(g.replays for g in cpu_capture) == len(want[0]) - STEPS[case]  # every step after each warm-up
+    assert len(set(want[0])) == len(want[0])  # every step moved the parameters
+    if case == "recover_emitter":
+        assert want[2]["A"] > 0 and want[2]["C"] > 0
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -518,7 +659,31 @@ def test_replayed_ghost_buffer_on_card(case, cuda_device, terrain_file):
         want = p.ghost_buffer()
     got, again = p.ghost_buffer(), p.ghost_buffer()
     assert len(r._flare_programs) == 1
+    assert torch.equal(got, want) and torch.equal(again, want)
     for buf in (got, again):
         errs = ghost_errors(buffer_moments(buf, p.axis_ray), buffer_moments(want, p.axis_ray))
         for measure, limit in GHOST_F32.items():
             assert max(errs[measure].values()) <= limit, (measure, errs[measure])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(STEPS))
+def test_captured_step_equals_eager_on_card(case, cuda_device, cornell_file, tmp_path):
+    """Captured steps against ``compiled.disabled()`` ones, both with ``Adam(capturable=True)``: bit for
+    bit where two eager runs are (recover_emitter's backward adds through ``embedding``'s segmented
+    sums), else within 1e-4 relative, with the eager runs' own spread printed beside it."""
+    with compiled.disabled():
+        want = run_steps(case, "cuda", cornell_file, tmp_path)
+        again = run_steps(case, "cuda", cornell_file, tmp_path)
+    got = run_steps(case, "cuda", cornell_file, tmp_path)
+    assert got[2] == want[2]
+    eager_equal = again[0] == want[0] and all(torch.equal(a, b) for a, b in zip(again[1], want[1]))
+    spread = max(abs(a - b) / abs(b) for a, b in zip(again[0], want[0]))
+    print(f"[step_on_card:{case}] eager_runs_bit_equal={eager_equal} eager_spread={spread:.3g} "
+          f"captured_bit_equal={got[0] == want[0]}")
+    if eager_equal or case != "recover_emitter":
+        _same_steps(got, want)
+    else:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+        for a, b in zip(got[1], want[1]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4)

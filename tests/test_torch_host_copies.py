@@ -2,7 +2,7 @@
 
 ``lens_flare_tpu_torch`` keeps its own ``make_terrain_scene``, ``FlatScene``,
 ``build_wide_bvh`` (native and NumPy builders), host ``Camera`` (its
-viewer moves too), image
+viewer moves and its per-move settings dump too), image
 transforms and EXR reader and writer.  Each is held here to the JAX
 package's original on the same inputs, exactly: they are the same NumPy
 (or C++) code.  The port's EXR writer also writes HALF channels, which the
@@ -118,6 +118,33 @@ def test_camera_moves_equal_jax():
             np.testing.assert_array_equal(a, b, err_msg=f"{name}: {f}")
             assert a.dtype == b.dtype
     assert mine.r == 30.0 and mine.phi == 1.0
+
+
+def test_camera_frame_dump_equals_jax(tmp_path):
+    """The per-move settings dump (camera.cpp:175-180) over the moves of the JAX package's
+    ``tests/test_scene.py::test_camera_frame_dump``: the same files with the same text, dumped at the
+    top of ``compute_position`` (the settings before the move), each loading back."""
+    dirs = []
+    for name, cls in (("port", Camera), ("jax", j_camera.Camera)):
+        cam = cls(frame_dump_dir=str(tmp_path / name / "frames"))
+        cam.place(np.zeros(3), 1.0, 0.2, 5.0, 0.5, 50.0)  # frame_num -> 1, no dump
+        before = cam.pos.copy()
+        cam.rotate_by(0.1, 0.2)  # frame_num -> 2, dumps frame_1.txt
+        cam.rotate_by(0.1, 0.2)
+        assert cam.frame_num == 3
+        dirs.append((tmp_path / name / "frames", before))
+    (port, before), (ref, _) = dirs
+    names = sorted(p.name for p in port.glob("frame_*.txt"))
+    assert names == ["frame_1.txt", "frame_2.txt"] == sorted(p.name for p in ref.glob("frame_*.txt"))
+    for name in names:
+        assert (port / name).read_text() == (ref / name).read_text()
+        back = Camera()
+        back.load_settings(port / name)
+        assert np.isfinite(back.pos).all()
+    first = Camera()
+    first.load_settings(port / "frame_1.txt")
+    np.testing.assert_array_equal(first.pos, before)  # the placement's settings, before the first move
+    assert Camera().frame_dump_dir is None  # no dump unless asked
 
 
 def test_image_transforms_equal_jax():

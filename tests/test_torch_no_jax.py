@@ -13,7 +13,9 @@ command line on a Cornell-box COLLADA file (``chip_smoke.py``'s writer)
 with ``-x``/``-y`` aperture PNGs, which the port reads without PIL, and
 on a terrain file under a HALF sky map written by the port's
 ``utils/exr.write`` (``-e``) and with ``--lens-model realistic``, runs
-``--upsample 1`` (Loop subdivision), drives the interactive ``Application``
+``--upsample 1`` (Loop subdivision), runs the turntable for two frames
+(``python -m lens_flare_tpu_torch.turntable``, its PNGs and the camera's
+per-move settings files), drives the interactive ``Application``
 through one frame in each mode and a mesh edit, runs
 ``optimize_lens`` for three steps with a checkpoint (``torch.optim`` and
 ``torch.save`` in place of optax and orbax), and takes the gradient of a
@@ -103,6 +105,12 @@ SCRIPT = textwrap.dedent(
     rc = cli.main(["-r", "16", "12", "-s", "1", "-m", "2", "--upsample", "1", "-f", str(d / "up.png"),
                    "--device", "cpu", str(dae)])
     assert rc == 0 and load_png(d / "up.png").shape == (12, 16, 3)
+    from lens_flare_tpu_torch import turntable
+
+    rc = turntable.main([str(terrain), "--frames", "2", "--out", str(d / "turn"), "--size", "16", "12", "-s", "1",
+                         "-m", "2", "--device", "cpu"])
+    assert rc == 0 and load_png(d / "turn" / "frame_001.png").shape == (12, 16, 3)
+    assert sorted(p.name for p in (d / "turn" / "frames").iterdir()) == ["frame_1.txt", "frame_2.txt"]
 
     # the interactive application: one frame in each mode, and a mesh edit
     from lens_flare_tpu_torch.app import Application
@@ -167,3 +175,4 @@ def test_port_renders_without_jax(tmp_path):
     assert (tmp_path / "sky.png").read_bytes().startswith(b"\x89PNG")
     assert (tmp_path / "real.png").read_bytes().startswith(b"\x89PNG")
     assert (tmp_path / "up.png").read_bytes().startswith(b"\x89PNG")
+    assert (tmp_path / "turn" / "frame_000.png").read_bytes().startswith(b"\x89PNG")

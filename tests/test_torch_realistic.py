@@ -42,11 +42,20 @@ Tolerances and why (the largest differences read on the CPU in brackets):
   command lines within one 8-bit level on >= 99% of values, as
   ``tests/test_torch_cli.py``.
 
+The buffer's taps are summed by ``realistic.ordered_sum`` (a stable sort,
+a segmented scan, one write per pixel) in place of ``index_add``, whose
+float atomics add in no fixed order on the card: against float64
+``index_add`` (sequential on the CPU) to 1e-6 relative from float32 and 1e-14 from float64,
+a small pixel beside a large one included, and its gradient equal to the
+gather of the cotangent.
+
 On the card (``-m gpu``), see ``test_realistic_on_card_matches_cpu``: the
-card rounds the trace otherwise (its reductions and trigonometry), and
-``index_add`` accumulates in no fixed order there, so float32 is held at
-the float32 tolerances and float64 is the witness that the card's trace
-and backward compute what the CPU's do.
+card rounds the trace otherwise (its reductions and trigonometry), so
+float32 is held at the float32 tolerances and float64 is the witness that
+the card's trace and backward compute what the CPU's do.
+``test_ghost_buffer_is_reproducible_on_card``: two card runs of the buffer
+and of its gradient, and the buffer replayed from a captured program
+against an eager one, bit for bit.
 """
 
 import contextlib
@@ -349,6 +358,32 @@ def test_render_ghosts_stack_matches_jax(case, dtype):
     close_to_peak(got.numpy(), want, 1e-12 if dtype == torch.float64 else F32["image"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["random", "large_beside_small"])
+def test_ordered_sum_matches_index_add(case, dtype):
+    """The ghost buffer's fixed-order sum against float64 ``index_add`` (one add after another on the CPU).
+
+    ``large_beside_small``: pixel 3 gets taps of 1e8, pixel 4 taps of 1e-3; a prefix sum over every tap
+    differenced at the runs' ends would lose pixel 4 against pixel 3's prefix."""
+    rng = np.random.default_rng(5)
+    if case == "random":
+        idx = rng.integers(0, 700, 5000)
+        vals = rng.uniform(0.0, 2.0, 5000)
+    else:
+        idx = rng.permutation(np.repeat([3, 4, 9], [50, 200, 1]))
+        vals = np.where(idx == 3, 1e8, np.where(idx == 4, 1e-3, 0.5))
+    idx, vals = torch.as_tensor(idx), torch.as_tensor(vals, dtype=dtype).requires_grad_(True)
+    got = realistic.ordered_sum(idx, vals, 701)
+    # float64 index_add of the same taps: in float32 it is the reference's sum, closer than float32's own
+    want = torch.zeros(701, dtype=torch.float64).index_add(0, idx, vals.detach().double())
+    rtol = 1e-6 if dtype == torch.float32 else 1e-14
+    np.testing.assert_allclose(got.detach().double().numpy(), want.numpy(), rtol=rtol, atol=0)
+    assert got.dtype == dtype and (got[torch.bincount(idx, minlength=701) == 0] == 0).all()
+    cot = torch.as_tensor(rng.uniform(size=701), dtype=dtype)
+    (grad,) = torch.autograd.grad((got * cot).sum(), vals)
+    assert torch.equal(grad, cot[idx])
+
+
 def test_default_render_has_energy():
     """JAX's defaults (32x32 pupil, 740 rays in the disc, all 13 pairs) on a 64x64 film (``test_lens.py:110``)."""
     img = realistic.render_ghosts_stack(reference_prescription(), 0.3, torch.tensor(RADIANCE), torch.tensor(AXIS), 64, 64)
@@ -649,3 +684,31 @@ def test_realistic_on_card_matches_cpu(cuda_device):
     }
     print("[realistic_on_card] ghosts_worst=" + json.dumps(worst) + " sum_grad_peak_rel=" + json.dumps(sum_errs))
     assert sum_errs["card_vs_cpu_f64"] <= 1e-12
+
+
+@pytest.mark.gpu
+def test_ghost_buffer_is_reproducible_on_card(cuda_device):
+    """The 1920x1080 buffer and its gradient twice on the card, and the buffer replayed from a captured
+    program (``compiled.Programs``) against an eager call: bit for bit."""
+    from lens_flare_tpu_torch import compiled
+
+    args = tuple(torch.tensor(v, device=cuda_device) for v in (0.3, RADIANCE, AXIS))
+    lens = reference_prescription(device=cuda_device)
+    tables = realistic.ghost_stack_tables(lens)
+
+    def buffer(angle, radiance, axis):
+        return realistic.render_ghosts_stack(lens, angle, radiance, axis, 1920, 1080, tables=tables)
+
+    runs = [buffer(*args) for _ in range(2)]
+    programs = compiled.Programs()
+    replays = [programs.run("ghosts", buffer, *args) for _ in range(2)]
+    assert len(programs) == 1 and runs[0].sum() > 0
+    for other in (runs[1], *replays):
+        assert torch.equal(other, runs[0])
+    grads = []
+    for _ in range(2):
+        g_lens = reference_prescription(device=cuda_device)
+        g_lens.curvatures = g_lens.curvatures.clone().requires_grad_(True)
+        img = realistic.render_ghosts_stack(g_lens, *args, 64, 48, pupil_samples=12, pairs=SUBSET)
+        grads.append(torch.autograd.grad(img.square().sum(), g_lens.curvatures)[0])
+    assert torch.equal(grads[0], grads[1]) and grads[0].abs().max() > 0
