@@ -47,6 +47,7 @@ from . import _rng
 from .integrator.path import trace_closest
 from .renderer import Renderer, pad_lanes
 from .scene.camera import CameraParams, camera_params, generate_rays
+from .utils.profiling import span
 
 
 class Mode(Enum):
@@ -643,23 +644,29 @@ class Application:
             self.start_raytracing()
         r = self.renderer
         if not self.render_done:
-            ns = min(self.progressive_batch, r.ns_aa - self._sample_idx)
-            xs, ys = self._cell_lanes(self._cell_bounds())
-            dev = self._device
-            cam = camera_params(r.camera, dev)
-            key = _rng.prng_key(r.seed, device=dev)
-            tile = r.tile_pixels
-            grain = 4096 if tile > 8192 else 256  # the JAX package's buckets (app.py:627-638)
-            for i in range(0, xs.shape[0], tile):
-                px, py, valid, m = pad_lanes(xs[i : i + tile], ys[i : i + tile], tile, grain, r.n_shards)
-                film, _, _, _ = r.render_chunk(cam, key, px, py, valid, self._sample_idx, ns)
-                self._film[py[:m], px[:m]] += film[:m]
-                self._counts[py[:m], px[:m]] += ns
-            self._sample_idx += ns
-            # log a handful of primary rays for the visualizer ray overlay
-            if self.logged_rays is None:
-                self._log_primary_rays()
-        return img.to_color(self._hdr().cpu().numpy())
+            with span("renderer.render"):
+                ns = min(self.progressive_batch, r.ns_aa - self._sample_idx)
+                dev = self._device
+                with span("renderer.prepare"):
+                    xs, ys = self._cell_lanes(self._cell_bounds())
+                    cam = camera_params(r.camera, dev)
+                    key = _rng.prng_key(r.seed, device=dev)
+                tile = r.tile_pixels
+                grain = 4096 if tile > 8192 else 256  # the JAX package's buckets (app.py:627-638)
+                for i in range(0, xs.shape[0], tile):
+                    with span("renderer.tile"):
+                        px, py, valid, m = pad_lanes(xs[i : i + tile], ys[i : i + tile], tile, grain, r.n_shards)
+                        film, _, _, _ = r.render_chunk(cam, key, px, py, valid, self._sample_idx, ns)
+                        with span("app.scatter"):
+                            self._film[py[:m], px[:m]] += film[:m]
+                            self._counts[py[:m], px[:m]] += ns
+                self._sample_idx += ns
+                # log a handful of primary rays for the visualizer ray overlay
+                if self.logged_rays is None:
+                    self._log_primary_rays()
+        with span("app.to_host"):
+            hdr = self._hdr().cpu().numpy()
+        return img.to_color(hdr)
 
     def _hdr(self) -> torch.Tensor:
         return self._film / torch.clamp_min(self._counts, 1)[..., None]

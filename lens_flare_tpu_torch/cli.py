@@ -18,7 +18,9 @@ the render to ``-f``.  ``--devices N`` (or ``-t N``, the reference's
 worker count; ``--devices`` takes precedence) shards every wavefront over
 the first N CUDA devices, 0 (the default) over all of them: on a machine
 with one card that is one device.  ``--trace DIR`` writes a
-``torch.profiler`` Chrome trace of the render to ``DIR/trace.json``.
+``torch.profiler`` Chrome trace of the render to ``DIR/trace.json``, which
+names the port's own host ranges (``lf.*``, ``utils/profiling.py``) beside
+the CUDA calls and kernels.
 """
 
 from __future__ import annotations
@@ -64,7 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Loop-subdivide every scene mesh N levels before rendering (EDIT mode's 'u' key, offline)")
     p.add_argument("--devices", type=int, default=0, help="shard the render over the first N devices (0 = all available)")
     p.add_argument("--trace", dest="trace_dir", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the render to DIR/trace.json")
+                   help="write a torch.profiler Chrome trace of the render to DIR/trace.json, with the port's "
+                   "lf.* ranges: lf.renderer.{render,prepare,tile,select,stats}, "
+                   "lf.compiled.{replay,copy_in,launch,clone,capture}, "
+                   "lf.flare.{build,tables,fft,ghosts,starburst,falloff}, lf.image.to_color")
     p.add_argument("--view", action="store_true",
                    help="open the interactive terminal viewer instead of rendering to -f (keys: r/v/e/s, "
                    "[ ] - = < > k l ; ' C d, space, arrows; mouse orbit/pan/autofocus)")

@@ -25,7 +25,9 @@ The wrappers of ``ops/intersect_cuda.py`` count kernel launches on the
 host, which a replay does not run: a capture records how many launches of
 each kernel it took in, and every replay adds them (the warm-up's and the
 capture's own counts are taken back out), so a replayed frame counts what
-an eager one does.
+an eager one does.  Each :class:`Programs` counts its replays and the inputs
+they copy into static buffers (``replays``, ``copies_in``), as it sums its
+capture seconds (``capture_s``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from .ops.intersect_cuda import KERNELS
 from .parallel.mesh import device_scope
+from .utils.profiling import span
 
 _eager = contextvars.ContextVar("lens_flare_tpu_torch_eager", default=False)
 
@@ -81,14 +84,18 @@ class Program:
     def replay(self, inputs):
         """Copy ``inputs`` (of the captured shapes, dtypes and device) into the static buffers, replay,
         count the launches; new output tensors."""
-        for s, x in zip(self.inputs, inputs):
-            s.copy_(x)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            KERNELS[k].launches += n
-        # the static outputs are overwritten by the next replay of any program sharing the pool
-        out = tuple(o.clone() for o in self.outputs)
-        return out[0] if self.single else out
+        with span("compiled.replay"):
+            with span("compiled.copy_in"):
+                for s, x in zip(self.inputs, inputs):
+                    s.copy_(x)
+            with span("compiled.launch"):
+                self.graph.replay()
+            for k, n in self.launches.items():
+                KERNELS[k].launches += n
+            # the static outputs are overwritten by the next replay of any program sharing the pool
+            with span("compiled.clone"):
+                out = tuple(o.clone() for o in self.outputs)
+            return out[0] if self.single else out
 
 
 class Programs:
@@ -111,6 +118,8 @@ class Programs:
         self._programs: dict = {}
         self._pools: dict = {}
         self.capture_s = 0.0  # host seconds spent capturing: warm-up, capture, instantiation
+        self.replays = 0  # programs replayed
+        self.copies_in = 0  # inputs copied into the programs' static buffers, one per input per replay
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -134,7 +143,10 @@ class Programs:
         full_key = (key, _signature(inputs))
         prog = self._programs.get(full_key)
         if prog is None:
-            prog = self._programs[full_key] = self._capture(fn, inputs, dev, warm_up)
+            with span("compiled.capture"):
+                prog = self._programs[full_key] = self._capture(fn, inputs, dev, warm_up)
+        self.replays += 1
+        self.copies_in += len(inputs)
         return prog.replay(inputs)
 
     def _capture(self, fn, inputs, dev, warm_up) -> Program:

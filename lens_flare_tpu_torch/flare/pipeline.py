@@ -31,6 +31,7 @@ from ..lens.paraxial import ghost_pair_table, trace_all_ghosts
 from ..lens.prescription import LensPrescription, reference_prescription
 from ..lens.realistic import ghost_stack_tables, render_ghosts_stack
 from ..scene.build import LT_DIRECTIONAL
+from ..utils.profiling import span
 from .starburst import aperture_fft, irradiance_falloff, starburst_field
 
 
@@ -84,30 +85,31 @@ class FlarePipeline:
 
     @classmethod
     def from_renderer(cls, renderer) -> "FlarePipeline | None":
-        origins, radiances, axis_ray, angle = find_sun(renderer.scene.lights, renderer.camera)
-        if len(origins) == 0:
-            return None
+        with span("flare.build"):
+            origins, radiances, axis_ray, angle = find_sun(renderer.scene.lights, renderer.camera)
+            if len(origins) == 0:
+                return None
 
-        def texture(tex, path):
-            return tex if tex is not None else (ApertureTexture.load(path) if path else None)
+            def texture(tex, path):
+                return tex if tex is not None else (ApertureTexture.load(path) if path else None)
 
-        return cls(
-            width=renderer.width,
-            height=renderer.height,
-            flare_origins=origins,
-            flare_radiances=radiances,
-            axis_ray=axis_ray,
-            angle_to_sun=angle,
-            aperture=texture(renderer.aperture, renderer.aperture_path),
-            ghost_aperture=texture(renderer.ghost_aperture, renderer.ghost_aperture_path),
-            lens=reference_prescription(device=renderer.device),
-            flare_intensity=renderer.flare_intensity,
-            flare_radius=renderer.flare_radius,
-            falloff_key=renderer.seed,
-            lens_model=renderer.lens_model,
-            device=renderer.device,
-            programs=renderer._flare_programs,
-        )
+            return cls(
+                width=renderer.width,
+                height=renderer.height,
+                flare_origins=origins,
+                flare_radiances=radiances,
+                axis_ray=axis_ray,
+                angle_to_sun=angle,
+                aperture=texture(renderer.aperture, renderer.aperture_path),
+                ghost_aperture=texture(renderer.ghost_aperture, renderer.ghost_aperture_path),
+                lens=reference_prescription(device=renderer.device),
+                flare_intensity=renderer.flare_intensity,
+                flare_radius=renderer.flare_radius,
+                falloff_key=renderer.seed,
+                lens_model=renderer.lens_model,
+                device=renderer.device,
+                programs=renderer._flare_programs,
+            )
 
     def _t(self, a):
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -153,14 +155,16 @@ class FlarePipeline:
     def _ghost_tables(self):
         """The ghost buffers' static tables on the lens's device, made once per pipeline: the paraxial
         pair table and the realistic stack's pupil and event tables."""
-        return ghost_pair_table(self.lens.curvatures.device), ghost_stack_tables(self.lens)
+        with span("flare.tables"):
+            return ghost_pair_table(self.lens.curvatures.device), ghost_stack_tables(self.lens)
 
     def starburst(self) -> torch.Tensor:
         """(H, W, 3) starburst field (raytrace_starburst minus falloff)."""
         if self.aperture is None or self.aperture.total_value == 0 or len(self.flare_origins) == 0:
             return self._zeros()
         if self._fft_cache is None:
-            self._fft_cache = aperture_fft(self._t(self.aperture.values))
+            with span("flare.fft"):
+                self._fft_cache = aperture_fft(self._t(self.aperture.values))
         return starburst_field(
             self._fft_cache,
             self.aperture.total_value,
@@ -186,4 +190,9 @@ class FlarePipeline:
 
     def composite(self, hdr: torch.Tensor) -> torch.Tensor:
         """film + ghost + starburst + falloff (pathtracer.cpp:891)."""
-        return hdr + self.ghost_buffer() + self.starburst() + self.falloff()
+        with span("flare.ghosts"):
+            out = hdr + self.ghost_buffer()
+        with span("flare.starburst"):
+            out = out + self.starburst()
+        with span("flare.falloff"):
+            return out + self.falloff()

@@ -74,6 +74,7 @@ from .parallel.render import shard_call
 from .scene.build import FlatScene, load_scene
 from .scene.camera import Camera, CameraParams, camera_params, generate_rays, place_from_scene_info
 from .utils import image as img
+from .utils.profiling import span
 
 
 @dataclass
@@ -241,42 +242,44 @@ class Renderer:
         dev = torch.device(self.device)
         t0 = time.perf_counter()
         cscene = bvh = None
-        if wide:
-            wb = build_wide_bvh(self.scene.tri_p)
-        else:
-            flat_bvh = build_bvh(*self.scene.primitive_bboxes())  # SAH, as the JAX Renderer's default
+        with span("scene.build"):
+            if wide:
+                wb = build_wide_bvh(self.scene.tri_p)
+            else:
+                flat_bvh = build_bvh(*self.scene.primitive_bboxes())  # SAH, as the JAX Renderer's default
         self.stats.bvh_build_time = time.perf_counter() - t0
-        if wide:
-            cscene = CudaScene.from_wide_bvh(
-                wb, self.scene.sph_center, self.scene.sph_radius, self.scene.num_triangles, dev,
-                shade_rows=shade_rows(self.scene) if self.scene.num_triangles else None,
+        with span("scene.upload"):
+            if wide:
+                cscene = CudaScene.from_wide_bvh(
+                    wb, self.scene.sph_center, self.scene.sph_radius, self.scene.num_triangles, dev,
+                    shade_rows=shade_rows(self.scene) if self.scene.num_triangles else None,
+                )
+            else:
+                t0 = time.perf_counter()
+                bvh = bvh_to_device(self.scene, flat_bvh, dev)
+                self.stats.bvh_pack_time = time.perf_counter() - t0
+            bokeh = None
+            if self.lens_radius > 0 and (self.bokeh is not None or self.bokeh_path):
+                tex = self.bokeh if self.bokeh is not None else ApertureTexture.load(self.bokeh_path)
+                bokeh = BokehMask.from_texture(tex.values, dev)
+            self.bundle = SceneBundle(
+                scene=scene_to_device(self.scene, dev),
+                bsdfs=bsdf_to_device(self.scene.bsdfs, dev),
+                lights=lights_to_device(self.light_table(), dev),
+                cscene=cscene,
+                bokeh=bokeh,
+                bvh=bvh,
+                env=None if self.envmap is None else build_env(self.envmap, dev),
             )
-        else:
-            t0 = time.perf_counter()
-            bvh = bvh_to_device(self.scene, flat_bvh, dev)
-            self.stats.bvh_pack_time = time.perf_counter() - t0
-        bokeh = None
-        if self.lens_radius > 0 and (self.bokeh is not None or self.bokeh_path):
-            tex = self.bokeh if self.bokeh is not None else ApertureTexture.load(self.bokeh_path)
-            bokeh = BokehMask.from_texture(tex.values, dev)
-        self.bundle = SceneBundle(
-            scene=scene_to_device(self.scene, dev),
-            bsdfs=bsdf_to_device(self.scene.bsdfs, dev),
-            lights=lights_to_device(self.light_table(), dev),
-            cscene=cscene,
-            bokeh=bokeh,
-            bvh=bvh,
-            env=None if self.envmap is None else build_env(self.envmap, dev),
-        )
-        avail = parallel_mesh.available_devices(self.device)  # looked up here: a stand-in may replace it
-        n_dev = len(avail) if self.devices == 0 else min(self.devices, len(avail))
-        ranks = 1 if self.devices == 1 else group()[1]
-        self._mesh = make_mesh(devices=avail[:n_dev]) if n_dev * ranks > 1 else None
-        self._replicas = None
-        if self._mesh is not None:
-            self._replicas = replicate(self.bundle, self._mesh)  # once per build, not per tile
-            # every wavefront divides over the shards of every rank
-            self.tile_pixels = -(-self.tile_pixels // self.n_shards) * self.n_shards
+            avail = parallel_mesh.available_devices(self.device)  # looked up here: a stand-in may replace it
+            n_dev = len(avail) if self.devices == 0 else min(self.devices, len(avail))
+            ranks = 1 if self.devices == 1 else group()[1]
+            self._mesh = make_mesh(devices=avail[:n_dev]) if n_dev * ranks > 1 else None
+            self._replicas = None
+            if self._mesh is not None:
+                self._replicas = replicate(self.bundle, self._mesh)  # once per build, not per tile
+                # every wavefront divides over the shards of every rank
+                self.tile_pixels = -(-self.tile_pixels // self.n_shards) * self.n_shards
 
     def light_table(self):
         """The scene's light table, with an LT_ENV row appended when there is an ``envmap``.
@@ -379,65 +382,66 @@ class Renderer:
         interrupted before its end resumes from the file, unless the file
         belongs to another render (its fingerprint differs) or is unreadable.
         """
-        w, h = self.width, self.height
-        x0, y0, dx, dy = (0, 0, w, h) if cell is None else cell
-        dev = torch.device(self.device)
-        cam = camera_params(self.camera, dev)
-        key = _rng.prng_key(self.seed, device=dev)
-
-        ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
-        xs = xs.ravel()
-        ys = ys.ravel()
-        order = blocked_order(xs, ys, w)
-        xs = torch.as_tensor(xs[order], device=dev)
-        ys = torch.as_tensor(ys[order], device=dev)
-
-        film = torch.zeros((h, w, 3), device=dev)
-        counts = torch.zeros((h, w), dtype=torch.int32, device=dev)
-        total = torch.zeros(3, dtype=torch.float64, device=dev)
-        t_start = time.perf_counter()
-        n_tiles = -(-xs.shape[0] // self.tile_pixels)
-        ckpt = None
-        start_tile = 0
-        if checkpoint_path is not None:
-            ckpt = (checkpoint_path, self._checkpoint_fingerprint(cell))
-            ck = self._load_checkpoint(checkpoint_path)
-            # "next_tile" marks the tiled (or completed) format; an adaptive
-            # render's per-stage state is resumed in _adaptive_render
-            if (
-                ck is not None and "next_tile" in ck and int(ck["n_tiles"]) == n_tiles
-                and ck["film"].shape == tuple(film.shape) and str(ck.get("fp")) == ckpt[1]
-            ):
-                film = torch.as_tensor(ck["film"], device=dev)
-                counts = torch.as_tensor(ck["counts"], device=dev)
-                total = torch.as_tensor(ck["stats"], device=dev)
-                start_tile = int(ck["next_tile"])
-                if progress:
-                    print(f"[PathTracer] resuming at tile {start_tile}/{n_tiles}")
-        if self.ns_aa > self.settings.samples_per_batch and self.max_tolerance > 0:
-            if start_tile < n_tiles:  # not already complete from a checkpoint
-                rad, cnt, total = self._adaptive_render(cam, key, xs, ys, progress, ckpt)
-                film[ys, xs] = rad
-                counts[ys, xs] = cnt
-                if ckpt is not None:
-                    self._save_tiles(ckpt, film, counts, total, n_tiles, n_tiles)
-        else:
-            total = self._tiled_render(cam, key, xs, ys, film, counts, progress, total, start_tile, ckpt)
-        total = total.cpu().numpy()  # waits for the device
-        self.stats.wall_time = time.perf_counter() - t_start
-        self.stats.total_rays = int(total[0])
-        self.stats.total_isects = int(total[1])
-        self.stats.total_zero_skipped = int(total[2])
-        self.stats.mrays_per_s = self.stats.total_rays / max(self.stats.wall_time, 1e-9) / 1e6
-        self.stats.isects_per_ray = self.stats.total_isects / max(self.stats.total_rays, 1)
-        if progress:
-            print(
-                f"\n[PathTracer] Rendering complete: {self.stats.wall_time:.4f} sec\n"
-                f"[PathTracer] Rays traced: {self.stats.total_rays} "
-                f"({self.stats.mrays_per_s:.2f} Mrays/s)\n"
-                f"[PathTracer] Intersection tests per ray: {self.stats.isects_per_ray:.2f}"
-            )
-        return film, counts
+        with span("renderer.render"):
+            w, h = self.width, self.height
+            x0, y0, dx, dy = (0, 0, w, h) if cell is None else cell
+            dev = torch.device(self.device)
+            with span("renderer.prepare"):
+                cam = camera_params(self.camera, dev)
+                key = _rng.prng_key(self.seed, device=dev)
+                ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
+                xs = xs.ravel()
+                ys = ys.ravel()
+                order = blocked_order(xs, ys, w)
+                xs = torch.as_tensor(xs[order], device=dev)
+                ys = torch.as_tensor(ys[order], device=dev)
+                film = torch.zeros((h, w, 3), device=dev)
+                counts = torch.zeros((h, w), dtype=torch.int32, device=dev)
+                total = torch.zeros(3, dtype=torch.float64, device=dev)
+            t_start = time.perf_counter()
+            n_tiles = -(-xs.shape[0] // self.tile_pixels)
+            ckpt = None
+            start_tile = 0
+            if checkpoint_path is not None:
+                ckpt = (checkpoint_path, self._checkpoint_fingerprint(cell))
+                ck = self._load_checkpoint(checkpoint_path)
+                # "next_tile" marks the tiled (or completed) format; an adaptive
+                # render's per-stage state is resumed in _adaptive_render
+                if (
+                    ck is not None and "next_tile" in ck and int(ck["n_tiles"]) == n_tiles
+                    and ck["film"].shape == tuple(film.shape) and str(ck.get("fp")) == ckpt[1]
+                ):
+                    film = torch.as_tensor(ck["film"], device=dev)
+                    counts = torch.as_tensor(ck["counts"], device=dev)
+                    total = torch.as_tensor(ck["stats"], device=dev)
+                    start_tile = int(ck["next_tile"])
+                    if progress:
+                        print(f"[PathTracer] resuming at tile {start_tile}/{n_tiles}")
+            if self.ns_aa > self.settings.samples_per_batch and self.max_tolerance > 0:
+                if start_tile < n_tiles:  # not already complete from a checkpoint
+                    rad, cnt, total = self._adaptive_render(cam, key, xs, ys, progress, ckpt)
+                    film[ys, xs] = rad
+                    counts[ys, xs] = cnt
+                    if ckpt is not None:
+                        self._save_tiles(ckpt, film, counts, total, n_tiles, n_tiles)
+            else:
+                total = self._tiled_render(cam, key, xs, ys, film, counts, progress, total, start_tile, ckpt)
+            with span("renderer.stats"):
+                total = total.cpu().numpy()  # waits for the device
+            self.stats.wall_time = time.perf_counter() - t_start
+            self.stats.total_rays = int(total[0])
+            self.stats.total_isects = int(total[1])
+            self.stats.total_zero_skipped = int(total[2])
+            self.stats.mrays_per_s = self.stats.total_rays / max(self.stats.wall_time, 1e-9) / 1e6
+            self.stats.isects_per_ray = self.stats.total_isects / max(self.stats.total_rays, 1)
+            if progress:
+                print(
+                    f"\n[PathTracer] Rendering complete: {self.stats.wall_time:.4f} sec\n"
+                    f"[PathTracer] Rays traced: {self.stats.total_rays} "
+                    f"({self.stats.mrays_per_s:.2f} Mrays/s)\n"
+                    f"[PathTracer] Intersection tests per ray: {self.stats.isects_per_ray:.2f}"
+                )
+            return film, counts
 
     def _save_tiles(self, ckpt, film, counts, total, next_tile, n_tiles) -> None:
         path, fp = ckpt
@@ -499,21 +503,22 @@ class Renderer:
         tile = self.tile_pixels
         n_tiles = -(-n_px // tile)
         for ti in range(start_tile, n_tiles):
-            px = xs[ti * tile : (ti + 1) * tile]
-            py = ys[ti * tile : (ti + 1) * tile]
-            m = px.shape[0]
-            # pad to the common tile width (a lone tile: to a multiple of the mesh); padded lanes are valid=False
-            need = tile if n_tiles > 1 else -(-m // self.n_shards) * self.n_shards
-            valid = torch.arange(need, device=dev) < m
-            if need > m:
-                px = torch.cat([px, px[-1:].expand(need - m)])
-                py = torch.cat([py, py[-1:].expand(need - m)])
-            rad, cnt, st = self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_wavefront(
-                b, self.settings, c, x, y, w, h, k, v, sample=self._sampler(c, k, x, y, v, bundle=b),
-            ))
-            total += st
-            film[py[:m], px[:m]] = rad[:m]
-            counts[py[:m], px[:m]] = cnt[:m]
+            with span("renderer.tile"):
+                px = xs[ti * tile : (ti + 1) * tile]
+                py = ys[ti * tile : (ti + 1) * tile]
+                m = px.shape[0]
+                # pad to the common tile width (a lone tile: to a multiple of the mesh); padded lanes are valid=False
+                need = tile if n_tiles > 1 else -(-m // self.n_shards) * self.n_shards
+                valid = torch.arange(need, device=dev) < m
+                if need > m:
+                    px = torch.cat([px, px[-1:].expand(need - m)])
+                    py = torch.cat([py, py[-1:].expand(need - m)])
+                rad, cnt, st = self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_wavefront(
+                    b, self.settings, c, x, y, w, h, k, v, sample=self._sampler(c, k, x, y, v, bundle=b),
+                ))
+                total += st
+                film[py[:m], px[:m]] = rad[:m]
+                counts[py[:m], px[:m]] = cnt[:m]
             if ckpt is not None:
                 self._save_tiles(ckpt, film, counts, total, ti + 1, n_tiles)
             if progress:
@@ -575,22 +580,24 @@ class Renderer:
             if n_active == 0:
                 break
             for i in range(0, n_active, tile):
-                idx = active[i : i + tile]
-                px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain, self.n_shards)
-                f, a1, a2, st = self.render_chunk(cam, key, px, py, valid, s_done, ns)
-                film.index_add_(0, idx, f[:m])
-                s1.index_add_(0, idx, a1[:m].double())
-                s2.index_add_(0, idx, a2[:m].double())
-                count[idx] += ns
-                stats += st
+                with span("renderer.tile"):
+                    idx = active[i : i + tile]
+                    px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain, self.n_shards)
+                    f, a1, a2, st = self.render_chunk(cam, key, px, py, valid, s_done, ns)
+                    film.index_add_(0, idx, f[:m])
+                    s1.index_add_(0, idx, a1[:m].double())
+                    s2.index_add_(0, idx, a2[:m].double())
+                    count[idx] += ns
+                    stats += st
             s_done += ns
             # 95% CI early stop over the whole active set, then repack
-            nc = torch.clamp_min(count[active], 2).double()
-            a1, a2 = s1[active], s2[active]
-            var = torch.clamp_min(a2 - a1 * a1 / nc, 0.0) / (nc - 1.0)
-            ci = 1.96 * torch.sqrt(var / nc)
-            active = active[ci > self.max_tolerance * a1 / nc]  # the stage's sync
-            n_active = active.shape[0]
+            with span("renderer.select"):
+                nc = torch.clamp_min(count[active], 2).double()
+                a1, a2 = s1[active], s2[active]
+                var = torch.clamp_min(a2 - a1 * a1 / nc, 0.0) / (nc - 1.0)
+                ci = 1.96 * torch.sqrt(var / nc)
+                active = active[ci > self.max_tolerance * a1 / nc]  # the stage's sync
+                n_active = active.shape[0]
             self.stats.active_per_stage.append(n_active)
             if ckpt is not None:
                 self._atomic_savez(

@@ -15,6 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .profiling import span
+
 GAMMA = 2.2
 LEVEL = 1.0
 # exposure = sqrt(2^level), image.h:212-213
@@ -26,8 +28,9 @@ def to_color(hdr: np.ndarray) -> np.ndarray:
 
     out = clamp((c * exposure) ** (1/gamma), 0, 1) with gamma=2.2, exposure=sqrt(2).
     """
-    scaled = np.maximum(hdr * EXPOSURE, 0.0)
-    return np.clip(scaled ** (1.0 / GAMMA), 0.0, 1.0)
+    with span("image.to_color"):
+        scaled = np.maximum(hdr * EXPOSURE, 0.0)
+        return np.clip(scaled ** (1.0 / GAMMA), 0.0, 1.0)
 
 
 def sampling_rate_heatmap(sample_counts: np.ndarray, max_samples: int) -> np.ndarray:

@@ -136,12 +136,15 @@ def test_binary_bvh_frame_matches_jax(files):
 
 
 def test_trace_writes_a_chrome_trace(files, tmp_path):
-    """--trace DIR profiles the render with torch.profiler and writes DIR/trace.json."""
+    """--trace DIR profiles the render with torch.profiler and writes DIR/trace.json, which names the
+    port's own ranges."""
     out = tmp_path / "trace"
     assert cli.main(["-r", "16", "12", "-f", str(tmp_path / "t.png"), "--device", "cpu", "--trace", str(out),
                      str(files / "cornell.dae")]) == 0
     text = (out / "trace.json").read_text()
     assert '"traceEvents"' in text and (tmp_path / "t.png").exists()
+    for name in ("lf.renderer.render", "lf.renderer.prepare", "lf.renderer.tile", "lf.image.to_color"):
+        assert f'"{name}"' in text, name
 
 
 def test_upsample_matches_jax(files, capsys):
