@@ -4,7 +4,8 @@ Counterpart of ``lens_flare_tpu/renderer.py``.  A scene comes from a
 COLLADA file (:meth:`Renderer.load`) or is handed over built
 (:meth:`Renderer.load_flat_scene`).  The film is traced as
 ``tile_pixels``-lane wavefronts in 32x32 pixel-block order (the reference's
-tile size), every ray through the CUDA kernels of ``ops/intersect_cuda.py``
+tile size; the ordered lanes stay on the device from one render of a cell
+to the next), every ray through the CUDA kernels of ``ops/intersect_cuda.py``
 on a CUDA device (their plain PyTorch versions on the CPU): the cluster
 tree's kernels A-D, or kernel G's binary-BVH walk past the tree's capacity
 or when ``use_wide_tree`` is False.  With ``ns_aa > samples_per_batch`` the
@@ -183,6 +184,10 @@ class Renderer:
     # the mesh the wavefronts are sharded over (None: one device) and the scene on each of its devices
     _mesh: tuple | None = field(default=None, init=False, repr=False, compare=False)
     _replicas: dict | None = field(default=None, init=False, repr=False, compare=False)
+    # the last render's pixel lanes in block order on the device: ((x0, y0, dx, dy, width, device), xs, ys)
+    _lanes: tuple | None = field(default=None, init=False, repr=False, compare=False)
+    lanes_built: int = field(default=0, init=False, repr=False, compare=False)  # renders that ordered and uploaded
+    lanes_reused: int = field(default=0, init=False, repr=False, compare=False)  # renders that took the held lanes
 
     def _drop_programs(self) -> None:
         self._programs.clear()
@@ -389,12 +394,7 @@ class Renderer:
             with span("renderer.prepare"):
                 cam = camera_params(self.camera, dev)
                 key = _rng.prng_key(self.seed, device=dev)
-                ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
-                xs = xs.ravel()
-                ys = ys.ravel()
-                order = blocked_order(xs, ys, w)
-                xs = torch.as_tensor(xs[order], device=dev)
-                ys = torch.as_tensor(ys[order], device=dev)
+                xs, ys = self._blocked_lanes(x0, y0, dx, dy, dev)
                 film = torch.zeros((h, w, 3), device=dev)
                 counts = torch.zeros((h, w), dtype=torch.int32, device=dev)
                 total = torch.zeros(3, dtype=torch.float64, device=dev)
@@ -442,6 +442,26 @@ class Renderer:
                     f"[PathTracer] Intersection tests per ray: {self.stats.isects_per_ray:.2f}"
                 )
             return film, counts
+
+    def _blocked_lanes(self, x0, y0, dx, dy, dev):
+        """The cell's pixel coordinates (xs, ys) in :func:`blocked_order`, int64 on ``dev``.
+
+        Ordering a 1080p film's 2,073,600 pixels and uploading them is host
+        work that the device waits for, and it depends only on the cell and
+        the film's width: the lanes are held until either (or the device)
+        changes.  Every caller only reads them.
+        """
+        key = (x0, y0, dx, dy, self.width, dev)
+        if self._lanes is not None and self._lanes[0] == key:
+            self.lanes_reused += 1
+            return self._lanes[1:]
+        ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
+        xs = xs.ravel()
+        ys = ys.ravel()
+        order = blocked_order(xs, ys, self.width)
+        self._lanes = (key, torch.as_tensor(xs[order], device=dev), torch.as_tensor(ys[order], device=dev))
+        self.lanes_built += 1
+        return self._lanes[1:]
 
     def _save_tiles(self, ckpt, film, counts, total, next_tile, n_tiles) -> None:
         path, fp = ckpt
