@@ -188,6 +188,7 @@ class Renderer:
     _lanes: tuple | None = field(default=None, init=False, repr=False, compare=False)
     lanes_built: int = field(default=0, init=False, repr=False, compare=False)  # renders that ordered and uploaded
     lanes_reused: int = field(default=0, init=False, repr=False, compare=False)  # renders that took the held lanes
+    env_builds: int = field(default=0, init=False, repr=False, compare=False)  # sky CDF tables built (build_env)
 
     def _drop_programs(self) -> None:
         self._programs.clear()
@@ -202,7 +203,8 @@ class Renderer:
         caller that edits the scene and hands it to :meth:`load_flat_scene`.
         """
         self._drop_programs()
-        scene, info = load_scene(dae_path)
+        with span("scene.parse"):
+            scene, info = load_scene(dae_path)
         self.scene = scene
         self.camera = Camera()
         self.camera.configure(info.camera, self.width, self.height)
@@ -267,6 +269,11 @@ class Renderer:
             if self.lens_radius > 0 and (self.bokeh is not None or self.bokeh_path):
                 tex = self.bokeh if self.bokeh is not None else ApertureTexture.load(self.bokeh_path)
                 bokeh = BokehMask.from_texture(tex.values, dev)
+            env = None
+            if self.envmap is not None:
+                with span("env.build"):
+                    env = build_env(self.envmap, dev)
+                self.env_builds += 1
             self.bundle = SceneBundle(
                 scene=scene_to_device(self.scene, dev),
                 bsdfs=bsdf_to_device(self.scene.bsdfs, dev),
@@ -274,7 +281,7 @@ class Renderer:
                 cscene=cscene,
                 bokeh=bokeh,
                 bvh=bvh,
-                env=None if self.envmap is None else build_env(self.envmap, dev),
+                env=env,
             )
             avail = parallel_mesh.available_devices(self.device)  # looked up here: a stand-in may replace it
             n_dev = len(avail) if self.devices == 0 else min(self.devices, len(avail))

@@ -14,6 +14,8 @@ import zlib
 
 import numpy as np
 
+from .profiling import span
+
 MAGIC = 20000630
 COMPRESSION_NONE = 0
 COMPRESSION_ZIPS = 2  # 1 scanline per block
@@ -62,6 +64,11 @@ def _preprocess_deflate(raw: bytes) -> bytes:
 
 def read(path) -> np.ndarray:
     """Read an EXR file -> (H, W, 3) float32 RGB (a single Y or other channel is repeated)."""
+    with span("exr.read"):
+        return _read(path)
+
+
+def _read(path) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
 

@@ -165,6 +165,31 @@ def test_viewer_frame_records_its_spans_nested(cpu_capture):
         assert span[0] >= render[1], after  # the copy and the tone map follow the progressive step
 
 
+def test_sky_load_records_its_spans_and_builds_the_sky_once(tmp_path):
+    """The command line's config-3 set-up: ``exr.read`` in ``lf.exr.read``, the COLLADA parse in
+    ``lf.scene.parse`` inside ``Renderer.load``, the sky's tables in ``lf.env.build`` beside the tree's
+    build; ``env_builds`` counts one build over any number of frames, none without a sky."""
+    from lens_flare_tpu_torch.scene.writer import sky_map, terrain_dae
+    from lens_flare_tpu_torch.utils import exr
+
+    dae = terrain_dae(4).write(tmp_path / "t.dae")
+    exr.write(tmp_path / "sky.exr", sky_map(32, 16), pixel_type=exr.PIXELTYPE_HALF)
+    envmap, ranges = traced(lambda: exr.read(tmp_path / "sky.exr"))
+    assert envmap.shape == (16, 32, 3) and len(named(ranges, "exr.read")) == 1
+    r = Renderer(device="cpu", width=16, height=12, tile_pixels=128, max_ray_depth=2, envmap=envmap)
+    _, ranges = traced(lambda: r.load(dae))
+    for name in ("scene.parse", "env.build", "scene.build", "scene.upload"):
+        assert len(named(ranges, name)) == 1, name
+    (parse,), (build,) = named(ranges, "scene.parse"), named(ranges, "scene.build")
+    assert parse[1] <= build[0]  # parsed, then built
+    for _ in range(2):
+        r.render(progress=False)
+    assert r.env_builds == 1
+    plain = Renderer(device="cpu", width=16, height=12, tile_pixels=128)
+    plain.load(dae)
+    assert plain.env_builds == 0
+
+
 # ---------------------------------------------------------------------------
 # the counters
 # ---------------------------------------------------------------------------
