@@ -28,10 +28,13 @@ raises, so the script exits non-zero and prints no result):
    exactly against its plain version and against A, B and D; kernel E (the
    coefficient walk) on the exact-fit trees of 8,192 and 32,768 triangles,
    exactly against its plain version and against A (hits and slots equal
-   on all but at most 1 lane in 10,000, t within 1e-3 relative);
+   on all but at most 1 lane in 10,000, t within 1e-3 relative); kernel H
+   (the threefry tape) bit for bit against its plain int64 version, a
+   sample's fold_in and its uniform draw of U = 32 and 40 on 65,536 lanes,
+   timed beside the plain version and its bound (the ``rng`` line);
 3. the slice: the 1920x1080 frame of the 524,288-triangle terrain at 1 spp,
    depth 4, NEE and RR bounces, then the paraxial flare composite, written
-   as a PNG; launch counts show the frame went through kernels A and B;
+   as a PNG; launch counts show the frame went through kernels A, B and H;
 4. a 320x240 frame of the 128-triangle terrain, which traces its shadow
    rays with kernel C and its closest hits with kernel A on a single-level
    tree (chunk batch 2), held against the same frame rendered on the CPU;
@@ -241,6 +244,9 @@ LINE_CASES = {
     "A_blocked_camera": "terrain512_camera_blocked", "A_blocked_bounce": "terrain512_bounce_blocked",
     "A_single": "terrain8_camera_random", "C_t450_spheres": "terrain15_spheres70_shadow_random",
 }
+# kernel H's rows of the kernels line: one sample's tape on a 65,536-lane tile, U = 32 (depth 4 and
+# two light slots: terrain_1080p) and U = 40 (three: realistic_1080p)
+RNG_TAPES = {"H": 32, "H_u40": 40}
 # kernel G's rows of the kernels line: terrain 512's binary BVH (phase 10)
 # and the scene past the cluster tree's capacity (phase 11)
 G_CASES = {
@@ -595,7 +601,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {key: 0.0 for key in "ABCDEFG"}
+    errs = {key: 0.0 for key in "ABCDEFGH"}
     times = {}
     bounds = {}
     for nq in (8, SPHERE_SCENE[0], 40, 256, 512):
@@ -761,6 +767,29 @@ def main() -> int:
     print(f"[timing] tris=131072 lanes={LANES} camera rays to Hit: "
           f"A+finalize_hit_gather_ms={a_gather_ms:.4f} D+finalize_hit_rows_ms={d_rows_ms:.4f} "
           f"D_ms={times['D'][0]:.4f} D_plain_ms={times['D'][1]:.4f}", flush=True)
+    # kernel H, the threefry tape: a sample's draw at the cells' tapes against the plain int64 code
+    from lens_flare_tpu_torch import _rng
+
+    t0 = time.perf_counter()
+    pix = torch.arange(LANES, dtype=torch.int64, device="cuda") * 7919 % (1920 * 1080)
+    s_idx = torch.tensor(3, dtype=torch.int64, device="cuda")
+    base = _rng.prng_key(2_148_300_001, device="cuda").expand(LANES, 2)
+    keys = _rng.fold_in(_rng.fold_in(base, pix), s_idx)
+    want_keys = _rng.fold_in_plain(_rng.fold_in_plain(base, pix), s_idx)
+    assert torch.equal(keys, want_keys), "H's fold_in differs from its plain version"
+    report = {}
+    for label, u in RNG_TAPES.items():
+        got, want = _rng.uniform(keys, (u,)), _rng.uniform_plain(keys, (u,))
+        exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert exact, f"H's uniform differs from its plain version at U = {u}"
+        times[label] = (bk.cuda_ms(lambda u=u: _rng.uniform(keys, (u,)), 20),
+                        bk.cuda_ms(lambda u=u: _rng.uniform_plain(keys, (u,)), 5))
+        bounds[label] = bk.rng_bound(LANES, u)
+        report[label] = f"exact={exact},ms={times[label][0]:.4f},plain_ms={times[label][1]:.4f}"
+        print(f"[timing] kernel={label} lanes={LANES} draws={LANES * u} ms={times[label][0]:.4f} "
+              f"plain_ms={times[label][1]:.4f} bound_ms={bounds[label][0]:.5f} bound_by={bounds[label][1]}",
+              flush=True)
+    phase("rng", t0, lanes=LANES, **report)
 
     # -- 3. the slice: the 1080p terrain frame with the flare --------------
     from lens_flare_tpu_torch.ab_walk import SMALL, config2_renderer, terrain_1080p
@@ -802,7 +831,7 @@ def main() -> int:
     assert out.shape == (1080, 1920, 3) and torch.isfinite(out).all(), "frame is not finite"
     assert (out >= hdr).all(), "the flare darkened a pixel"
     assert (out - hdr).sum() > 0 and hdr.sum() > 0 and (counts == 1).all()
-    assert launches["A"] > 0 and launches["B"] > 0, f"main path skipped a kernel: {launches}"
+    assert launches["A"] > 0 and launches["B"] > 0 and launches["H"] > 0, f"main path skipped a kernel: {launches}"
     held("terrain_1080p", launches)
     png = ROOT / "lens_flare_tpu_torch" / "_build" / "terrain_1080p.png"
     img.save_hdr_png(png, out.cpu().numpy(), flip_y=True)
@@ -1098,7 +1127,8 @@ def main() -> int:
     torch.cuda.synchronize()
     frame_big_s = time.perf_counter() - t_frame
     pc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    assert sum(pc_launches.values()) == pc_launches["G"] == PAST_CAPACITY_FRAME["launches"], pc_launches
+    walks = sum(n for k, n in pc_launches.items() if k != "H")  # H draws the tape, traces nothing
+    assert walks == pc_launches["G"] == PAST_CAPACITY_FRAME["launches"] and pc_launches["H"] > 0, pc_launches
     held("past_capacity", pc_launches)
     assert rp.stats.total_rays == PAST_CAPACITY_FRAME["rays"], rp.stats.total_rays
     assert f"{rp.stats.isects_per_ray:.2f}" == PAST_CAPACITY_FRAME["isects_per_ray"], rp.stats.isects_per_ray
@@ -1546,7 +1576,8 @@ def main() -> int:
     torch.cuda.synchronize()
     peak_real = (torch.cuda.max_memory_allocated() - mem0) / 2**20
     rl_launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    assert rl_launches["D"] > 0 and rl_launches["B"] > 0, f"realistic_1080p skipped D or B: {rl_launches}"
+    assert rl_launches["D"] > 0 and rl_launches["B"] > 0 and rl_launches["H"] > 0, (
+        f"realistic_1080p skipped D, B or H: {rl_launches}")
     real_frame_s, rl_rays, _, _ = cli_numbers(out)
     # the same frame unflared through Renderer.load, then its flare: strictly additive, and the PNG's
     rr = Renderer(device="cuda", width=1920, height=1080, max_ray_depth=4, indirect=True, envmap=exr.read(big_sky),
@@ -2094,16 +2125,18 @@ def main() -> int:
     count["C_t450_spheres"] = 0  # no path traces this scene: only phase 2's checks launch C on it
     # G's main path is the scene past capacity (phase 11); phase 10 forces it on terrain 512
     count.update({label: pc_launches["G"] for label in G_CASES})
+    count.update({"H": launches["H"], "H_u40": rl_launches["H"]})  # terrain_1080p's, realistic_1080p's
     kernels = [
         {
-            "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNEL_SOURCE,
+            "name": ic.KERNELS[label[0]].name, "case": case, "route": "cuda", "source": ic.KERNELS[label[0]].source,
             "replaces": ic.KERNELS[label[0]].replaces, "launches": count.get(label, count[label[0]]),
             "max_abs_err": errs[label[0]], "ms": times[label][0], "plain_ms": times[label][1],
             "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
-            # no single PyTorch call computes a cluster-tree traversal
+            # no single PyTorch call computes a cluster-tree traversal, nor threefry
             "library_ms": None,
         }
-        for label, case in {**LINE_CASES, **G_CASES}.items()
+        for label, case in {**LINE_CASES, **G_CASES,
+                            **{label: f"tape_{LANES}x{u}" for label, u in RNG_TAPES.items()}}.items()
     ]
     print(bk.nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

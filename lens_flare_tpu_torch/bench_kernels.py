@@ -270,6 +270,21 @@ def bvh_bound(bv, rays, out, visits):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+# kernel H (threefry): per draw 20 rounds of add, rotate and xor (60), five key injections of two
+# adds (10), the counter's first two adds and the key's parity word (4), the words' xor and the float
+# fill (shift, or, subtract, max: 5 with the xor): 79, taken as 80 32-bit operations at the card's
+# int32 rate; per key its 16 bytes read once, per draw its word written.
+THREEFRY_OPS_PER_DRAW = 80
+PEAK_INT32_OPS = 132 * 64 * 1.98e9  # H100 SXM: 64 int32 lanes per SM and clock, 1,980 MHz boost
+
+
+def rng_bound(n: int, u: int, out_bytes: int = 4):
+    """(bound_ms, bound_by) of one kernel H draw of ``u`` words for each of ``n`` keys."""
+    t_ops = n * u * THREEFRY_OPS_PER_DRAW / PEAK_INT32_OPS
+    t_bytes = (n * 16 + n * u * out_bytes) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
 @dataclass
 class Case:
     """One timed call of kernel E or F, kept so that a caller can check it at the bench's shape."""

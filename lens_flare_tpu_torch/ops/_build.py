@@ -21,7 +21,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("intersect.cu",)
+SOURCES = ("intersect.cu", "rng.cu")
 # --fmad=false: products and sums round exactly as the plain PyTorch
 # versions' separate ops do, so kernel and plain version agree bit for bit
 NVCC_FLAGS = (
@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of the C functions in csrc/intersect.cu
+_L = ctypes.c_longlong
+# argtypes of the C functions in csrc/intersect.cu and csrc/rng.cu
 SIGNATURES = {
     "lf_tree_closest": [_P] * 8 + [_I] * 6 + [_P] * 5,
     "lf_tree_any_hit": [_P] * 8 + [_I] * 5 + [_P] * 5,
@@ -41,6 +42,7 @@ SIGNATURES = {
     "lf_tree_closest_mxu": [_P] * 9 + [_I] * 5 + [_P] * 5,
     "lf_tree_group": [_P] * 9 + [_I] * 9 + [_P] * 6,
     "lf_bvh_walk": [_P] * 7 + [_I] * 3 + [_P] * 8,
+    "lf_threefry": [_P, _L, _L, _P, _L, _I, _L, _L, _L, _I, _P, _P],
 }
 
 _lock = threading.Lock()

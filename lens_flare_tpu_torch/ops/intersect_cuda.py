@@ -28,6 +28,13 @@ F   lf_tree_group          _make_kernel(top_batch>1)   :214, :699       ``tree_p
 G   lf_bvh_walk            (XLA) ops/intersect.py:152 _make_traverse    :func:`bvh_walk_plain`
 ==  =====================  ===========================================  ==================================
 
+and an eighth, in ``csrc/rng.cu``, that walks no scene: H, ``lf_threefry``,
+the threefry counter RNG (``_rng.fold_in``, ``split``, ``random_bits``,
+``uniform``; plain version the int64 code of ``_rng.py``), in place of
+``jax.random``'s threefry lowered by XLA (``integrator/path.py:392-411``,
+``flare/starburst.py:169,179``).  Its launches are counted here too, so
+that a captured program records them with the trace kernels'.
+
 G walks the binary SAH BVH (``accel/bvh.py``), packed as child-pair
 records and leaf-ordered rows (:class:`BvhArrays`), one ray per thread in
 persistent warps with its stack in shared memory: the JAX package's XLA
@@ -87,12 +94,16 @@ BVH_MAX_STACK = 64  # traversal stack entries per ray (intersect_rays' max_stack
 BVH_LEAF_BITS = 3  # a leaf link is ~(start << BVH_LEAF_BITS | count)
 
 
+KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
+
+
 @dataclass
 class KernelInfo:
     name: str
     symbol: str
     replaces: str
     launches: int = 0
+    source: str = KERNEL_SOURCE
 
 
 KERNELS = {
@@ -124,8 +135,12 @@ KERNELS = {
         "bvh_walk", "lf_bvh_walk",
         "lens_flare_tpu/ops/intersect.py:152",
     ),
+    "H": KernelInfo(
+        "threefry", "lf_threefry",
+        "jax.random threefry (XLA): lens_flare_tpu/integrator/path.py:392",
+        source="lens_flare_tpu_torch/ops/csrc/rng.cu",
+    ),
 }
-KERNEL_SOURCE = "lens_flare_tpu_torch/ops/csrc/intersect.cu"
 
 
 def group_tile(any_hit: bool) -> int:

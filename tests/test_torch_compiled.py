@@ -349,7 +349,7 @@ def test_launches_recorded_once_and_added_per_replay(cpu_capture):
     # the warm-up and the capture ran the function (the first replay runs what the capture did, as on
     # the card); the counts are one call's
     assert len(calls) == 2 and len(cpu_capture) == 1 and cpu_capture[0].replays == 1
-    assert compiled.launch_counts() == {**{k: 0 for k in "ABCDEF"}, "A": 2, "G": 1}
+    assert compiled.launch_counts() == {**{k: 0 for k in ic.KERNELS}, "A": 2, "G": 1}
     assert torch.equal(out, x * 2.0) and total.item() == 15.0
     out2, _ = programs.run("k", fn, x + 1.0)
     assert len(calls) == 3 and len(programs) == 1 and cpu_capture[0].replays == 2
@@ -633,6 +633,25 @@ def test_replay_equals_eager_on_card(case, cuda_device, tmp_path):
         assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
         assert a[2] == want[2] and a[3] == want[3], (a[2:], want[2:])
     assert sum(want[3].values()) > 0
+
+
+@pytest.mark.gpu
+def test_replayed_sample_draws_through_kernel_h_on_card(cuda_device):
+    """The threefry kernel inside the captured programs: a 4-sample frame in two tiles replays the
+    pixel keys per tile (one launch of H: fold_in) and the sample per tile and index (two: fold_in by
+    the 0-d sample index, read on the device, and the tape's uniform), and equals the eager frame bit
+    for bit, which launches H as often."""
+    r = Renderer(device="cuda", width=16, height=12, tile_pixels=128, ns_aa=4, max_ray_depth=2, seed=0)
+    r.load_flat_scene(make_terrain_scene(4))
+    with compiled.disabled():
+        want = _render(r)
+    got, again = _render(r), _render(r)
+    recorded = sorted(p.launches.get("H", 0) for p in r._programs._programs.values())
+    assert len(r._programs) == 2 and recorded == [1, 2], recorded
+    assert want[3]["H"] == 2 * 1 + 2 * 4 * 2, want[3]
+    for a in (got, again):
+        assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
+        assert a[2] == want[2] and a[3] == want[3], (a[2:], want[2:])
 
 
 @pytest.mark.gpu
