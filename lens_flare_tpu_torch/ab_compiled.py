@@ -43,7 +43,6 @@ import torch
 
 from . import bench_kernels as bk
 from . import compiled
-from .ab_bvh import PAST_CAPACITY_QUADS
 from .ab_walk import TRACE_NAMES, config2_renderer, frame_profile, terrain_1080p
 from .flare.moments import GHOST_F32, buffer_moments, ghost_errors
 from .ops import intersect_cuda as ic
@@ -53,6 +52,7 @@ from .scene.writer import cornell_box, sky_map, terrain_dae
 ORDER = "ECCE"  # E eager (compiled.disabled()), C compiled
 BUILD = Path(__file__).resolve().parent / "_build"
 DEFAULT_OUT = BUILD / "ab_compiled.json"
+PAST_CAPACITY_QUADS = 2897  # 2 * 2897^2 = 16,785,218 triangles, past the cluster tree's capacity
 FRAMES = ("terrain_1080p", "config2_frame", "env_1080p", "dae_small", "past_capacity",
           "ghost_realistic", "ghost_paraxial")
 

@@ -2,12 +2,12 @@
 
     python -m lens_flare_tpu_torch.ab_walk --baseline DIR [--out PATH]
 
-``DIR`` holds the other version's ``intersect.cu`` (for example the parent
-commit's, from ``git show``).  Both are built with ``ops/_build.py``'s flags
-and loaded into one process; the wrappers launch whichever is current, so
-every step sees the same Python, scenes and rays (a baseline that reads
-kernel C's and E's rows in their earlier layouts: ``ab_legacy.py``).  The
-steps alternate, baseline, checkout, checkout, baseline (``ORDER``), and
+``DIR`` holds the other version's ``intersect.cu`` and the ``rng.cu`` built
+with it (for example the parent commit's, from ``git show``; a version
+without ``rng.cu`` takes the checkout's).  Both are built with
+``ops/_build.py``'s flags and loaded into one process; the wrappers launch
+whichever is current, so every step sees the same Python, scenes and rays.
+The steps alternate, baseline, checkout, checkout, baseline (``ORDER``), and
 each measures:
 
 - kernel rows at 65,536 lanes: random pixels of a 1920x1080 film
@@ -42,8 +42,6 @@ each measures:
 
 It prints one JSON line per step and writes them all, with the card's
 ``nvidia-smi`` line, to ``--out`` (default ``_build/ab_walk.json``).
-Kernel G, the binary-BVH walk, has an A/B of its own, against a baseline
-from before its packed layout: ``ab_bvh.py``.
 """
 
 from __future__ import annotations

@@ -20,14 +20,16 @@ surface and HUD line:
 Where the JAX package jits the preview (``app.py:57``) and the sample batch
 (``:76``), the port runs both through the renderer's captured programs
 (``compiled.py``) on a CUDA device: the preview is one program per preview
-size, and a RENDER frame replays, per tile of its cell, the pixel-keys
-program and the one-sample program of ``Renderer._sampler`` that offline
-renders replay (``Renderer.render_chunk``, sharded as the offline render
-over a renderer's ``devices``; the preview runs on its first device, as
-in the JAX package).  The camera is an input of every program, so an orbit
-between frames replays; the renderer drops its programs when its scene is
-rebuilt (a mesh edit) or its settings change (a key such as ``]``).  On
-the CPU, and under ``compiled.disabled()``, the same code runs eagerly.
+size, and a RENDER frame is one ``Renderer.add_samples`` batch, which
+replays, per tile of its cell, the pixel-keys program and the one-sample
+program of ``Renderer._sampler`` that offline renders replay
+(``Renderer.render_chunk``, sharded as the offline render over a
+renderer's ``devices``; the preview runs on its first device, as in the
+JAX package).  The renderer holds the lanes of both.  The camera is an
+input of every program, so an orbit between frames replays; the renderer
+drops its programs when its scene is rebuilt (a mesh edit) or its settings
+change (a key such as ``]``).  On the CPU, and under
+``compiled.disabled()``, the same code runs eagerly.
 The film and counts stay on the device; ``frame()`` returns a host
 (H, W, 3) array for the front end (``term_viewer.py``).  Front-end
 agnostic and drivable headless (``tests/test_torch_app.py``).
@@ -43,9 +45,8 @@ from enum import Enum
 import numpy as np
 import torch
 
-from . import _rng
 from .integrator.path import trace_closest
-from .renderer import Renderer, pad_lanes
+from .renderer import Renderer
 from .scene.camera import CameraParams, camera_params, generate_rays
 from .utils.profiling import span
 
@@ -127,7 +128,6 @@ class Application:
         self._counts = None  # (H, W) int32 on the renderer's device
         self._sample_idx = 0
         self._preview_cache = None
-        self._lanes = {}  # "preview" and "cell": (size or cell, x, y), the current one of each only
         self.screen_w = self.renderer.width
         self.screen_h = self.renderer.height
 
@@ -476,7 +476,6 @@ class Application:
         self.renderer.load_flat_scene(scene2, camera=self.renderer.camera)
         self._preview_cache = None
         self._bvh = None
-        self._lanes.clear()
         self.selection_history = [0]
         self._msg(f"[MeshEdit] {what}: mesh {self.selected_mesh} -> "
                   f"{len(faces2)} tris ({len(tri_b)} total)")
@@ -502,27 +501,12 @@ class Application:
         ph = max(1, int(round(pw * self.screen_h / self.screen_w)))
         return pw, ph
 
-    def _held_lanes(self, kind, key, make):
-        """Device lanes ``make()`` gives for ``key``, kept until ``kind``'s key changes."""
-        held = self._lanes.get(kind)
-        if held is None or held[0] != key:
-            held = self._lanes[kind] = (key, *(torch.as_tensor(v, device=self._device) for v in make()))
-        return held[1:]
-
-    def _preview_lanes(self, pw, ph):
-        """Sensor coordinates of the preview's pixel centres, on the device."""
-        def make():
-            ys, xs = np.mgrid[0:ph, 0:pw]
-            return (((v.ravel() + 0.5) / n).astype(np.float32) for v, n in ((xs, pw), (ys, ph)))
-
-        return self._held_lanes("preview", (pw, ph), make)
-
     def _edit_frame(self) -> np.ndarray:
         if self._preview_cache is not None:
             return self._preview_cache
         r = self.renderer
         pw, ph = self._preview_res()
-        x, y = self._preview_lanes(pw, ph)
+        x, y = r.preview_lanes(pw, ph)
         cam = camera_params(r.camera, self._device)
         bundle = r.bundle  # the program holds the bundle, not the renderer (compiled.py)
         col, t, hit = r._programs.run(
@@ -624,15 +608,6 @@ class Application:
             return x0, y0, max(x1 - x0, 1), max(y1 - y0, 1)
         return 0, 0, self.screen_w, self.screen_h
 
-    def _cell_lanes(self, cell):
-        """The cell's pixel coordinates in row-major order, on the device."""
-        def make():
-            x0, y0, dx, dy = cell
-            ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
-            return xs.ravel(), ys.ravel()
-
-        return self._held_lanes("cell", cell, make)
-
     @property
     def render_done(self) -> bool:
         return self._film is not None and self._sample_idx >= self.renderer.ns_aa
@@ -644,26 +619,12 @@ class Application:
             self.start_raytracing()
         r = self.renderer
         if not self.render_done:
-            with span("renderer.render"):
-                ns = min(self.progressive_batch, r.ns_aa - self._sample_idx)
-                dev = self._device
-                with span("renderer.prepare"):
-                    xs, ys = self._cell_lanes(self._cell_bounds())
-                    cam = camera_params(r.camera, dev)
-                    key = _rng.prng_key(r.seed, device=dev)
-                tile = r.tile_pixels
-                grain = 4096 if tile > 8192 else 256  # the JAX package's buckets (app.py:627-638)
-                for i in range(0, xs.shape[0], tile):
-                    with span("renderer.tile"):
-                        px, py, valid, m = pad_lanes(xs[i : i + tile], ys[i : i + tile], tile, grain, r.n_shards)
-                        film, _, _, _ = r.render_chunk(cam, key, px, py, valid, self._sample_idx, ns)
-                        with span("app.scatter"):
-                            self._film[py[:m], px[:m]] += film[:m]
-                            self._counts[py[:m], px[:m]] += ns
-                self._sample_idx += ns
-                # log a handful of primary rays for the visualizer ray overlay
-                if self.logged_rays is None:
-                    self._log_primary_rays()
+            ns = min(self.progressive_batch, r.ns_aa - self._sample_idx)
+            r.add_samples(self._film, self._counts, self._cell_bounds(), self._sample_idx, ns)
+            self._sample_idx += ns
+            # log a handful of primary rays for the visualizer ray overlay
+            if self.logged_rays is None:
+                self._log_primary_rays()
         with span("app.to_host"):
             hdr = self._hdr().cpu().numpy()
         return img.to_color(hdr)

@@ -3,7 +3,7 @@
 Counterpart of ``lens_flare_tpu/ops/intersect.py``: ``SceneArrays``,
 ``Hit``, ``scene_to_device`` (``:64``) and ``finalize_hit`` (``:282``),
 with :func:`bvh_to_device`, which packs a binary BVH for kernel G (and
-:func:`unpack_bvh`, its inverse, for tests and the A/B tool).  The
+:func:`unpack_bvh`, its inverse, for tests).  The
 XLA traversal ``_make_traverse`` (``:152-259``) is kernel G and its plain
 version ``bvh_walk_plain``, both in
 :mod:`lens_flare_tpu_torch.ops.intersect_cuda` beside kernels A-F.

@@ -10,9 +10,14 @@ on a CUDA device (their plain PyTorch versions on the CPU): the cluster
 tree's kernels A-D, or kernel G's binary-BVH walk past the tree's capacity
 or when ``use_wide_tree`` is False.  With ``ns_aa > samples_per_batch`` the
 render is adaptive: converged pixels leave the wavefront between stages and
-the active set is repacked.  ``envmap`` (an (H, W, 3) radiance array, e.g.
-from ``utils/exr.read``) lights the scene from an equirect environment
-map: NEE samples it as one more light and camera rays that miss see it.
+the active set is repacked.  ``add_samples`` is the progressive viewer's
+frame: a batch of samples over a cell, added to the caller's film.  The
+tiles, the adaptive stages' chunks and the viewer's chunks all go through
+one loop (``_wavefronts``), padded by :func:`pad_lanes`, and the renderer
+holds every kind of pixel lanes it uploads (``_held_lanes``).
+``envmap`` (an (H, W, 3) radiance array, e.g. from ``utils/exr.read``)
+lights the scene from an equirect environment map: NEE samples it as one
+more light and camera rays that miss see it.
 ``render(checkpoint_path=)`` persists the film after each tile (the
 adaptive render: its accumulators and active set after each stage) with a
 fingerprint of the render, and an interrupted render resumes from it.
@@ -118,6 +123,23 @@ def pad_lanes(px: torch.Tensor, py: torch.Tensor, tile: int, grain: int, multipl
     return px, py, torch.arange(bucket, device=px.device) < m, m
 
 
+# the JAX package's bucket grains: (tile above which the large grain holds, large grain, small grain)
+ADAPTIVE_GRAIN = (16384, 8192, 256)  # the adaptive stages (renderer.py:548-564)
+PROGRESSIVE_GRAIN = (8192, 4096, 256)  # the viewer's progressive frames (app.py:627-638)
+
+
+def _grain(tile: int, rule: tuple) -> int:
+    above, large, small = rule
+    return large if tile > above else small
+
+
+def _cell_grid(cell):
+    """The pixel coordinates (xs, ys) of ``cell=(x0, y0, dx, dy)``, row-major, int64 on the host."""
+    x0, y0, dx, dy = cell
+    ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
+    return xs.ravel(), ys.ravel()
+
+
 @dataclass
 class Renderer:
     """Offline renderer on one device (``"cuda"`` or ``"cpu"``).
@@ -184,10 +206,11 @@ class Renderer:
     # the mesh the wavefronts are sharded over (None: one device) and the scene on each of its devices
     _mesh: tuple | None = field(default=None, init=False, repr=False, compare=False)
     _replicas: dict | None = field(default=None, init=False, repr=False, compare=False)
-    # the last render's pixel lanes in block order on the device: ((x0, y0, dx, dy, width, device), xs, ys)
-    _lanes: tuple | None = field(default=None, init=False, repr=False, compare=False)
-    lanes_built: int = field(default=0, init=False, repr=False, compare=False)  # renders that ordered and uploaded
-    lanes_reused: int = field(default=0, init=False, repr=False, compare=False)  # renders that took the held lanes
+    # pixel lanes on the device, the last of each kind: "blocked" (render), "rows" (add_samples) and
+    # "preview" (preview_lanes), each as (key, x, y)
+    _lanes: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    lanes_built: int = field(default=0, init=False, repr=False, compare=False)  # lookups that made and uploaded
+    lanes_reused: int = field(default=0, init=False, repr=False, compare=False)  # lookups that took the held lanes
     env_builds: int = field(default=0, init=False, repr=False, compare=False)  # sky CDF tables built (build_env)
 
     def _drop_programs(self) -> None:
@@ -401,7 +424,7 @@ class Renderer:
             with span("renderer.prepare"):
                 cam = camera_params(self.camera, dev)
                 key = _rng.prng_key(self.seed, device=dev)
-                xs, ys = self._blocked_lanes(x0, y0, dx, dy, dev)
+                xs, ys = self._blocked_lanes((x0, y0, dx, dy), dev)
                 film = torch.zeros((h, w, 3), device=dev)
                 counts = torch.zeros((h, w), dtype=torch.int32, device=dev)
                 total = torch.zeros(3, dtype=torch.float64, device=dev)
@@ -450,25 +473,38 @@ class Renderer:
                 )
             return film, counts
 
-    def _blocked_lanes(self, x0, y0, dx, dy, dev):
-        """The cell's pixel coordinates (xs, ys) in :func:`blocked_order`, int64 on ``dev``.
+    def _held_lanes(self, kind: str, key: tuple, make):
+        """The host arrays ``make()`` gives, on the device ``key[-1]``, held until ``kind``'s key changes.
 
         Ordering a 1080p film's 2,073,600 pixels and uploading them is host
-        work that the device waits for, and it depends only on the cell and
-        the film's width: the lanes are held until either (or the device)
-        changes.  Every caller only reads them.
+        work that the device waits for, and lanes depend only on their cell
+        (or size), the film's width and the device: one set of each kind is
+        held until its key changes.  Every caller only reads them.
         """
-        key = (x0, y0, dx, dy, self.width, dev)
-        if self._lanes is not None and self._lanes[0] == key:
+        held = self._lanes.get(kind)
+        if held is not None and held[0] == key:
             self.lanes_reused += 1
-            return self._lanes[1:]
-        ys, xs = np.mgrid[y0 : y0 + dy, x0 : x0 + dx]
-        xs = xs.ravel()
-        ys = ys.ravel()
-        order = blocked_order(xs, ys, self.width)
-        self._lanes = (key, torch.as_tensor(xs[order], device=dev), torch.as_tensor(ys[order], device=dev))
-        self.lanes_built += 1
-        return self._lanes[1:]
+        else:
+            held = self._lanes[kind] = (key, *(torch.as_tensor(v, device=key[-1]) for v in make()))
+            self.lanes_built += 1
+        return held[1:]
+
+    def _blocked_lanes(self, cell, dev):
+        """The cell's pixel coordinates (xs, ys) in :func:`blocked_order`, int64 on ``dev``."""
+        def make():
+            xs, ys = _cell_grid(cell)
+            order = blocked_order(xs, ys, self.width)
+            return xs[order], ys[order]
+
+        return self._held_lanes("blocked", (cell, self.width, dev), make)
+
+    def preview_lanes(self, pw: int, ph: int):
+        """Sensor coordinates (x, y) of a ``pw`` x ``ph`` preview's pixel centres, row-major, float32 on the device."""
+        def make():
+            xs, ys = _cell_grid((0, 0, pw, ph))
+            return (((v + 0.5) / n).astype(np.float32) for v, n in ((xs, pw), (ys, ph)))
+
+        return self._held_lanes("preview", ((pw, ph), torch.device(self.device)), make)
 
     def _save_tiles(self, ckpt, film, counts, total, next_tile, n_tiles) -> None:
         path, fp = ckpt
@@ -517,39 +553,53 @@ class Renderer:
             sample=self._sampler(c, k, x, y, v, bundle=b),
         ))
 
+    def _wavefronts(self, xs, ys, grain: int, trace, active=None, start: int = 0, after=None) -> None:
+        """``trace(idx, px, py, valid, m)`` on each ``tile_pixels``-lane chunk of the lanes, in order.
+
+        The lanes are ``xs``, ``ys`` or, with ``active``, the ones it
+        indexes; ``idx`` is the chunk's slice of them (of ``active``).  Each
+        chunk is padded by :func:`pad_lanes` to a bucket of ``grain`` lanes
+        and traced inside ``span("renderer.tile")``, from chunk ``start`` on;
+        ``after(done, n_chunks)`` runs once each chunk's span has closed.
+        """
+        tile = self.tile_pixels
+        n_chunks = -(-(xs if active is None else active).shape[0] // tile)
+        for ci in range(start, n_chunks):
+            with span("renderer.tile"):
+                idx = slice(ci * tile, (ci + 1) * tile)
+                if active is not None:
+                    idx = active[idx]
+                trace(idx, *pad_lanes(xs[idx], ys[idx], tile, grain, self.n_shards))
+            if after is not None:
+                after(ci + 1, n_chunks)
+
     def _tiled_render(self, cam, key, xs, ys, film, counts, progress, total, start_tile=0, ckpt=None):
         """Every pixel's ns_aa samples, one ``tile_pixels``-lane wavefront at a time.
 
-        Starts at tile ``start_tile`` with the stats ``total``; writes film
-        and counts in place, and with ``ckpt`` (path, fingerprint) saves
-        them after each tile.  Returns the stats, on the device.
+        Every tile is padded to the full tile (a lone tile: to a multiple of
+        the mesh).  Starts at tile ``start_tile`` with the stats ``total``;
+        writes film and counts in place, and with ``ckpt`` (path,
+        fingerprint) saves them after each tile.  Returns the stats, on the
+        device.
         """
-        dev = xs.device
         w, h = self.width, self.height
-        n_px = xs.shape[0]
         tile = self.tile_pixels
-        n_tiles = -(-n_px // tile)
-        for ti in range(start_tile, n_tiles):
-            with span("renderer.tile"):
-                px = xs[ti * tile : (ti + 1) * tile]
-                py = ys[ti * tile : (ti + 1) * tile]
-                m = px.shape[0]
-                # pad to the common tile width (a lone tile: to a multiple of the mesh); padded lanes are valid=False
-                need = tile if n_tiles > 1 else -(-m // self.n_shards) * self.n_shards
-                valid = torch.arange(need, device=dev) < m
-                if need > m:
-                    px = torch.cat([px, px[-1:].expand(need - m)])
-                    py = torch.cat([py, py[-1:].expand(need - m)])
-                rad, cnt, st = self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_wavefront(
-                    b, self.settings, c, x, y, w, h, k, v, sample=self._sampler(c, k, x, y, v, bundle=b),
-                ))
-                total += st
-                film[py[:m], px[:m]] = rad[:m]
-                counts[py[:m], px[:m]] = cnt[:m]
+
+        def trace(_, px, py, valid, m):
+            rad, cnt, st = self._sharded(cam, key, px, py, valid, lambda b, c, k, x, y, v: render_wavefront(
+                b, self.settings, c, x, y, w, h, k, v, sample=self._sampler(c, k, x, y, v, bundle=b),
+            ))
+            total.add_(st)
+            film[py[:m], px[:m]] = rad[:m]
+            counts[py[:m], px[:m]] = cnt[:m]
+
+        def after(done, n_tiles):
             if ckpt is not None:
-                self._save_tiles(ckpt, film, counts, total, ti + 1, n_tiles)
+                self._save_tiles(ckpt, film, counts, total, done, n_tiles)
             if progress:
-                print(f"\r[PathTracer] Rendering... {100 * (ti + 1) // n_tiles}%", end="", flush=True)
+                print(f"\r[PathTracer] Rendering... {100 * done // n_tiles}%", end="", flush=True)
+
+        self._wavefronts(xs, ys, tile if xs.shape[0] > tile else 1, trace, start=start_tile, after=after)
         return total
 
     def _adaptive_render(self, cam, key, xs, ys, progress, ckpt=None):
@@ -600,22 +650,21 @@ class Renderer:
                     f" ({active.shape[0]} px active)"
                 )
         n_active = active.shape[0]
-        tile = self.tile_pixels
-        grain = 8192 if tile > 16384 else 256  # the JAX package's buckets (renderer.py:548-564)
+        grain = _grain(self.tile_pixels, ADAPTIVE_GRAIN)
         self.stats.active_per_stage = []
         for si, ns in enumerate(schedule[start_stage:], start_stage):
             if n_active == 0:
                 break
-            for i in range(0, n_active, tile):
-                with span("renderer.tile"):
-                    idx = active[i : i + tile]
-                    px, py, valid, m = pad_lanes(xs[idx], ys[idx], tile, grain, self.n_shards)
-                    f, a1, a2, st = self.render_chunk(cam, key, px, py, valid, s_done, ns)
-                    film.index_add_(0, idx, f[:m])
-                    s1.index_add_(0, idx, a1[:m].double())
-                    s2.index_add_(0, idx, a2[:m].double())
-                    count[idx] += ns
-                    stats += st
+
+            def trace(idx, px, py, valid, m):
+                f, a1, a2, st = self.render_chunk(cam, key, px, py, valid, s_done, ns)
+                film.index_add_(0, idx, f[:m])
+                s1.index_add_(0, idx, a1[:m].double())
+                s2.index_add_(0, idx, a2[:m].double())
+                count[idx] += ns
+                stats.add_(st)
+
+            self._wavefronts(xs, ys, grain, trace, active=active)
             s_done += ns
             # 95% CI early stop over the whole active set, then repack
             with span("renderer.select"):
@@ -639,6 +688,26 @@ class Renderer:
                 )
         rad = film / torch.clamp_min(count, 1)[:, None]
         return rad, count, stats
+
+    def add_samples(self, film, counts, cell, s_offset: int, n_samples: int) -> None:
+        """Add samples ``s_offset .. s_offset + n_samples - 1`` of each pixel of ``cell=(x, y, dx, dy)``
+        to the (H, W, 3) ``film`` and the (H, W) ``counts`` on the device, in place: the progressive
+        viewer's frame (``Application``).  The cell's lanes are row-major, padded to the progressive
+        buckets (``PROGRESSIVE_GRAIN``), each chunk a ``render_chunk``."""
+        with span("renderer.render"):
+            dev = torch.device(self.device)
+            with span("renderer.prepare"):
+                xs, ys = self._held_lanes("rows", (cell, self.width, dev), lambda: _cell_grid(cell))
+                cam = camera_params(self.camera, dev)
+                key = _rng.prng_key(self.seed, device=dev)
+
+            def trace(_, px, py, valid, m):
+                f, _, _, _ = self.render_chunk(cam, key, px, py, valid, s_offset, n_samples)
+                with span("app.scatter"):
+                    film[py[:m], px[:m]] += f[:m]
+                    counts[py[:m], px[:m]] += n_samples
+
+            self._wavefronts(xs, ys, _grain(self.tile_pixels, PROGRESSIVE_GRAIN), trace)
 
     def autofocus(self, x: float, y: float) -> float:
         """Set the focal distance to the hit depth under pixel (x, y) (``renderer.py:627``)."""

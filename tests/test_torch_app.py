@@ -214,7 +214,7 @@ def _only_ties(mine, ref, pixels):
     if not pixels.any():
         return
     pw, ph = mine._preview_res()
-    x, y = mine._preview_lanes(pw, ph)
+    x, y = mine.renderer.preview_lanes(pw, ph)
     n = x.shape[0]
     cam = camera_params(mine.renderer.camera, "cpu")
     o, d = generate_rays(cam, x, y)

@@ -124,19 +124,16 @@ def test_cpu_run_end_to_end(tmp_path):
             assert torch.equal(got[3], c.base_tests), c.label  # A's tests: the same chunks
 
 
-@pytest.mark.parametrize("tool", ["bench_kernels", "ab_walk", "ab_legacy"])
+@pytest.mark.parametrize("tool", ["bench_kernels", "ab_walk"])
 def test_refuses_without_card(tool, monkeypatch, tmp_path):
     """The measuring entry points raise, before building anything, where there is no card."""
-    from lens_flare_tpu_torch import ab_legacy, ab_walk
+    from lens_flare_tpu_torch import ab_walk
 
-    launch = bk.ic._launch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = {"bench_kernels": ["--n", "64"]}.get(tool, ["--baseline", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        {"bench_kernels": bk, "ab_walk": ab_walk, "ab_legacy": ab_legacy}[tool].main(
-            argv + ["--out", str(tmp_path / "x.json")])
+        {"bench_kernels": bk, "ab_walk": ab_walk}[tool].main(argv + ["--out", str(tmp_path / "x.json")])
     assert not (tmp_path / "x.json").exists()
-    assert bk.ic._launch is launch  # ab_legacy puts the checked launch back
 
 
 def _aimed_rays(cs, n=384, seed=0):
