@@ -31,10 +31,14 @@ raises, so the script exits non-zero and prints no result):
    on all but at most 1 lane in 10,000, t within 1e-3 relative); kernel H
    (the threefry tape) bit for bit against its plain int64 version, a
    sample's fold_in and its uniform draw of U = 32 and 40 on 65,536 lanes,
-   timed beside the plain version and its bound (the ``rng`` line);
+   timed beside the plain version and its bound (the ``rng`` line); kernel I
+   (the vertex shading) on a 65,536-lane camera and bounce vertex of each
+   terrain cell, timed beside its byte bound and the plain vertex
+   functions, every output of I-a and I-b on both vertices bit for bit
+   against theirs (the ``vertex`` line, ``bench_kernels.bench_vertex``);
 3. the slice: the 1920x1080 frame of the 524,288-triangle terrain at 1 spp,
    depth 4, NEE and RR bounces, then the paraxial flare composite, written
-   as a PNG; launch counts show the frame went through kernels A, B and H;
+   as a PNG; launch counts show the frame went through kernels A, B, H and I;
 4. a 320x240 frame of the 128-triangle terrain, which traces its shadow
    rays with kernel C and its closest hits with kernel A on a single-level
    tree (chunk batch 2), held against the same frame rendered on the CPU;
@@ -146,7 +150,10 @@ raises, so the script exits non-zero and prints no result):
     MiB), ``frame_to_ansi`` of the last frame at 160x45 cells, and the
     mesh-edit keys u, d, i, f, s and c on the Cornell box's block, on the
     card and on the CPU: the same triangles after each key, the programs
-    dropped by each edit, the previews and a RENDER frame alike;
+    dropped by each edit, the previews and a RENDER frame alike; that
+    scene's vertices take the plain route (four BSDF families, an area
+    light), and a RENDER frame of terrain 512 at 800x600, the viewer cell's
+    path, takes kernel I (the ``viewer_frame`` line);
 22. compiled: every frame and ghost buffer above runs through captured CUDA
     graphs (``lens_flare_tpu_torch/compiled.py``) by default, so the CLI's
     one-shot frames (phases 8, 9, 16, 17, 19) include their capture in
@@ -791,6 +798,16 @@ def main() -> int:
               flush=True)
     phase("rng", t0, lanes=LANES, **report)
 
+    # kernel I, the vertex shading: I-a and I-b alone on a 65,536-lane camera and bounce vertex of each
+    # terrain cell, their byte bound and the plain vertex functions' device time; every output of both
+    # vertices held bit-equal to the plain functions' (bench_vertex raises otherwise)
+    t0 = time.perf_counter()
+    vertex_rows = []
+    bk.bench_vertex(vertex_rows, torch.device("cuda"))
+    phase("vertex", t0, rows=len(vertex_rows), ia_ms=max(r["ia_ms"] for r in vertex_rows),
+          ib_ms=max(r["ib_ms"] for r in vertex_rows), max_abs_err=max(r["max_abs_err"] for r in vertex_rows),
+          outputs_compared=sum(r["outputs_compared"] for r in vertex_rows))
+
     # -- 3. the slice: the 1080p terrain frame with the flare --------------
     from lens_flare_tpu_torch.ab_walk import SMALL, config2_renderer, terrain_1080p
     from lens_flare_tpu_torch.utils import image as img
@@ -831,7 +848,8 @@ def main() -> int:
     assert out.shape == (1080, 1920, 3) and torch.isfinite(out).all(), "frame is not finite"
     assert (out >= hdr).all(), "the flare darkened a pixel"
     assert (out - hdr).sum() > 0 and hdr.sum() > 0 and (counts == 1).all()
-    assert launches["A"] > 0 and launches["B"] > 0 and launches["H"] > 0, f"main path skipped a kernel: {launches}"
+    assert min(launches[k] for k in "ABHI") > 0, f"main path skipped a kernel: {launches}"
+    assert launches["I_plain"] == 0, f"a vertex of the terrain took the plain route: {launches}"
     held("terrain_1080p", launches)
     png = ROOT / "lens_flare_tpu_torch" / "_build" / "terrain_1080p.png"
     img.save_hdr_png(png, out.cpu().numpy(), flip_y=True)
@@ -881,6 +899,7 @@ def main() -> int:
     c2_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     st2 = r2.stats
     assert c2_launches["D"] > 0 and c2_launches["A"] == 0 and c2_launches["B"] > 0, c2_launches
+    assert c2_launches["I"] > 0 and c2_launches["I_plain"] == 0, f"config 2 left kernel I: {c2_launches}"
     held("config2_frame", c2_launches)
     assert hdr2.shape == (1080, 1920, 3) and torch.isfinite(hdr2).all() and hdr2.sum() > 0
     assert counts2.min().item() >= 4 and counts2.max().item() <= 16
@@ -1127,7 +1146,7 @@ def main() -> int:
     torch.cuda.synchronize()
     frame_big_s = time.perf_counter() - t_frame
     pc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
-    walks = sum(n for k, n in pc_launches.items() if k != "H")  # H draws the tape, traces nothing
+    walks = sum(pc_launches[k] for k in "ABCDEFG")
     assert walks == pc_launches["G"] == PAST_CAPACITY_FRAME["launches"] and pc_launches["H"] > 0, pc_launches
     held("past_capacity", pc_launches)
     assert rp.stats.total_rays == PAST_CAPACITY_FRAME["rays"], rp.stats.total_rays
@@ -1190,6 +1209,7 @@ def main() -> int:
     img_gpu, g_gpu, fwd_s, bwd_s = diff_grads(dgpu, small_params)
     dsm_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     assert dsm_launches["A"] > 0 and dsm_launches["C"] > 0, f"diff_small skipped A or C: {dsm_launches}"
+    assert dsm_launches["I"] == 0 and dsm_launches["I_plain"] > 0, f"diff_small took kernel I: {dsm_launches}"
     peak_small = (torch.cuda.max_memory_allocated() - mem0) / 2**20  # above what the phase started with
     img_cpu, g_cpu, _, _ = diff_grads(dcpu, small_params)
     # the kernels give the plain versions' hits bit for bit; the shading math
@@ -1578,6 +1598,7 @@ def main() -> int:
     rl_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     assert rl_launches["D"] > 0 and rl_launches["B"] > 0 and rl_launches["H"] > 0, (
         f"realistic_1080p skipped D, B or H: {rl_launches}")
+    assert rl_launches["I"] == 0 and rl_launches["I_plain"] > 0, f"config 3 took kernel I: {rl_launches}"
     real_frame_s, rl_rays, _, _ = cli_numbers(out)
     # the same frame unflared through Renderer.load, then its flare: strictly additive, and the PNG's
     rr = Renderer(device="cuda", width=1920, height=1080, max_ray_depth=4, indirect=True, envmap=exr.read(big_sky),
@@ -1826,6 +1847,8 @@ def main() -> int:
     assert runs["replayed"][2] == runs["eager"][2], "replayed progressive frames counted other launches"
     prog_launches = runs["replayed"][2][1]
     assert prog_launches["A"] > 0 and prog_launches["B"] > 0, f"the progressive frame skipped A or B: {prog_launches}"
+    # this renderer holds terrain256.dae's scene: four BSDF families and an area light, the plain vertex route
+    assert prog_launches["I"] == 0 and prog_launches["I_plain"] > 0, f"config 3's scene took kernel I: {prog_launches}"
     held("app_progressive", prog_launches)
     assert last.shape == (1080, 1920, 3) and np.isfinite(last).all() and (app._counts == 4).all()
     # sample for sample the offline render (rtol 1e-5, atol 1e-6: tests/test_app.py:96's limits)
@@ -1900,6 +1923,21 @@ def main() -> int:
           traced=json.dumps({k: v["traced_launches"] for k, v in rows.items()}),
           mesh_edits=json.dumps(edits))
     del app, ru, card, host
+
+    # the viewer cell's path: a RENDER frame of terrain 512 at 800x600, one sample a frame, through kernel I
+    t0 = time.perf_counter()
+    rv = Renderer(device="cuda", width=800, height=600, ns_aa=16, max_ray_depth=4, indirect=True, seed=0)
+    rv.load_flat_scene(make_terrain_scene(512))
+    app_v = Application(rv, progressive_batch=1)
+    app_v.keyboard_event("r")
+    app_v.frame()  # captures the frame's programs
+    ic.reset_launch_counts()
+    app_v.frame()
+    torch.cuda.synchronize()
+    viewer_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    assert viewer_launches["I"] > 0 and viewer_launches["I_plain"] == 0, f"the viewer left kernel I: {viewer_launches}"
+    phase("viewer_frame", t0, tris=rv.scene.num_triangles, width=800, height=600, launches=json.dumps(viewer_launches))
+    del app_v, rv
 
     # -- 22. compiled: the replayed frames against eager ones (rows printed in phases 3-21)
     assert sorted(compiled_rows) == sorted(COMPILED_FRAMES), sorted(compiled_rows)
@@ -2137,6 +2175,20 @@ def main() -> int:
         }
         for label, case in {**LINE_CASES, **G_CASES,
                             **{label: f"tape_{LANES}x{u}" for label, u in RNG_TAPES.items()}}.items()
+    ]
+    # kernel I's rows: each cell's launches from its main path here (the orbit's from terrain_1080p, config
+    # 2's from config2_frame, the viewer's from viewer_frame), the errors bench_vertex measured
+    i_launches = {"terrain_orbit_1080p": launches["I"], "config2_adaptive_1080p": c2_launches["I"],
+                  "terrain_viewer_800x600": viewer_launches["I"]}
+    kernels += [
+        {
+            "name": ic.KERNELS["I"].name, "case": f"{r['cell']}_vertex{r['vertex']}", "route": "cuda",
+            "source": ic.KERNELS["I"].source, "replaces": ic.KERNELS["I"].replaces,
+            "launches": i_launches[r["cell"]], "max_abs_err": r["max_abs_err"], "ms": r["ia_ms"] + r["ib_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        }
+        for r in vertex_rows
     ]
     print(bk.nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

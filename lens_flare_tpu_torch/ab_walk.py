@@ -2,9 +2,9 @@
 
     python -m lens_flare_tpu_torch.ab_walk --baseline DIR [--out PATH]
 
-``DIR`` holds the other version's ``intersect.cu`` and the ``rng.cu`` built
-with it (for example the parent commit's, from ``git show``; a version
-without ``rng.cu`` takes the checkout's).  Both are built with
+``DIR`` holds the other version's ``intersect.cu`` and the ``rng.cu`` and
+``shade.cu`` built with it (for example the parent commit's, from ``git
+show``; a version without one of those takes the checkout's).  Both are built with
 ``ops/_build.py``'s flags and loaded into one process; the wrappers launch
 whichever is current, so every step sees the same Python, scenes and rays.
 The steps alternate, baseline, checkout, checkout, baseline (``ORDER``), and

@@ -19,7 +19,11 @@ card's name and its ``nvidia-smi`` name and power-limit line, to ``--out``
 - **coefficient walk** (kernel E) against the classic walk (A) on the
   exact-fit trees of ``ab_mxu_mt.py``: terrain 64 as (8, 32, 32) and terrain
   128 as (32, 32, 32), camera rays over an isqrt(n)-square film and random
-  bounces: base_ms, mxu_ms, speedup, hit_agree, prim_agree and t_maxrel.
+  bounces: base_ms, mxu_ms, speedup, hit_agree, prim_agree and t_maxrel;
+- **vertex shading** (kernel I, on the card): I-a and I-b alone on a
+  65,536-lane camera and bounce vertex of each terrain cell, their byte
+  bound, the plain vertex functions' device time and the registers
+  (:func:`bench_vertex`).
 
 It runs on ``cuda`` and raises when there is no card.  ``--device cpu``
 runs the plain versions for a functional check and measures no time
@@ -511,6 +515,198 @@ def bench_mxu(rows, n, device, cases):
             })
 
 
+def vertex_bytes(n: int, n_slots: int, vertex: int, bounce: bool, last: bool, g_walk: bool = False):
+    """(I-a bytes, I-b bytes) that kernel I loads and stores for one ``n``-lane vertex, each counted once.
+
+    I-a reads the walk (t, id, the slot map's entry or kernel G's found
+    byte, barycentrics, tests: 24 bytes, 21 from G; the 40-byte shading
+    row), the ray (base, direction, t_hi: 28), the three uniforms of the
+    roulette and the cosine sample when a bounce follows (12) and, past the
+    camera vertex, its state (64) (the bench's lanes carry no ``valid``
+    mask); it writes its state (64), per slot a shadow ray and a
+    contribution (44) and, when a bounce follows, the bounce ray and the
+    point (44).  I-b reads per slot the occluder word (a byte from G), the
+    tests and the contribution (20, 17 from G), the lane's flags and tests
+    (8) and the radiance it adds to: L0 at the camera vertex (12), past it L
+    and the throughput (24), and L0 too after the last vertex (12); it
+    writes that radiance and the tests (16) and, after the last vertex, the
+    sample's radiance (12).
+    """
+    ia = n * (24 - (3 if g_walk else 0) + 40 + 28 + (12 if bounce else 0) + (64 if vertex else 0)
+              + 64 + 44 * n_slots + (44 if bounce else 0))
+    ib = n * ((20 - (3 if g_walk else 0)) * n_slots + 8 + (24 if vertex else 12) + 16
+              + ((12 + (12 if vertex else 0)) if last else 0))
+    return ia, ib
+
+
+VERTEX_CELLS = {
+    # the cells' wavefronts: the first 65,536 lanes of a 1080p film in 32x32-block order (the orbit's
+    # terrain 512, pinhole; config 2's terrain 256, thin lens and octagon bokeh) and of the viewer's
+    # 800x600 film row by row (terrain 512)
+    "terrain_orbit_1080p": (512, 1920, 1080, False, True),
+    "config2_adaptive_1080p": (256, 1920, 1080, True, True),
+    "terrain_viewer_800x600": (512, 800, 600, False, False),
+}
+
+
+def vertex_wavefront(r, n: int, blocked: bool, seed: int = 2_147_483_659):
+    """(tape, camera rays) of sample 0 of the first ``n`` pixels of ``r``'s film, in 32x32-block order or
+    row by row, as ``integrator.path.radiance_sample`` makes them."""
+    from .integrator import path as P
+    from .scene.camera import generate_rays_bokeh
+
+    b, s, dev, w, h = r.bundle, r.settings, torch.device(r.device), r.width, r.height
+    ys, xs = np.mgrid[0:h, 0:w]
+    xs, ys = xs.ravel(), ys.ravel()
+    order = blocked_order(xs, ys, w) if blocked else np.arange(w * h)
+    px, py = (torch.as_tensor(a[order][:n], device=dev) for a in (xs, ys))
+    keys = _rng.fold_in(P.pixel_keys(_rng.prng_key(seed, device=dev), px, py, w), 0)
+    tape = _rng.uniform(keys, (P.tape_size(s),))
+    cam = camera_params(r.camera, dev)
+    x, y = (px.to(torch.float32) + tape[:, 0]) / w, (py.to(torch.float32) + tape[:, 1]) / h
+    if s.use_thin_lens and b.bokeh is not None:
+        o, d = generate_rays_bokeh(cam, x, y, b.bokeh.sample(tape[:, 2], jitter=tape[:, 3]))
+    else:
+        o, d = generate_rays(cam, x, y)
+    m = px.shape[0]
+    return tape, (o.contiguous(), d.contiguous(), cam.n_clip.expand(m).contiguous(), cam.f_clip.expand(m).contiguous())
+
+
+def _max_err(got, want, mask=None) -> float:
+    """The largest absolute difference of two tensors of one shape (0.0: equal; NaN matches NaN, and
+    against a number counts as inf), over the lanes of ``mask`` if one is given."""
+    if got.shape != want.shape:
+        raise ValueError(f"shapes differ: {tuple(got.shape)} and {tuple(want.shape)}")
+    got, want = got.double(), want.double()
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    same = (got == want) | (got.isnan() & want.isnan())
+    return 0.0 if bool(same.all()) else float((got - want)[~same].abs().nan_to_num(math.inf).max())
+
+
+def vertex_errors(b, s, tape, ray, valid=None) -> dict:
+    """Kernel I against the plain vertex functions on vertices 0 and 1 of one wavefront: each output's
+    largest absolute difference, by name (``v0.shadow_o``, ``v1.L``, ...).
+
+    Both routes walk their own rays.  After I-a (``_shade_kernel`` against
+    ``_shade_plain``): the shadow rays (origin, direction, t_lo, t_hi) and
+    the contributions they gate; the bounce ray and the vertex point; the
+    state (L0, L, the throughput, the flags alive, bounce and camera hit) and
+    the throughput step the next vertex takes, on the lanes whose bounce is
+    traced.  After I-b (``_gather_kernel`` against ``_gather_plain``): L0,
+    L and the stats [rays, tests, skipped], the lanes' counts summed.
+    """
+    from .integrator import path as P
+
+    n_vertices = s.max_ray_depth if s.indirect and s.max_ray_depth > 1 else 1
+    if n_vertices < 2:
+        raise ValueError("vertex_errors needs paths of two vertices or more")
+    errs = {}
+    kpath = ppath = None
+    kray = pray = ray
+    for k in (0, 1):
+        def put(name, got, want, mask=None, k=k):
+            errs[f"v{k}.{name}"] = _max_err(got, want, mask)
+
+        kpath, knee, kray = P._shade_kernel(b, s, tape, k, n_vertices, P._walk_closest(b, *kray, coherent=k == 0),
+                                            kray, kpath, valid)
+        ppath, pnee, pray = P._shade_plain(b, s, tape, k, n_vertices, P.trace_closest(b, *pray, coherent=k == 0),
+                                           pray, ppath, valid)
+        flags = kpath.istate[:, 3]
+        put("L0", kpath.fstate[:, 0:3], ppath.L0)
+        put("L", kpath.fstate[:, 3:6], ppath.L)
+        put("throughput", kpath.fstate[:, 6:9], ppath.throughput)
+        put("alive", flags & 1 != 0, ppath.alive)
+        put("camera_hit", flags & 4 != 0, ppath.hit0)
+        if pnee is not None:
+            for name, got, want in zip(("o", "d", "t_lo", "t_hi"), knee, pnee.rays):
+                put(f"shadow_{name}", got, want)
+            put("contrib", kpath.contrib, pnee.value)
+        if pray is not None:
+            for name, got, want in zip(("o", "d", "t_lo", "t_hi"), kray, pray):
+                put(f"bounce_{name}", got, want)
+            put("point", kpath.pb, ppath.p)
+            put("bounce", flags & 2 != 0, ppath.bounce)
+            bs = ppath.bs
+            cos = torch.abs(bs.wi[:, 2]) / torch.clamp_min(P.norm3(bs.wi), 1e-30)
+            put("step", kpath.fstate[:, 9:12], bs.f * (cos / (bs.pdf * P.CPDF))[:, None], ppath.bounce)
+        kpath = P._gather_kernel(s, k, kpath, knee, P._walk_any(b, *knee) if knee else None, n_vertices)
+        ppath = P._gather_plain(b, s, k, ppath, pnee, P._nee_walk(b, s, pnee) if pnee else None)
+        put("L0_gathered", kpath.fstate[:, 0:3], ppath.L0)
+        put("L_gathered", kpath.fstate[:, 3:6], ppath.L)
+        put("stats", kpath.istate[:, :3].sum(dim=0, dtype=torch.float64),
+            ppath.stats + ppath.stats_ind if k else ppath.stats)
+    return errs
+
+
+def bench_vertex(rows, device, n: int = 65_536):
+    """Kernel I on a 65,536-lane camera vertex (0) and first bounce vertex (1) of each terrain cell.
+
+    ``ia_ms``, ``ib_ms``: each launch alone (:func:`cuda_ms`); ``bound_ms``:
+    :func:`vertex_bytes` at 3.35 TB/s; ``plain_ms``: the device time of the
+    plain vertex functions' kernels for the camera vertex (a profiled call of
+    the walk, ``_shade_plain``, the shadow walk and ``_gather_plain``, the
+    walks' own kernels left out); ``registers``: ``ptxas`` of this
+    process's build (empty when an earlier process built the library);
+    ``max_abs_err``: the largest of :func:`vertex_errors` on that vertex,
+    every output of I-a and I-b against the plain functions', and
+    ``worst``: its output.  Raises unless every one is 0.0: bit for bit.
+    """
+    from . import compiled
+    from .ab_walk import call_profile, config2_renderer
+    from .integrator import path as P
+    from .ops import _build
+
+    _build.load_library()
+    regs = {k: v for k, v in _build.ptxas_report(_build.build_log).items() if "vertex" in k}
+    for cell, (nq, w, h, bokeh, blocked) in VERTEX_CELLS.items():
+        if bokeh:
+            r, _ = config2_renderer(nq, str(device), width=w, height=h, ns_aa=16, samples_per_batch=4)
+        else:
+            r = Renderer(width=w, height=h, ns_aa=1, max_ray_depth=4, indirect=True, device=str(device))
+            r.load_flat_scene(make_terrain_scene(nq))
+        b, s = r.bundle, r.settings
+        tape, ray = vertex_wavefront(r, n, blocked)
+        depth = s.max_ray_depth
+        slots = len(s.light_slots)
+        with compiled.disabled():
+            errs = vertex_errors(b, s, tape, ray)
+            walk0 = P._walk_closest(b, *ray, coherent=True)
+            kpath, nee, bray = P._shade_kernel(b, s, tape, 0, depth, walk0, ray, None, None)
+            occ0 = P._walk_any(b, *nee)
+            P._gather_kernel(s, 0, kpath, nee, occ0, depth)
+            walk1 = P._walk_closest(b, *bray)
+            vertices = {
+                0: (lambda: P._shade_kernel(b, s, tape, 0, depth, walk0, ray, None, None),
+                    lambda: P._gather_kernel(s, 0, kpath, nee, occ0, depth)),
+                1: (lambda: P._shade_kernel(b, s, tape, 1, depth, walk1, bray, kpath, None),
+                    lambda: P._gather_kernel(s, 1, kpath, nee, occ0, depth)),
+            }
+
+            def plain0():
+                walked = P.trace_closest(b, *ray, coherent=True)
+                pp, pn, _ = P._shade_plain(b, s, tape, 0, depth, walked, ray, None, None)
+                return P._gather_plain(b, s, 0, pp, pn, P._nee_walk(b, s, pn))
+
+            plain_kernels = call_profile(plain0)
+            plain_ms = sum(v for k, v in plain_kernels.items() if not k.endswith(("walk_kernel", "brute_kernel")))
+            for k, (ia, ib) in vertices.items():
+                ia_b, ib_b = vertex_bytes(n, slots, k, k < depth - 1, k == depth - 1, b.cscene is None)
+                mine = {name: e for name, e in errs.items() if name.startswith(f"v{k}.")}
+                worst = max(mine, key=mine.get)
+                row = {
+                    "kernel": "I", "cell": cell, "vertex": k, "lanes": n, "slots": slots,
+                    "ia_ms": cuda_ms(lambda ia=ia: ia()[0]), "ib_ms": cuda_ms(lambda ib=ib: (ib().fstate,)),
+                    "bound_ms": (ia_b + ib_b) / PEAK_BYTES * 1e3, "bound_by": "bytes", "bytes": ia_b + ib_b,
+                    "plain_ms": plain_ms if k == 0 else None, "registers": regs,
+                    "max_abs_err": mine[worst], "worst": worst if mine[worst] else None, "outputs_compared": len(mine),
+                }
+                _emit(rows, row)
+        wrong = {name: e for name, e in errs.items() if e != 0.0}
+        if wrong:
+            raise AssertionError(f"{cell}: kernel I differs from the plain vertex functions: {wrong}")
+
+
 def main(argv=None, cases: list | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=262144, help="lanes per wavefront")
@@ -540,6 +736,8 @@ def main(argv=None, cases: list | None = None) -> dict:
         if cs.b1 > 1 and not cs.stream:
             bench_group(rows, name, r, waves, cases)
     bench_mxu(rows, args.n, device, cases)
+    if args.device == "cuda":
+        bench_vertex(rows, device)
 
     artifact = {
         "platform": "gpu" if args.device == "cuda" else "cpu",

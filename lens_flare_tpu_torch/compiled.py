@@ -25,9 +25,11 @@ The wrappers of ``ops/intersect_cuda.py`` count kernel launches on the
 host, which a replay does not run: a capture records how many launches of
 each kernel it took in, and every replay adds them (the warm-up's and the
 capture's own counts are taken back out), so a replayed frame counts what
-an eager one does.  Each :class:`Programs` counts its replays and the inputs
-they copy into static buffers (``replays``, ``copies_in``), as it sums its
-capture seconds (``capture_s``).
+an eager one does (``KERNELS["I_plain"]``, the vertex wavefronts the
+integrator's plain vertex functions shaded, is counted the same way).
+Each :class:`Programs` counts its replays and the inputs they copy into
+static buffers (``replays``, ``copies_in``), as it sums its capture
+seconds (``capture_s``).
 """
 
 from __future__ import annotations

@@ -11,25 +11,36 @@ tape lane for lane):
 - next-event estimation over the static light-slot plan, the environment
   light's slots included, one widened any-hit shadow wavefront per vertex
   (``direct_lighting``, ``:430-577``), or the uniform-hemisphere estimator
-  of ``-H`` (``_direct_hemisphere``, ``:580-630``);
+  of ``-H`` (``_hemisphere_rays``, ``:580-630``);
 - the environment map looked up where a camera ray misses
   (``path.py:671-675``);
-- Russian-roulette indirect bounces (``_indirect``, ``:704-826``) with the
-  emission picked up through delta lobes, and no bounce sorting or
-  compaction (both are off by default in the reference);
+- Russian-roulette indirect bounces (``:704-826``) with the emission picked
+  up through delta lobes, and no bounce sorting or compaction (both are off
+  by default in the reference);
 - per-pixel sample batches with the 95% CI stop (``render_wavefront``), and
   ``render_batch``, the building block of the Renderer's host-repacked
   adaptive render.
 
+A sample is one loop over its path's vertices (``_vertex_loop``): the
+closest-hit walk, the vertex's shading, the NEE rays' walk, the NEE gather.
+On a CUDA device, for scenes of diffuse and emissive BSDFs under
+directional and point lights (``_takes_vertex_kernel``), kernel I
+(``ops/csrc/shade.cu``) shades each vertex in two launches, in place of
+the plain vertex functions' ~300 PyTorch ops; every other scene, and the
+CPU, runs those plain functions (``_shade_plain``, ``_gather_plain``),
+which kernel I matches bit for bit on the card.  :func:`vertex_routes`
+counts the vertex wavefronts each route shaded.
+
 Every BSDF family and light type of the JAX package is ported.  The
-bounce ``scan`` and the sample loops are Python loops; on a CUDA device
-the Renderer captures one sample of a tile or chunk (``sampler``) as a
-CUDA graph (``compiled.py``) and replays it per sample, so nothing a
-sample runs may copy from the host or wait for the device.
+sample loops are Python loops; on a CUDA device the Renderer captures one
+sample of a tile or chunk (``sampler``) as a CUDA graph (``compiled.py``)
+and replays it per sample, so nothing a sample runs may copy from the host
+or wait for the device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -38,14 +49,16 @@ import numpy as np
 import torch
 
 from .. import _rng
-from ..ops.intersect import SceneArrays, finalize_hit
-from ..ops.intersect_cuda import BVH_INF, BvhArrays, CudaScene, bvh_walk, intersect
+from ..ops.intersect import Hit, SceneArrays, finalize_hit
+from ..ops.intersect_cuda import BVH_INF, KERNELS, BvhArrays, CudaScene, bvh_walk, walk_slots
+from ..scene.build import LT_DIRECTIONAL, LT_POINT
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
-from ..scene.collada import BSDF_DIFFUSE, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
+from ..scene.collada import BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
 from .envlight import EnvLightArrays, sample_dir
 from .lights import LightArrays, LightSample, sample_light_static
 from .shading import (
     BSDFArrays,
+    BSDFSample,
     eval_f,
     get_emission,
     is_delta,
@@ -200,15 +213,48 @@ def _orient_normals(bundle: SceneBundle, d, hit):
     return hit._replace(n=torch.where(flip[:, None], -hit.n, hit.n))
 
 
-def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
-    """Closest hit, routed as the JAX package's ``trace_closest`` (``path.py:279-305``).
+class _Walk(NamedTuple):
+    """A closest-hit walk's outputs as the kernels leave them."""
 
-    Binary-BVH scenes take kernel G and the row gather, as the JAX package's
-    XLA walk.  Shade scenes take kernel D, whose shading rows replace the
-    row gather, except for ``coherent`` (camera) wavefronts on stream scenes
-    with ``stream_shade``, which keep kernel A and the gather, as the
-    reference does.  Every other scene takes kernel A (C's closest hit is
-    forced only by tests).  Returns (Hit, stats).
+    t: torch.Tensor  # (N,) distance; the walk's miss value where nothing was hit
+    hit_id: torch.Tensor  # (N,) int32 slot (with smap), or primitive id (smap None: kernel G)
+    smap: torch.Tensor | None  # slot -> primitive id
+    found: torch.Tensor | None  # (N,) bool, or None: hit_id >= 0
+    b1: torch.Tensor  # (N,) barycentrics (views of the walk's (N, 2) output on the cluster tree)
+    b2: torch.Tensor
+    tests: torch.Tensor  # (N,) int32
+    rows: torch.Tensor | None  # (N, 10) kernel D's shading rows
+
+
+def _walk_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False) -> _Walk:
+    """The closest-hit walk, routed as the JAX package's ``trace_closest`` (``path.py:279-305``).
+
+    Binary-BVH scenes take kernel G; shade scenes take kernel D, whose
+    shading rows replace the row gather, except for ``coherent`` (camera)
+    wavefronts on stream scenes, which keep kernel A and the gather, as the
+    reference does; every other scene takes kernel A.
+    """
+    cs = bundle.cscene
+    if cs is None:
+        t, prim, b1, b2, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi)
+        return _Walk(t, prim, None, found, b1, b2, tests, None)
+    shade = cs.shade and not (coherent and cs.stream)
+    t, slot, bary, tests, rows, smap = walk_slots(cs, o, d, t_lo, t_hi, return_shade=shade)
+    return _Walk(t, slot, smap, None, bary[:, 0], bary[:, 1], tests, rows)
+
+
+def _walk_any(bundle: SceneBundle, o, d, t_lo, t_hi):
+    """The any-hit walk (kernel B, C on tiny scenes, G on binary-BVH ones): (slot, found, tests), the
+    walk's occluder slot (-1: none) or, from kernel G, its bool ``found``; the other is None."""
+    if bundle.cscene is None:
+        _, _, _, _, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi, any_hit=True)
+        return None, found, tests
+    _, slot, _, tests, _, _ = walk_slots(bundle.cscene, o, d, t_lo, t_hi, any_hit=True)
+    return slot, None, tests
+
+
+def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
+    """Closest hit through :func:`_walk_closest`'s route, with shading normals and rows. Returns (Hit, stats).
 
     A miss returns t = 1e30 (``BVH_INF``) on every route.  Kernels A-D and
     their plain versions report a miss at 3e38, as the Pallas kernels do
@@ -216,7 +262,7 @@ def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
     does.  The JAX package's two routes differ in the same way; the port
     follows the XLA route, the one its tests run on the CPU.  The value
     matters: a bounce that misses still places its next vertex at
-    ``hit_p + wi * t`` (``_indirect``), and that vertex's light sample
+    ``hit_p + wi * t`` (the vertex loop), and that vertex's light sample
     decides whether its NEE lane is counted as skipped.
 
     Differentiability contract, as the JAX package's (``path.py:262-276``):
@@ -234,30 +280,25 @@ def trace_closest(bundle: SceneBundle, o, d, t_lo, t_hi, coherent=False):
     """
     o, d, t_lo, t_hi = _detach(o, d, t_lo, t_hi)
     scene = SceneArrays(*_detach(*bundle.scene))
-    cs = bundle.cscene
-    rows = None
-    if cs is None:
-        t, prim, b1, b2, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi)
-    elif cs.shade and not (coherent and cs.stream):
-        t, prim, b1, b2, found, tests, rows = intersect(cs, o, d, t_lo, t_hi, return_shade=True)
+    w = _walk_closest(bundle, o, d, t_lo, t_hi, coherent)
+    if w.smap is None:
+        found, prim = w.found, w.hit_id
     else:
-        t, prim, b1, b2, found, tests = intersect(cs, o, d, t_lo, t_hi)
-    t = torch.where(found, t, BVH_INF)
-    hit = finalize_hit(scene, o, d, t, prim, b1, b2, found, shade_rows=rows)
-    return _orient_normals(bundle, d, hit), _trace_stats(t_hi, tests)
+        found = w.hit_id >= 0
+        prim = torch.where(found, w.smap[torch.clamp_min(w.hit_id, 0).long()], -1)
+    t = torch.where(found, w.t, BVH_INF)
+    hit = finalize_hit(scene, o, d, t, prim, w.b1, w.b2, found, shade_rows=w.rows)
+    return _orient_normals(bundle, d, hit), _trace_stats(t_hi, w.tests)
 
 
 def trace_occluded(bundle: SceneBundle, o, d, t_lo, t_hi):
-    """Any-hit shadow query through kernel B (C on tiny scenes, G on binary-BVH ones). Returns (occluded, stats).
+    """Any-hit shadow query through :func:`_walk_any`. Returns (occluded, stats).
 
     The rays are detached, as in :func:`trace_closest`.
     """
     o, d, t_lo, t_hi = _detach(o, d, t_lo, t_hi)
-    if bundle.cscene is None:
-        _, _, _, _, found, tests = bvh_walk(bundle.bvh, o, d, t_lo, t_hi, any_hit=True)
-    else:
-        _, _, _, _, found, tests = intersect(bundle.cscene, o, d, t_lo, t_hi, any_hit=True)
-    return found, _trace_stats(t_hi, tests)
+    slot, found, tests = _walk_any(bundle, o, d, t_lo, t_hi)
+    return (slot >= 0 if found is None else found), _trace_stats(t_hi, tests)
 
 
 def tape_size(settings: RenderSettings) -> int:
@@ -272,25 +313,44 @@ def _nee_active(bundle: SceneBundle, bsdf_id, hit_mask):
     return hit_mask & ((t == BSDF_DIFFUSE) | (t == BSDF_MICROFACET))
 
 
+class _Nee(NamedTuple):
+    """Next-event estimation at a vertex: its S*N rays, and what their walk's result is gathered with."""
+
+    rays: tuple  # (o, d, t_lo, t_hi), slot-major: shadow rays, or ``-H``'s closest-hit rays
+    value: torch.Tensor  # (S*N, 3) the contribution where unoccluded (``-H``: f)
+    weight: torch.Tensor | None  # ``-H``: (S*N,) cos / pdf, applied after the emission hit
+    live: torch.Tensor | None  # (S*N,) lanes that may contribute (shadow rays)
+    skipped: torch.Tensor  # 0-d float64: NEE lanes that would trace but are provably zero
+    n_pts: int
+
+
 def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p, n, w_out_w, bsdf_id, active=None, counted=None, frame=None):
     """NEE at a batch of shading points (pathtracer.cpp:142-213).
 
     All slots are traced as one widened shadow wavefront of S*N rays, each
     slot's light sampled from static row values (``light_slot_types``).
-    ``-H`` takes the uniform-hemisphere estimator instead.  Returns
-    ((N, 3) radiance, stats).
+    ``-H`` takes the uniform-hemisphere estimator instead.  The vertex loop
+    runs the same three steps (:func:`_nee_rays`, the walk, :func:`_nee_gather`).
+    Returns ((N, 3) radiance, stats).
     """
-    if frame is not None:
-        o2w, w_out = frame
-    else:
+    if frame is None:
         o2w = make_coord_space(n)
-        w_out = world_to_local(o2w, w_out_w)
+        frame = (o2w, world_to_local(o2w, w_out_w))
+    nee = _nee_rays(bundle, settings, u_tape, hit_p, n, frame, bsdf_id, active, counted)
+    if nee is None:
+        return torch.zeros_like(hit_p), torch.zeros(3, dtype=torch.float64, device=hit_p.device)
+    return _nee_gather(bundle, settings, nee, *_nee_walk(bundle, settings, nee))
+
+
+def _nee_rays(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p, n, frame, bsdf_id, active, counted):
+    """The first half of NEE: the S*N rays and the contributions they gate (None: no light slot)."""
+    o2w, w_out = frame
     if settings.direct_hemisphere_sample:
-        return _direct_hemisphere(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active=active, counted=counted)
+        return _hemisphere_rays(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active, counted)
     n_pts = hit_p.shape[0]
     n_slots = len(settings.light_slots)
     if n_slots == 0:
-        return torch.zeros_like(hit_p), torch.zeros(3, dtype=torch.float64, device=hit_p.device)
+        return None
 
     def rep(x):
         return x.repeat((n_slots,) + (1,) * (x.dim() - 1))
@@ -320,22 +380,16 @@ def direct_lighting(bundle: SceneBundle, settings: RenderSettings, u_tape, hit_p
     # NaN (0 * NaN)
     weight = torch.where(live, cos_theta / torch.clamp_min(ls_pdf, 1e-30), 0.0)
     contrib = torch.where(live[:, None], f, 0.0) * ls_rad * weight[:, None]
-
-    occ, stats = trace_occluded(
-        bundle,
+    rays = (
         _offset_origin(rep(hit_p), rep(n), ls_wi),
         ls_wi,
         torch.full((n_slots * n_pts,), EPS_F, device=hit_p.device),
         torch.where(live, ls_dist * (1.0 - 1e-3) - EPS_F, 0.0),
     )
-    use = live & ~occ
-    contrib = torch.where(use[:, None], contrib, 0.0)
-    out = contrib.view(n_slots, n_pts, 3).sum(dim=0) / settings.total_light_samples
-    stats = stats + torch.stack([torch.zeros_like(skipped), torch.zeros_like(skipped), skipped])
-    return out, stats
+    return _Nee(rays, contrib, None, live, skipped, n_pts)
 
 
-def _direct_hemisphere(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active=None, counted=None):
+def _hemisphere_rays(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, active, counted):
     """Uniform-hemisphere direct estimator of ``-H`` (pathtracer.cpp:86-140, ``path.py:580-630``).
 
     Each of the S samples traces a closest-hit ray from the shading point
@@ -369,16 +423,325 @@ def _direct_hemisphere(bundle, settings, u_tape, hit_p, o2w, w_out, bsdf_id, act
         t_hi = torch.where(real, 1e30, 0.0)
     else:
         t_hi = torch.full((num_samples * n_pts,), 1e30, device=dev)
-    hit, stats = trace_closest(
-        bundle, rep(hit_p).contiguous(), wi_world.contiguous(),
+    f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi, rep(w_out), families=settings.bsdf_families)
+    rays = (
+        rep(hit_p).contiguous(), wi_world.contiguous(),
         torch.full((num_samples * n_pts,), EPS_F, device=dev), t_hi.contiguous(),
     )
-    stats = stats + torch.stack([torch.zeros_like(skipped), torch.zeros_like(skipped), skipped])
-    emission = get_emission(bundle.bsdfs, hit.bsdf)
-    f = eval_f(bundle.bsdfs, rep(bsdf_id), -wi, rep(w_out), families=settings.bsdf_families)
-    contrib = f * emission * (wi[:, 2] / (1.0 / (2.0 * math.pi)))[:, None]
-    contrib = torch.where(hit.hit[:, None], contrib, 0.0)
-    return contrib.view(num_samples, n_pts, 3).sum(dim=0) / num_samples, stats
+    return _Nee(rays, f, wi[:, 2] / (1.0 / (2.0 * math.pi)), None, skipped, n_pts)
+
+
+def _nee_walk(bundle: SceneBundle, settings: RenderSettings, nee: _Nee):
+    """The NEE rays' walk: (occluded, stats), or ``-H``'s (Hit, stats)."""
+    if settings.direct_hemisphere_sample:
+        return trace_closest(bundle, *nee.rays)
+    return trace_occluded(bundle, *nee.rays)
+
+
+def _nee_gather(bundle: SceneBundle, settings: RenderSettings, nee: _Nee, result, stats):
+    """The second half of NEE: ((N, 3) radiance, stats) from the walk's ``result``."""
+    stats = stats + torch.stack([torch.zeros_like(nee.skipped), torch.zeros_like(nee.skipped), nee.skipped])
+    if nee.weight is not None:  # -H: the emission the closest hit found
+        contrib = nee.value * get_emission(bundle.bsdfs, result.bsdf) * nee.weight[:, None]
+        contrib = torch.where(result.hit[:, None], contrib, 0.0)
+    else:
+        use = nee.live & ~result
+        contrib = torch.where(use[:, None], nee.value, 0.0)
+    n_slots = contrib.shape[0] // nee.n_pts
+    return contrib.view(n_slots, nee.n_pts, 3).sum(dim=0) / settings.total_light_samples, stats
+
+
+# ---------------------------------------------------------------------------
+# the vertex loop: walk -> shade (I-a) -> NEE walk -> gather (I-b), per vertex
+# ---------------------------------------------------------------------------
+
+VERTEX_MAX_SLOTS = 16  # kernel I's light slots (csrc/shade.cu MAX_SLOTS)
+
+
+def vertex_routes() -> dict:
+    """Vertex wavefronts shaded since the launch counts were reset: by kernel I ("kernel", an I-a and an I-b
+    launch each) and by the plain vertex functions ("plain"); a replay adds what its capture counted."""
+    return {"kernel": KERNELS["I"].launches // 2, "plain": KERNELS["I_plain"].launches}
+
+
+def _takes_vertex_kernel(bundle: SceneBundle, settings: RenderSettings, o, d) -> bool:
+    """Whether kernel I shades this sample's vertices, decided from the scene and the settings.
+
+    It takes CUDA lanes of diffuse and emissive BSDFs under directional and
+    point lights (at most ``VERTEX_MAX_SLOTS`` slots), with the light-sample
+    NEE (no ``-H``), no environment map and no spheres, while no gradient is
+    recorded; everything else runs the plain vertex functions.
+    """
+    if o.device.type != "cuda" or settings.direct_hemisphere_sample or bundle.env is not None:
+        return False
+    if settings.bsdf_families is None or not set(settings.bsdf_families) <= {BSDF_DIFFUSE, BSDF_EMISSION}:
+        return False
+    if len(settings.light_slots) > VERTEX_MAX_SLOTS:
+        return False
+    if any(code not in (LT_DIRECTIONAL, LT_POINT) for code in settings.light_slot_types):
+        return False
+    if bundle.scene.sph_center.shape[0] > 0:
+        return False
+    return not (torch.is_grad_enabled() and any(x.requires_grad for x in (*bundle.bsdfs, *bundle.lights, o, d)))
+
+
+class _PlainPath(NamedTuple):
+    """A path's state between the plain vertex functions."""
+
+    hit0: torch.Tensor  # (N,) the camera ray hit
+    L0: torch.Tensor  # (N, 3) the camera vertex's radiance: its emission, then + NEE
+    stats: torch.Tensor  # float64 (3,) of the camera vertex
+    L: torch.Tensor | None  # (N, 3) radiance gathered past the camera vertex (paths with bounces)
+    stats_ind: torch.Tensor | None
+    throughput: torch.Tensor | None
+    alive: torch.Tensor  # (N,) the path reached this vertex
+    hit: Hit  # this vertex's hit
+    p: torch.Tensor | None  # (N, 3) its point (t where hit, else 0): the next bounce's base
+    bs: BSDFSample | None  # the bounce sampled here
+    bounce: torch.Tensor | None  # (N,) that bounce was traced
+    wi: torch.Tensor | None  # (N, 3) its direction in world space
+
+
+def _shade_plain(bundle: SceneBundle, settings: RenderSettings, tape, k, n_vertices, walked, ray, path, valid):
+    """Vertex ``k`` from the walk's (Hit, stats): the path steps on, the NEE rays and the next bounce's
+    ray (None after the last vertex).  The plain twin of kernel I's ``lf_shade_vertex``."""
+    hit, st = walked
+    bsdfs = bundle.bsdfs
+    s = max(settings.total_light_samples, 1)
+    block = 4 + 2 * s  # a bounce's tape: [rr 1 | bsdf 3 | NEE 2S]
+    if k == 0:
+        dirn = ray[1]
+        p = ray[0] + dirn * torch.where(hit.hit, hit.t, 0.0)[:, None]
+        p_nee, u_nee = p, tape[:, 4 : 4 + 2 * s]
+        bounces = n_vertices > 1
+        path = _PlainPath(
+            hit0=hit.hit, L0=get_emission(bsdfs, hit.bsdf), stats=st,
+            L=torch.zeros_like(p) if bounces else None,
+            stats_ind=torch.zeros(3, dtype=torch.float64, device=p.device) if bounces else None,
+            throughput=torch.ones_like(p) if bounces else None,
+            alive=hit.hit, hit=hit, p=p, bs=None, bounce=None, wi=None,
+        )
+    else:
+        base, dirn, bs = path.p, path.wi, path.bs
+        alive = path.bounce & hit.hit
+        cos_theta = torch.abs(bs.wi[:, 2]) / torch.clamp_min(norm3(bs.wi), 1e-30)
+        step = bs.f * (cos_theta / (bs.pdf * CPDF))[:, None]
+        throughput = torch.where(alive[:, None], path.throughput * step, path.throughput)
+        # emission seen through a delta lobe (mirror, refraction, glass):
+        # NEE cannot sample such a path, so the emitter it hits is added
+        # here, for delta chains only (``path.py:792-802``)
+        emit = get_emission(bsdfs, hit.bsdf)
+        L = path.L + torch.where((alive & is_delta(bsdfs, path.hit.bsdf))[:, None], throughput * emit, 0.0)
+        p_nee = base + dirn * hit.t[:, None]  # a missed bounce's vertex lies 1e30 away
+        p = base + dirn * torch.where(hit.hit, hit.t, 0.0)[:, None] if k < n_vertices - 1 else None
+        off = 4 + 2 * s + (k - 1) * block
+        u_nee = tape[:, off + 4 : off + block]
+        path = path._replace(
+            alive=alive, hit=hit, p=p, throughput=throughput, L=L, stats_ind=path.stats_ind + st,
+        )
+    o2w = make_coord_space(hit.n)
+    w_out = world_to_local(o2w, -dirn)
+    nee = _nee_rays(
+        bundle, settings, u_nee, p_nee, hit.n, (o2w, w_out), hit.bsdf,
+        active=_nee_active(bundle, hit.bsdf, path.alive), counted=valid,
+    )
+    if k == n_vertices - 1:
+        return path, nee, None
+    # Russian roulette and the BSDF sample (pathtracer.cpp:234-280)
+    off = 4 + 2 * s + k * block
+    u_b = tape[:, off : off + 4]
+    bounce = path.alive & (u_b[:, 0] >= (1.0 - CPDF))
+    bs = sample_f(bsdfs, hit.bsdf, w_out, u_b[:, 1:4], families=settings.bsdf_families)
+    bounce = bounce & bs.valid & (bs.pdf > 0)
+    wi = local_to_world(o2w, bs.wi)
+    b_hi = torch.where(bounce, 1e30, 0.0)
+    ray = (_offset_origin(path.p, hit.n, wi), wi, torch.full((wi.shape[0],), EPS_F, device=wi.device), b_hi)
+    return path._replace(bs=bs, bounce=bounce, wi=wi), nee, ray
+
+
+def _gather_plain(bundle: SceneBundle, settings: RenderSettings, k, path: _PlainPath, nee, walked):
+    """Vertex ``k``'s NEE from its walk, added to the path.  The plain twin of ``lf_gather_vertex``."""
+    if nee is None:
+        Ld, st = torch.zeros_like(path.L0), torch.zeros(3, dtype=torch.float64, device=path.L0.device)
+    else:
+        Ld, st = _nee_gather(bundle, settings, nee, *walked)
+    if k == 0:
+        return path._replace(L0=path.L0 + Ld, stats=path.stats + st)
+    return path._replace(
+        stats_ind=path.stats_ind + st, L=path.L + torch.where(path.alive[:, None], path.throughput * Ld, 0.0)
+    )
+
+
+def _finish_plain(bundle: SceneBundle, path: _PlainPath, d):
+    L, stats = path.L0, path.stats
+    if path.L is not None:
+        L = L + path.L
+        stats = stats + path.stats_ind
+    # a camera ray that misses sees the environment (pathtracer.cpp:290-292);
+    # padding lanes (t_hi = 0) miss too, and their radiance is discarded
+    L_miss = sample_dir(bundle.env, d) if bundle.env is not None else 0.0
+    return torch.where(path.hit0[:, None], L, L_miss), stats
+
+
+class _ShadeArgs(ctypes.Structure):
+    """``ShadeArgs`` of ``csrc/shade.cu``: the same fields in the same order."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "t", "hit_id", "smap", "found", "b1", "b2", "tests", "rows", "base", "dir", "ray_thi", "tape", "valid",
+            "tri_shade", "bsdf_type", "albedo", "emit", "light_rad", "light_pos", "light_dir", "fstate", "istate",
+            "so", "sd", "stlo", "sthi", "contrib", "bo", "bd", "btlo", "bthi", "pb",
+        )
+    ] + [(name, ctypes.c_longlong) for name in ("n", "tape_u", "bstride")] + [
+        (name, ctypes.c_int) for name in ("num_tris", "vertex", "sample_bounce", "s_tape", "emission_family", "n_slots")
+    ] + [("slot_row", ctypes.c_int * VERTEX_MAX_SLOTS), ("slot_code", ctypes.c_int * VERTEX_MAX_SLOTS)]
+
+
+class _GatherArgs(ctypes.Structure):
+    """``GatherArgs`` of ``csrc/shade.cu``."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("contrib", "occ_slot", "occ_found", "occ_tests", "fstate", "istate", "radiance")
+    ] + [("n", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in ("vertex", "last", "indirect", "n_slots")
+    ] + [("inv_total", ctypes.c_float)]
+
+
+class _KernelPath(NamedTuple):
+    """A path's state on kernel I's route: lane buffers of one sample, updated in place."""
+
+    fstate: torch.Tensor  # (N, 12) float32 [L0 | L indirect | throughput | pending step]
+    istate: torch.Tensor  # (N, 4) int32 [rays | tests | skipped | flags]
+    pb: torch.Tensor  # (N, 3) this vertex's point: the next one's base
+    bounce: tuple  # (o, d, t_lo, t_hi) of the bounce ray, (N, 3) and (N,)
+    shadow: tuple  # (o, d, t_lo, t_hi) of the S*N shadow rays
+    contrib: torch.Tensor  # (S*N, 3)
+    radiance: torch.Tensor  # (N, 3)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _check_lanes(dev, *arrays):
+    """Each (name, tensor, shape, dtype): contiguous, of that shape and dtype, on ``dev``."""
+    for name, x, shape, dtype in arrays:
+        if x is None:
+            continue
+        if tuple(x.shape) != tuple(shape) or x.dtype != dtype or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name}: want a contiguous {dtype} {tuple(shape)} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _launch_vertex(symbol: str, args, dev) -> None:
+    from ..ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):  # the lanes' device and its current stream: a shard's, on a mesh
+        rc = getattr(lib, symbol)(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {symbol} failed to launch: cudaError {rc}")
+    KERNELS["I"].launches += 1
+
+
+def _shade_kernel(bundle: SceneBundle, settings: RenderSettings, tape, k, n_vertices, w: _Walk, ray, path, valid):
+    """Kernel I-a (``lf_shade_vertex``) on vertex ``k``'s walk: see :func:`_shade_plain`."""
+    n, dev = tape.shape[0], tape.device
+    n_slots = len(settings.light_slots)
+    if k == 0:
+        def lanes(m, *shape):
+            return torch.empty((m, *shape), device=dev)
+
+        path = _KernelPath(
+            lanes(n, 12), torch.empty((n, 4), dtype=torch.int32, device=dev), lanes(n, 3),
+            (lanes(n, 3), lanes(n, 3), lanes(n), lanes(n)),
+            (lanes(n_slots * n, 3), lanes(n_slots * n, 3), lanes(n_slots * n), lanes(n_slots * n)),
+            lanes(n_slots * n, 3), lanes(n, 3),
+        )
+        base, dirn, thi = ray[0], ray[1], ray[3]
+    else:
+        base, dirn, thi = path.pb, path.bounce[1], path.bounce[3]
+    bsdfs, lights, scene = bundle.bsdfs, bundle.lights, bundle.scene
+    n_lights, n_tris = lights.light_type.shape[0], scene.tri_shade.shape[0]
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    _check_lanes(
+        dev, ("t", w.t, (n,), f32), ("hit_id", w.hit_id, (n,), i32), ("found", w.found, (n,), u8),
+        ("tests", w.tests, (n,), i32), ("rows", w.rows, (n, 10), f32), ("base", base, (n, 3), f32),
+        ("dir", dirn, (n, 3), f32), ("t_hi", thi, (n,), f32), ("valid", valid, (n,), u8),
+        ("tape", tape, (n, tape_size(settings)), f32), ("tri_shade", scene.tri_shade, (n_tris, 10), f32),
+        ("bsdf_type", bsdfs.bsdf_type, bsdfs.bsdf_type.shape, i32),
+        ("albedo", bsdfs.albedo, (bsdfs.bsdf_type.shape[0], 3), f32),
+        ("radiance", bsdfs.radiance, (bsdfs.bsdf_type.shape[0], 3), f32),
+        *((name, getattr(lights, name), (n_lights, 3), f32) for name in ("radiance", "position", "direction")),
+    )
+    bstride = w.b1.stride(0)
+    if w.b1.dtype != f32 or w.b2.stride(0) != bstride or w.b1.shape != (n,) or w.b1.device != dev:
+        raise ValueError("b1, b2: want float32 (N,) lanes of one stride")
+    if w.smap is not None and (w.smap.dtype != i32 or not w.smap.is_contiguous()):
+        raise ValueError("smap: want contiguous int32")
+    if any(not 0 <= row < n_lights for row in settings.light_slots):
+        raise ValueError(f"light slots {settings.light_slots} past the table's {n_lights} rows")
+    bo, bd, btlo, bthi = path.bounce
+    so, sd, stlo, sthi = path.shadow
+    args = _ShadeArgs(
+        *map(_ptr, (w.t, w.hit_id, w.smap, w.found, w.b1, w.b2, w.tests, w.rows, base, dirn, thi, tape, valid,
+                    scene.tri_shade, bsdfs.bsdf_type, bsdfs.albedo, bsdfs.radiance, lights.radiance,
+                    lights.position, lights.direction, path.fstate, path.istate, so, sd, stlo, sthi, path.contrib,
+                    bo, bd, btlo, bthi, path.pb)),
+        n, tape.shape[1], bstride, n_tris, k, int(k < n_vertices - 1), max(settings.total_light_samples, 1),
+        int(BSDF_EMISSION in settings.bsdf_families), n_slots,
+        (ctypes.c_int * VERTEX_MAX_SLOTS)(*settings.light_slots),
+        (ctypes.c_int * VERTEX_MAX_SLOTS)(*settings.light_slot_types),
+    )
+    _launch_vertex("lf_shade_vertex", args, dev)
+    return path, (path.shadow if n_slots else None), (path.bounce if k < n_vertices - 1 else None)
+
+
+def _gather_kernel(settings: RenderSettings, k, path: _KernelPath, nee, walked, n_vertices):
+    """Kernel I-b (``lf_gather_vertex``) after vertex ``k``'s shadow walk: see :func:`_gather_plain`."""
+    n = path.fstate.shape[0]
+    n_slots = len(settings.light_slots) if nee is not None else 0
+    slot, found, tests = walked if nee is not None else (None, None, None)
+    _check_lanes(
+        path.fstate.device, ("occluder", slot, (n_slots * n,), torch.int32),
+        ("occluded", found, (n_slots * n,), torch.bool), ("tests", tests, (n_slots * n,), torch.int32),
+    )
+    # torch's x / total on the card multiplies by the float reciprocal (div_true_kernel_cuda)
+    inv_total = float(np.float32(1.0) / np.float32(settings.total_light_samples))
+    args = _GatherArgs(
+        *map(_ptr, (path.contrib, slot, found, tests, path.fstate, path.istate, path.radiance)),
+        n, k, int(k == n_vertices - 1), int(n_vertices > 1), n_slots, inv_total,
+    )
+    _launch_vertex("lf_gather_vertex", args, path.fstate.device)
+    return path
+
+
+def _vertex_loop(bundle: SceneBundle, settings: RenderSettings, tape, ray, d, valid):
+    """The path's vertices, each walk -> shade -> NEE walk -> gather, by kernel I or the plain functions.
+
+    ``ray``: the camera rays (o, d, t_lo, t_hi), contiguous; ``d`` the
+    camera directions the environment is looked up with.  Returns ((N, 3)
+    radiance, stats [rays, tests, skipped]).
+    """
+    n_vertices = settings.max_ray_depth if settings.indirect and settings.max_ray_depth > 1 else 1
+    kernel = _takes_vertex_kernel(bundle, settings, ray[0], ray[1])
+    if not kernel:
+        KERNELS["I_plain"].launches += n_vertices
+    path = None
+    for k in range(n_vertices):
+        if kernel:
+            walked = _walk_closest(bundle, *ray, coherent=k == 0)
+            path, nee, ray = _shade_kernel(bundle, settings, tape, k, n_vertices, walked, ray, path, valid)
+            path = _gather_kernel(settings, k, path, nee, _walk_any(bundle, *nee) if nee else None, n_vertices)
+        else:
+            walked = trace_closest(bundle, *ray, coherent=k == 0)
+            path, nee, ray = _shade_plain(bundle, settings, tape, k, n_vertices, walked, ray, path, valid)
+            path = _gather_plain(bundle, settings, k, path, nee, _nee_walk(bundle, settings, nee) if nee else None)
+    if kernel:
+        return path.radiance, path.istate[:, :3].sum(dim=0, dtype=torch.float64)
+    return _finish_plain(bundle, path, d)
 
 
 def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraParams, keys, px, py, width, height, valid=None):
@@ -389,8 +752,6 @@ def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraPa
     Returns ((N, 3) radiance, stats [rays, tests, skipped]).
     """
     n_lanes = px.shape[0]
-    dev = px.device
-    s = max(settings.total_light_samples, 1)
     tape = _rng.uniform(keys, (tape_size(settings),))  # (N, U)
 
     x = (px.to(torch.float32) + tape[:, 0]) / width
@@ -406,95 +767,8 @@ def radiance_sample(bundle: SceneBundle, settings: RenderSettings, cam: CameraPa
     t_hi = cam.f_clip.expand(n_lanes)
     if valid is not None:
         t_hi = torch.where(valid, t_hi, 0.0)
-    hit, stats = trace_closest(
-        bundle, o.contiguous(), d.contiguous(), t_lo.contiguous(), t_hi.contiguous(), coherent=True
-    )
-
-    hit_p = o + d * torch.where(hit.hit, hit.t, 0.0)[:, None]
-    L = get_emission(bundle.bsdfs, hit.bsdf)
-    frame0 = make_coord_space(hit.n)
-    w_out0 = world_to_local(frame0, -d)
-    Ld, st = direct_lighting(
-        bundle, settings, tape[:, 4 : 4 + 2 * s], hit_p, hit.n, -d, hit.bsdf,
-        active=_nee_active(bundle, hit.bsdf, hit.hit), counted=valid,
-        frame=(frame0, w_out0),
-    )
-    L = L + Ld
-    stats = stats + st
-    if settings.indirect and settings.max_ray_depth > 1:
-        Li, st = _indirect(
-            bundle, settings, tape[:, 4 + 2 * s :], o, d, hit, valid=valid,
-            frame=(frame0, w_out0),
-        )
-        L = L + Li
-        stats = stats + st
-    # a camera ray that misses sees the environment (pathtracer.cpp:290-292);
-    # padding lanes (t_hi = 0) miss too, and their radiance is discarded
-    L_miss = sample_dir(bundle.env, d) if bundle.env is not None else 0.0
-    L = torch.where(hit.hit[:, None], L, L_miss)
-    return L, stats
-
-
-def _indirect(bundle: SceneBundle, settings: RenderSettings, tape, o, d, hit, valid=None, frame=None):
-    """Bounces 2+ of at_least_one_bounce_radiance (pathtracer.cpp:234-280).
-
-    tape: (N, (D-1)*(4+2S)), one [rr 1 | bsdf 3 | NEE 2S] block per bounce.
-    """
-    n_lanes = o.shape[0]
-    dev = o.device
-    n_bounces = settings.max_ray_depth - 1
-    per_bounce = tape.shape[1] // n_bounces
-    tape_b = tape.reshape(n_lanes, n_bounces, per_bounce)
-    if frame is None:
-        o2w0 = make_coord_space(hit.n)
-        frame = (o2w0, world_to_local(o2w0, -d))
-
-    cur_o, cur_d, cur_hit = o, d, hit
-    o2w, w_out = frame
-    throughput = torch.ones((n_lanes, 3), device=dev)
-    active = hit.hit
-    L = torch.zeros((n_lanes, 3), device=dev)
-    stats = torch.zeros(3, dtype=torch.float64, device=dev)
-    for bounce in range(1, settings.max_ray_depth):
-        u_b = tape_b[:, bounce - 1]
-        depth_remaining = settings.max_ray_depth - (bounce - 1)
-        cont = active & (depth_remaining > 1) & (u_b[:, 0] >= (1.0 - CPDF))
-
-        bs = sample_f(bundle.bsdfs, cur_hit.bsdf, w_out, u_b[:, 1:4], families=settings.bsdf_families)
-        cont = cont & bs.valid & (bs.pdf > 0)
-        wi_world = local_to_world(o2w, bs.wi)
-        safe_t = torch.where(cur_hit.hit, cur_hit.t, 0.0)
-        hit_p = cur_o + cur_d * safe_t[:, None]
-        b_o = _offset_origin(hit_p, cur_hit.n, wi_world)
-        b_hi = torch.where(cont, 1e30, 0.0)
-        nxt, st = trace_closest(
-            bundle, b_o, wi_world, torch.full((n_lanes,), EPS_F, device=dev), b_hi
-        )
-        stats = stats + st
-        cont = cont & nxt.hit
-
-        cos_theta = torch.abs(bs.wi[:, 2]) / torch.clamp_min(norm3(bs.wi), 1e-30)
-        step = bs.f * (cos_theta / (bs.pdf * CPDF))[:, None]
-        throughput = torch.where(cont[:, None], throughput * step, throughput)
-        # emission seen through a delta lobe (mirror, refraction, glass):
-        # NEE cannot sample such a path, so the emitter it hits is added
-        # here, for delta chains only (``path.py:792-802``)
-        emit = get_emission(bundle.bsdfs, nxt.bsdf)
-        L = L + torch.where((cont & is_delta(bundle.bsdfs, cur_hit.bsdf))[:, None], throughput * emit, 0.0)
-
-        nxt_p = hit_p + wi_world * nxt.t[:, None]
-        o2w_n = make_coord_space(nxt.n)
-        w_out_n = world_to_local(o2w_n, -wi_world)
-        Ld, st = direct_lighting(
-            bundle, settings, u_b[:, 4:], nxt_p, nxt.n, -wi_world, nxt.bsdf,
-            active=_nee_active(bundle, nxt.bsdf, cont), counted=valid,
-            frame=(o2w_n, w_out_n),
-        )
-        stats = stats + st
-        L = L + torch.where(cont[:, None], throughput * Ld, 0.0)
-
-        cur_o, cur_d, cur_hit, o2w, w_out, active = hit_p, wi_world, nxt, o2w_n, w_out_n, cont
-    return L, stats
+    ray = (o.contiguous(), d.contiguous(), t_lo.contiguous(), t_hi.contiguous())
+    return _vertex_loop(bundle, settings, tape, ray, d, valid)
 
 
 def pixel_keys(key, px, py, width):

@@ -21,7 +21,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("intersect.cu", "rng.cu")
+SOURCES = ("intersect.cu", "rng.cu", "shade.cu")
 # --fmad=false: products and sums round exactly as the plain PyTorch
 # versions' separate ops do, so kernel and plain version agree bit for bit
 NVCC_FLAGS = (
@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# argtypes of the C functions in csrc/intersect.cu and csrc/rng.cu
+# argtypes of the C functions in csrc/intersect.cu, csrc/rng.cu and csrc/shade.cu
 SIGNATURES = {
     "lf_tree_closest": [_P] * 8 + [_I] * 6 + [_P] * 5,
     "lf_tree_any_hit": [_P] * 8 + [_I] * 5 + [_P] * 5,
@@ -43,6 +43,8 @@ SIGNATURES = {
     "lf_tree_group": [_P] * 9 + [_I] * 9 + [_P] * 6,
     "lf_bvh_walk": [_P] * 7 + [_I] * 3 + [_P] * 8,
     "lf_threefry": [_P, _L, _L, _P, _L, _I, _L, _L, _L, _I, _P, _P],
+    "lf_shade_vertex": [_P, _P],  # a ShadeArgs block (integrator/path.py) and the stream
+    "lf_gather_vertex": [_P, _P],  # a GatherArgs block and the stream
 }
 
 _lock = threading.Lock()

@@ -33,7 +33,12 @@ the threefry counter RNG (``_rng.fold_in``, ``split``, ``random_bits``,
 ``uniform``; plain version the int64 code of ``_rng.py``), in place of
 ``jax.random``'s threefry lowered by XLA (``integrator/path.py:392-411``,
 ``flare/starburst.py:169,179``).  Its launches are counted here too, so
-that a captured program records them with the trace kernels'.
+that a captured program records them with the trace kernels'.  So are
+those of I, in ``csrc/shade.cu``, which shades a path vertex between two
+walks (``lf_shade_vertex``, then ``lf_gather_vertex`` after the shadow
+walk; both count in ``KERNELS["I"]``), launched by the vertex loop of
+``integrator/path.py``, whose plain twin sits there too; it reads
+:func:`walk_slots`' outputs as they are.
 
 G walks the binary SAH BVH (``accel/bvh.py``), packed as child-pair
 records and leaf-ordered rows (:class:`BvhArrays`), one ray per thread in
@@ -139,6 +144,17 @@ KERNELS = {
         "threefry", "lf_threefry",
         "jax.random threefry (XLA): lens_flare_tpu/integrator/path.py:392",
         source="lens_flare_tpu_torch/ops/csrc/rng.cu",
+    ),
+    "I": KernelInfo(
+        "shade_vertex", "lf_shade_vertex",
+        "XLA fusions: lens_flare_tpu/integrator/path.py:279-826",
+        source="lens_flare_tpu_torch/ops/csrc/shade.cu",
+    ),
+    # no kernel: the vertex wavefronts that I's plain twin shaded (``integrator/path.py``), counted here so
+    # that a captured program records and replays them as it does the launches
+    "I_plain": KernelInfo(
+        "shade_vertex_plain", "", "XLA fusions: lens_flare_tpu/integrator/path.py:279-826",
+        source="lens_flare_tpu_torch/integrator/path.py",
     ),
 }
 
@@ -1081,6 +1097,42 @@ def brute_hit(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = True):
     )
 
 
+def walk_slots(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None,
+               return_shade: bool = False, top_batch=None, mxu: bool = False):
+    """The walk of :func:`intersect`, routed as it routes: (t, slot, bary (N, 2), tests, rows, smap).
+
+    ``slot`` is -1 where nothing was hit; ``smap`` (the scene's ``slot_map``
+    or ``brute_map``) takes a slot to its primitive id; ``rows`` is kernel
+    D's (N, 10) shading rows, or None without ``return_shade``.  Kernel I
+    (``integrator/path.py``) reads these as they are, so that no op maps
+    slots or splits the barycentrics between the walk and the shading.
+    """
+    brute = (cs.brute and any_hit) if brute is None else (bool(brute) and cs.brute)
+    shade = bool(return_shade) and cs.shade and not any_hit and not brute
+    if return_shade and not shade:
+        raise ValueError("return_shade requires a shade scene and closest hit")
+    if mxu and not (cs.mxu and not any_hit and not brute and not shade):
+        raise ValueError("mxu requires a scene packed with mxu=True and plain closest hit")
+    tb = 1 if (top_batch is None or mxu) else int(top_batch)
+    tb = max(1, min(tb, cs.b1)) if (cs.b1 > 1 and not cs.stream) else 1
+    rows = None
+    if brute:
+        t, slot, bary, tests = brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
+    elif tb > 1:
+        out = tree_group(cs, o, d, t_lo, t_hi, tb, any_hit=any_hit, shade=shade)
+        t, slot, bary, tests = out[:4]
+        rows = out[4] if shade else None
+    elif shade:
+        t, slot, bary, tests, rows = tree_closest_shade(cs, o, d, t_lo, t_hi)
+    elif any_hit:
+        t, slot, bary, tests = tree_any_hit(cs, o, d, t_lo, t_hi)
+    elif mxu:
+        t, slot, bary, tests = tree_closest_mxu(cs, o, d, t_lo, t_hi)
+    else:
+        t, slot, bary, tests = tree_closest_hit(cs, o, d, t_lo, t_hi)
+    return t, slot, bary, tests, rows, cs.brute_map if brute else cs.slot_map
+
+
 def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None,
               return_shade: bool = False, top_batch=None, mxu: bool = False):
     """Rays (N, 3) -> (t, prim, b1, b2, hit, tests), the ``intersect_pallas`` contract.
@@ -1100,33 +1152,13 @@ def intersect(cs: CudaScene, o, d, t_lo, t_hi, any_hit: bool = False, brute=None
     single-level and stream scenes (``intersect_pallas.py:1316``) and under
     ``mxu``, where the call takes A, B or D.
     """
-    brute = (cs.brute and any_hit) if brute is None else (bool(brute) and cs.brute)
-    shade = bool(return_shade) and cs.shade and not any_hit and not brute
-    if return_shade and not shade:
-        raise ValueError("return_shade requires a shade scene and closest hit")
-    if mxu and not (cs.mxu and not any_hit and not brute and not shade):
-        raise ValueError("mxu requires a scene packed with mxu=True and plain closest hit")
-    tb = 1 if (top_batch is None or mxu) else int(top_batch)
-    tb = max(1, min(tb, cs.b1)) if (cs.b1 > 1 and not cs.stream) else 1
-    if brute:
-        t, slot, bary, tests = brute_hit(cs, o, d, t_lo, t_hi, any_hit=any_hit)
-    elif tb > 1:
-        out = tree_group(cs, o, d, t_lo, t_hi, tb, any_hit=any_hit, shade=shade)
-        t, slot, bary, tests = out[:4]
-        rows = out[4] if shade else None
-    elif shade:
-        t, slot, bary, tests, rows = tree_closest_shade(cs, o, d, t_lo, t_hi)
-    elif any_hit:
-        t, slot, bary, tests = tree_any_hit(cs, o, d, t_lo, t_hi)
-    elif mxu:
-        t, slot, bary, tests = tree_closest_mxu(cs, o, d, t_lo, t_hi)
-    else:
-        t, slot, bary, tests = tree_closest_hit(cs, o, d, t_lo, t_hi)
+    t, slot, bary, tests, rows, smap = walk_slots(
+        cs, o, d, t_lo, t_hi, any_hit=any_hit, brute=brute, return_shade=return_shade, top_batch=top_batch, mxu=mxu
+    )
     hit = slot >= 0
     if any_hit:
         prim = torch.full_like(slot, -1)
     else:
-        smap = cs.brute_map if brute else cs.slot_map
         prim = torch.where(hit, smap[torch.clamp_min(slot, 0).long()], -1)
     out = (t, prim, bary[:, 0], bary[:, 1], hit, tests)
-    return out + (rows,) if shade else out
+    return out + (rows,) if rows is not None else out

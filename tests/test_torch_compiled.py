@@ -457,7 +457,7 @@ def _render(r):
     hdr, counts = r.render(progress=False)
     st = r.stats
     return hdr, counts, (st.total_rays, st.total_isects, st.total_zero_skipped, list(st.active_per_stage)), \
-        compiled.launch_counts()
+        compiled.launch_counts(), tpath.vertex_routes()
 
 
 @pytest.mark.parametrize("case", list(FRAMES))
@@ -471,8 +471,8 @@ def test_compiled_frame_equals_eager_on_the_cpu_stand_in(case, cpu_capture, tmp_
     assert len(cpu_capture) == len(r._programs)
     for a, b in ((got, want), (again, want)):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-        assert a[2] == b[2] and a[3] == b[3], (a[2:], b[2:])
-    assert sum(want[3].values()) > 0 and want[2][0] > 0
+        assert a[2] == b[2] and a[3] == b[3] and a[4] == b[4], (a[2:], b[2:])
+    assert sum(want[3].values()) > 0 and want[2][0] > 0 and want[4]["plain"] > 0
 
 
 def test_one_sample_program_replayed_per_sample(cpu_capture):
@@ -631,8 +631,12 @@ def test_replay_equals_eager_on_card(case, cuda_device, tmp_path):
     assert len(r._programs) >= 1
     for a in (got, again):
         assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
-        assert a[2] == want[2] and a[3] == want[3], (a[2:], want[2:])
+        assert a[2] == want[2] and a[3] == want[3] and a[4] == want[4], (a[2:], want[2:])
     assert sum(want[3].values()) > 0
+    # kernel I shades the diffuse, sun-and-point-lit terrains; the sky and the Cornell box's area light stay plain
+    kernel = case in ("terrain8_A_C", "terrain40_D_B_adaptive", "terrain40_G", "terrain40_bokeh_adaptive")
+    assert (want[4]["kernel"] > 0, want[4]["plain"] > 0) == (kernel, not kernel), want[4]
+    assert want[3]["I"] == 2 * want[4]["kernel"]
 
 
 @pytest.mark.gpu

@@ -321,11 +321,11 @@ def test_trace_gets_no_gradient(tree, cornell, monkeypatch):
 
         monkeypatch.setattr(tpath, name, wrapped)
 
-    for name in ("intersect", "bvh_walk", "finalize_hit"):
+    for name in ("walk_slots", "bvh_walk", "finalize_hit"):
         spy(name, getattr(tpath, name))
     grads = port_grads(c)
     traced = {name for name, _ in calls}
-    assert traced == ({"intersect", "finalize_hit"} if tree == "cluster_tree" else {"bvh_walk", "finalize_hit"})
+    assert traced == ({"walk_slots", "finalize_hit"} if tree == "cluster_tree" else {"bvh_walk", "finalize_hit"})
     assert not any(any(flags) for _, flags in calls)
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads.values())
 
