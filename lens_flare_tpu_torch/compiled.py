@@ -21,12 +21,13 @@ which is step 2; so the steps taken are the calls made, as when eager.
 
 A capture or a replay that fails raises; nothing falls back to eager.
 
-The wrappers of ``ops/intersect_cuda.py`` count kernel launches on the
-host, which a replay does not run: a capture records how many launches of
-each kernel it took in, and every replay adds them (the warm-up's and the
-capture's own counts are taken back out), so a replayed frame counts what
-an eager one does (``KERNELS["I_plain"]``, the vertex wavefronts the
-integrator's plain vertex functions shaded, is counted the same way).
+The wrappers of ``ops/intersect_cuda.py`` count kernel launches and the
+lanes handed to the trace kernels on the host, which a replay does not
+run: a capture records how many launches and lanes of each kernel it took
+in, and every replay adds them (the warm-up's and the capture's own counts
+are taken back out), so a replayed frame counts what an eager one does
+(``KERNELS["I_plain"]``, the vertex wavefronts the integrator's plain
+vertex functions shaded, is counted the same way).
 Each :class:`Programs` counts its replays and the inputs they copy into
 static buffers (``replays``, ``copies_in``), as it sums its capture
 seconds (``capture_s``).
@@ -62,30 +63,35 @@ def launch_counts() -> dict:
     return {k: v.launches for k, v in KERNELS.items()}
 
 
+def lane_counts() -> dict:
+    return {k: v.lanes for k, v in KERNELS.items()}
+
+
 def _flat(out):
     return (out,) if torch.is_tensor(out) else tuple(out)
 
 
 class Program:
-    """One captured program: its graph, static inputs and outputs, and the launches it records.
+    """One captured program: its graph, static inputs and outputs, and the launches and lanes it records.
 
     ``graph`` is anything with a ``replay()`` method (a ``torch.cuda.CUDAGraph``);
     ``fn``, the captured function, is kept so that the tensors its closure
     holds, which the graph reads by address, live as long as the program.
     """
 
-    def __init__(self, fn, graph, inputs, outputs, launches: dict, single: bool):
+    def __init__(self, fn, graph, inputs, outputs, launches: dict, lanes: dict, single: bool):
         self.fn = fn
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
+        self.lanes = lanes
         self.single = single  # the function returned one tensor, not a tuple
         self.capture_s = 0.0  # host seconds of its warm-up, capture and instantiation
 
     def replay(self, inputs):
         """Copy ``inputs`` (of the captured shapes, dtypes and device) into the static buffers, replay,
-        count the launches; new output tensors."""
+        count the launches and lanes; new output tensors."""
         with span("compiled.replay"):
             with span("compiled.copy_in"):
                 for s, x in zip(self.inputs, inputs):
@@ -94,6 +100,8 @@ class Program:
                 self.graph.replay()
             for k, n in self.launches.items():
                 KERNELS[k].launches += n
+            for k, n in self.lanes.items():
+                KERNELS[k].lanes += n
             # the static outputs are overwritten by the next replay of any program sharing the pool
             with span("compiled.clone"):
                 out = tuple(o.clone() for o in self.outputs)
@@ -154,20 +162,22 @@ class Programs:
     def _capture(self, fn, inputs, dev, warm_up) -> Program:
         t0 = time.perf_counter()
         static = [x.clone() for x in inputs]
-        before = launch_counts()
+        before, lanes_before = launch_counts(), lane_counts()
         try:
             with device_scope(dev):
                 if warm_up:
                     _warm_up(fn, static, dev)
-                warm = launch_counts()
+                warm, lanes_warm = launch_counts(), lane_counts()
                 if dev not in self._pools:
                     self._pools[dev] = _new_pool()
                 graph, out = _graph(fn, static, self._pools[dev])
             captured = {k: n - warm[k] for k, n in launch_counts().items() if n != warm[k]}
+            lanes = {k: n - lanes_warm[k] for k, n in lane_counts().items() if n != lanes_warm[k]}
         finally:
             for k, n in before.items():
                 KERNELS[k].launches = n
-        prog = Program(fn, graph, static, _flat(out), captured, single=torch.is_tensor(out))
+                KERNELS[k].lanes = lanes_before[k]
+        prog = Program(fn, graph, static, _flat(out), captured, lanes, single=torch.is_tensor(out))
         prog.capture_s = time.perf_counter() - t0
         self.capture_s += prog.capture_s
         return prog

@@ -63,7 +63,9 @@ outputs bit for bit, ``tests`` included.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to that
-kernel's count in :data:`KERNELS`.
+kernel's count in :data:`KERNELS`; each call of a trace function (A-G), on
+either route, adds the rays it was handed to that kernel's ``lanes``, a host
+add with no sync.
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ class KernelInfo:
     symbol: str
     replaces: str
     launches: int = 0
+    lanes: int = 0  # rays handed to the trace function, whichever route (kernel or plain version) took them
     source: str = KERNEL_SOURCE
 
 
@@ -165,8 +168,10 @@ def group_tile(any_hit: bool) -> int:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's ``launches`` and ``lanes``."""
     for k in KERNELS.values():
         k.launches = 0
+        k.lanes = 0
 
 
 @dataclass
@@ -1000,6 +1005,7 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
     """
     check_bvh_depth(bv.max_depth)
     _check_rays(bv.rows, o, d, t_lo, t_hi)
+    KERNELS["G"].lanes += o.shape[0]
     if o.device.type == "cpu":
         return bvh_walk_plain(bv, o, d, t_lo, t_hi, any_hit=any_hit)
     if o.device.type != "cuda":
@@ -1033,6 +1039,7 @@ def bvh_walk(bv, o, d, t_lo, t_hi, any_hit: bool = False):
 
 def _dispatch(key: str, plain, cs: CudaScene, o, d, t_lo, t_hi, closest: bool, **kw):
     _check_rays(cs.tri, o, d, t_lo, t_hi)
+    KERNELS[key].lanes += o.shape[0]
     if o.device.type == "cpu":
         return plain()
     if o.device.type != "cuda":

@@ -239,7 +239,7 @@ class CpuGraph:
     static inputs, which the first replay copies in again unchanged, so that
     replay has nothing left to run: each call runs the function as often as
     on the card (a training step, which updates its state, once).  The
-    re-run's own launch counts are taken back, as a graph's replay runs no wrapper.
+    re-run's own launch and lane counts are taken back, as a graph's replay runs no wrapper.
     """
 
     def __init__(self, fn, static, outputs):
@@ -250,11 +250,12 @@ class CpuGraph:
         self.replays += 1
         if self.replays == 1:
             return  # the capture ran it
-        counts = compiled.launch_counts()
+        counts, lanes = compiled.launch_counts(), compiled.lane_counts()
         with NoHostSync():
             out = self.fn(*self.static)
         for k, n in counts.items():
             ic.KERNELS[k].launches = n
+            ic.KERNELS[k].lanes = lanes[k]
         for o, n in zip(self.outputs, compiled._flat(out)):
             o.copy_(n)
 
