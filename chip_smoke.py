@@ -54,8 +54,12 @@ raises, so the script exits non-zero and prints no result):
    the bounce and shadow wavefronts) held exactly against its plain
    version, tests included, on the bench's own scenes and rays, with the
    bench's time beside the plain version's;
-8. dae_small: a Cornell-box COLLADA file through the command line (C, A),
-   its PNG held to the frame and a cell of it to the CPU render;
+8. dae_small: a Cornell-box COLLADA file through the command line (C, A,
+   and kernel I's general instance, no plain vertex), its PNG held to the
+   frame and a cell of it to the CPU render; then the ``cornell_256_16spp``
+   cell's frame (256x256, 16 spp, depth 5, ``Renderer.load``): its 80
+   vertex wavefronts all on kernel I, its launches and seconds a replayed
+   frame (the ``cornell_cell`` line);
 9. dae_1080p: terrain 256 as a COLLADA file at 1920x1080 with aperture
    PNGs and the flare (D, B);
 10. g_kernel: kernel G against its plain version on terrain 512's binary BVH
@@ -151,9 +155,10 @@ raises, so the script exits non-zero and prints no result):
     mesh-edit keys u, d, i, f, s and c on the Cornell box's block, on the
     card and on the CPU: the same triangles after each key, the programs
     dropped by each edit, the previews and a RENDER frame alike; that
-    scene's vertices take the plain route (four BSDF families, an area
-    light), and a RENDER frame of terrain 512 at 800x600, the viewer cell's
-    path, takes kernel I (the ``viewer_frame`` line);
+    scene's vertices take kernel I's general instance (four BSDF families,
+    an area light), and a RENDER frame of terrain 512 at 800x600, the
+    viewer cell's path, takes its diffuse instance (the ``viewer_frame``
+    line);
 22. compiled: every frame and ghost buffer above runs through captured CUDA
     graphs (``lens_flare_tpu_torch/compiled.py``) by default, so the CLI's
     one-shot frames (phases 8, 9, 16, 17, 19) include their capture in
@@ -985,6 +990,7 @@ def main() -> int:
     import io
 
     from lens_flare_tpu_torch import cli
+    from lens_flare_tpu_torch.integrator.path import vertex_routes
     from lens_flare_tpu_torch.ops.intersect_cuda import bvh_walk_plain
     from lens_flare_tpu_torch.utils.image import load_png
 
@@ -1019,6 +1025,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ds_launches = {k: v.launches for k, v in ic.KERNELS.items()}
     assert ds_launches["C"] > 0 and ds_launches["A"] > 0, f"the Cornell box skipped C or A: {ds_launches}"
+    # four BSDF families, spot and area lights and spheres, no sky: kernel I's general instance, no plain vertex
+    assert ds_launches["I"] > 0 and ds_launches["I_plain"] == 0, f"the Cornell box left kernel I: {ds_launches}"
     render_s, ds_rays, load_s, _ = cli_numbers(out)
     # the same frame through Renderer.load: its PNG is the command line's, and
     # a 96 x 72 cell of it (the box's centre) agrees with the CPU render
@@ -1046,6 +1054,27 @@ def main() -> int:
           cli_s=f"{cli_s:.4f}", frame_s_includes_capture="yes", load_s=f"{load_s:.4f}", render_s=f"{render_s:.4f}", rays_traced=ds_rays,
           cell_pixels_within_tol=f"{ok:.5f}", cell_mean_rel_diff=f"{rel:.3g}",
           launches=json.dumps(ds_launches), png=small_png.name)
+
+    # the cornell_256_16spp cell's frame: the same file through Renderer.load at 256x256, 16 spp, depth 5, one
+    # 65,536-lane tile; the launches of one replayed frame (the first captures its programs)
+    t0 = time.perf_counter()
+    rcc = Renderer(device="cuda", width=256, height=256, ns_aa=16, max_ray_depth=5, indirect=True, seed=0)
+    rcc.load(cornell)
+    rcc.render(progress=False)
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    t_frame = time.perf_counter()
+    rcc.render(progress=False)
+    torch.cuda.synchronize()
+    cc_frame_s = time.perf_counter() - t_frame
+    cc_launches = {k: v.launches for k, v in ic.KERNELS.items()}
+    cc_routes = vertex_routes()
+    assert cc_launches["I"] > 0 and cc_launches["I_plain"] == 0, f"the Cornell cell left kernel I: {cc_launches}"
+    assert cc_routes == {"kernel": 80, "plain": 0}, f"the Cornell cell's vertex wavefronts: {cc_routes}"
+    phase("cornell_cell", t0, tris=rcc.scene.num_triangles, spheres=rcc.scene.num_spheres, width=256, height=256,
+          spp=16, depth=5, frame_s=f"{cc_frame_s:.4f}", vertex_routes=json.dumps(cc_routes),
+          launches=json.dumps(cc_launches))
+    del rcc
 
     # -- 9. dae_1080p: terrain 256 as a COLLADA file, at full width --------
     from lens_flare_tpu_torch.lens.aperture import polygon_mask
@@ -1847,8 +1876,9 @@ def main() -> int:
     assert runs["replayed"][2] == runs["eager"][2], "replayed progressive frames counted other launches"
     prog_launches = runs["replayed"][2][1]
     assert prog_launches["A"] > 0 and prog_launches["B"] > 0, f"the progressive frame skipped A or B: {prog_launches}"
-    # this renderer holds terrain256.dae's scene: four BSDF families and an area light, the plain vertex route
-    assert prog_launches["I"] == 0 and prog_launches["I_plain"] > 0, f"config 3's scene took kernel I: {prog_launches}"
+    # this renderer holds terrain256.dae's scene: four BSDF families and an area light, no sky: kernel I's
+    # general instance
+    assert prog_launches["I"] > 0 and prog_launches["I_plain"] == 0, f"config 3's scene left kernel I: {prog_launches}"
     held("app_progressive", prog_launches)
     assert last.shape == (1080, 1920, 3) and np.isfinite(last).all() and (app._counts == 4).all()
     # sample for sample the offline render (rtol 1e-5, atol 1e-6: tests/test_app.py:96's limits)
@@ -2177,9 +2207,10 @@ def main() -> int:
                             **{label: f"tape_{LANES}x{u}" for label, u in RNG_TAPES.items()}}.items()
     ]
     # kernel I's rows: each cell's launches from its main path here (the orbit's from terrain_1080p, config
-    # 2's from config2_frame, the viewer's from viewer_frame), the errors bench_vertex measured
+    # 2's from config2_frame, the viewer's from viewer_frame, the Cornell cell's from cornell_cell), the errors
+    # bench_vertex measured
     i_launches = {"terrain_orbit_1080p": launches["I"], "config2_adaptive_1080p": c2_launches["I"],
-                  "terrain_viewer_800x600": viewer_launches["I"]}
+                  "terrain_viewer_800x600": viewer_launches["I"], "cornell_256_16spp": cc_launches["I"]}
     kernels += [
         {
             "name": ic.KERNELS["I"].name, "case": f"{r['cell']}_vertex{r['vertex']}", "route": "cuda",

@@ -21,7 +21,8 @@ card's name and its ``nvidia-smi`` name and power-limit line, to ``--out``
   128 as (32, 32, 32), camera rays over an isqrt(n)-square film and random
   bounces: base_ms, mxu_ms, speedup, hit_agree, prim_agree and t_maxrel;
 - **vertex shading** (kernel I, on the card): I-a and I-b alone on a
-  65,536-lane camera and bounce vertex of each terrain cell, their byte
+  65,536-lane camera and bounce vertex of each terrain cell (I-a's diffuse
+  instance) and of the Cornell cell (its general instance), their byte
   bound, the plain vertex functions' device time and the registers
   (:func:`bench_vertex`).
 
@@ -515,7 +516,8 @@ def bench_mxu(rows, n, device, cases):
             })
 
 
-def vertex_bytes(n: int, n_slots: int, vertex: int, bounce: bool, last: bool, g_walk: bool = False):
+def vertex_bytes(n: int, n_slots: int, vertex: int, bounce: bool, last: bool, g_walk: bool = False,
+                 general: bool = False, area_slots: int = 0):
     """(I-a bytes, I-b bytes) that kernel I loads and stores for one ``n``-lane vertex, each counted once.
 
     I-a reads the walk (t, id, the slot map's entry or kernel G's found
@@ -530,10 +532,15 @@ def vertex_bytes(n: int, n_slots: int, vertex: int, bounce: bool, last: bool, g_
     (8) and the radiance it adds to: L0 at the camera vertex (12), past it L
     and the throughput (24), and L0 too after the last vertex (12); it
     writes that radiance and the tests (16) and, after the last vertex, the
-    sample's radiance (12).
+    sample's radiance (12).  I-a's ``general`` instance reads besides, past
+    the camera vertex, the walked ray's origin (12; the camera's is the base
+    point), glass's coin (4) when a bounce follows, and each of the
+    ``area_slots`` slots' two uniforms (8).  The material, light and sphere
+    rows are a few, read through L1, and not counted.
     """
+    extra = ((12 if vertex else 0) + (4 if bounce else 0) + 8 * area_slots) if general else 0
     ia = n * (24 - (3 if g_walk else 0) + 40 + 28 + (12 if bounce else 0) + (64 if vertex else 0)
-              + 64 + 44 * n_slots + (44 if bounce else 0))
+              + 64 + 44 * n_slots + (44 if bounce else 0) + extra)
     ib = n * ((20 - (3 if g_walk else 0)) * n_slots + 8 + (24 if vertex else 12) + 16
               + ((12 + (12 if vertex else 0)) if last else 0))
     return ia, ib
@@ -541,11 +548,13 @@ def vertex_bytes(n: int, n_slots: int, vertex: int, bounce: bool, last: bool, g_
 
 VERTEX_CELLS = {
     # the cells' wavefronts: the first 65,536 lanes of a 1080p film in 32x32-block order (the orbit's
-    # terrain 512, pinhole; config 2's terrain 256, thin lens and octagon bokeh) and of the viewer's
-    # 800x600 film row by row (terrain 512)
+    # terrain 512, pinhole; config 2's terrain 256, thin lens and octagon bokeh), of the viewer's
+    # 800x600 film row by row (terrain 512), and the Cornell cell's whole 256x256 film in block order
+    # (scene/writer.py:cornell_box: its four light slots, sphere hits, every family but refraction)
     "terrain_orbit_1080p": (512, 1920, 1080, False, True),
     "config2_adaptive_1080p": (256, 1920, 1080, True, True),
     "terrain_viewer_800x600": (512, 800, 600, False, False),
+    "cornell_256_16spp": ("cornell", 256, 256, False, True),
 }
 
 
@@ -640,9 +649,11 @@ def vertex_errors(b, s, tape, ray, valid=None) -> dict:
 
 
 def bench_vertex(rows, device, n: int = 65_536):
-    """Kernel I on a 65,536-lane camera vertex (0) and first bounce vertex (1) of each terrain cell.
+    """Kernel I on a 65,536-lane camera vertex (0) and first bounce vertex (1) of each ``VERTEX_CELLS`` cell.
 
-    ``ia_ms``, ``ib_ms``: each launch alone (:func:`cuda_ms`); ``bound_ms``:
+    ``ia_ms``, ``ib_ms``: each launch alone (:func:`cuda_ms`);
+    ``ia_general_ms``: I-a with its general instance forced, on the cells that
+    run the diffuse one (else None); ``bound_ms``:
     :func:`vertex_bytes` at 3.35 TB/s; ``plain_ms``: the device time of the
     plain vertex functions' kernels for the camera vertex (a profiled call of
     the walk, ``_shade_plain``, the shadow walk and ``_gather_plain``, the
@@ -652,15 +663,24 @@ def bench_vertex(rows, device, n: int = 65_536):
     every output of I-a and I-b against the plain functions', and
     ``worst``: its output.  Raises unless every one is 0.0: bit for bit.
     """
+    import tempfile
+    from unittest import mock
+
     from . import compiled
     from .ab_walk import call_profile, config2_renderer
     from .integrator import path as P
     from .ops import _build
+    from .scene.build import LT_AREA
+    from .scene.writer import cornell_box
 
     _build.load_library()
     regs = {k: v for k, v in _build.ptxas_report(_build.build_log).items() if "vertex" in k}
     for cell, (nq, w, h, bokeh, blocked) in VERTEX_CELLS.items():
-        if bokeh:
+        if nq == "cornell":
+            r = Renderer(width=w, height=h, ns_aa=16, max_ray_depth=5, indirect=True, device=str(device))
+            with tempfile.TemporaryDirectory() as tmp:
+                r.load(cornell_box().write(Path(tmp) / "cornell.dae"))
+        elif bokeh:
             r, _ = config2_renderer(nq, str(device), width=w, height=h, ns_aa=16, samples_per_batch=4)
         else:
             r = Renderer(width=w, height=h, ns_aa=1, max_ray_depth=4, indirect=True, device=str(device))
@@ -669,6 +689,8 @@ def bench_vertex(rows, device, n: int = 65_536):
         tape, ray = vertex_wavefront(r, n, blocked)
         depth = s.max_ray_depth
         slots = len(s.light_slots)
+        general = P._general_vertex_kernel(b, s)
+        area_slots = sum(code == LT_AREA for code in s.light_slot_types)
         with compiled.disabled():
             errs = vertex_errors(b, s, tape, ray)
             walk0 = P._walk_closest(b, *ray, coherent=True)
@@ -688,15 +710,24 @@ def bench_vertex(rows, device, n: int = 65_536):
                 pp, pn, _ = P._shade_plain(b, s, tape, 0, depth, walked, ray, None, None)
                 return P._gather_plain(b, s, 0, pp, pn, P._nee_walk(b, s, pn))
 
+            def general_ms(ia):
+                """I-a's time on these lanes with its general instance forced in place of the diffuse one."""
+                with mock.patch.object(P, "_general_vertex_kernel", lambda *_: True):
+                    return cuda_ms(lambda: ia()[0])
+
             plain_kernels = call_profile(plain0)
-            plain_ms = sum(v for k, v in plain_kernels.items() if not k.endswith(("walk_kernel", "brute_kernel")))
+            plain_ms = sum(v for k, v in plain_kernels.items()
+                           if not k.split("<")[0].endswith(("walk_kernel", "brute_kernel")))
             for k, (ia, ib) in vertices.items():
-                ia_b, ib_b = vertex_bytes(n, slots, k, k < depth - 1, k == depth - 1, b.cscene is None)
+                ia_b, ib_b = vertex_bytes(n, slots, k, k < depth - 1, k == depth - 1, b.cscene is None, general,
+                                          area_slots)
                 mine = {name: e for name, e in errs.items() if name.startswith(f"v{k}.")}
                 worst = max(mine, key=mine.get)
                 row = {
                     "kernel": "I", "cell": cell, "vertex": k, "lanes": n, "slots": slots,
+                    "instance": "general" if general else "diffuse",
                     "ia_ms": cuda_ms(lambda ia=ia: ia()[0]), "ib_ms": cuda_ms(lambda ib=ib: (ib().fstate,)),
+                    "ia_general_ms": general_ms(ia) if not general else None,
                     "bound_ms": (ia_b + ib_b) / PEAK_BYTES * 1e3, "bound_by": "bytes", "bytes": ia_b + ib_b,
                     "plain_ms": plain_ms if k == 0 else None, "registers": regs,
                     "max_abs_err": mine[worst], "worst": worst if mine[worst] else None, "outputs_compared": len(mine),

@@ -23,13 +23,14 @@ tape lane for lane):
 
 A sample is one loop over its path's vertices (``_vertex_loop``): the
 closest-hit walk, the vertex's shading, the NEE rays' walk, the NEE gather.
-On a CUDA device, for scenes of diffuse and emissive BSDFs under
-directional and point lights (``_takes_vertex_kernel``), kernel I
-(``ops/csrc/shade.cu``) shades each vertex in two launches, in place of
-the plain vertex functions' ~300 PyTorch ops; every other scene, and the
-CPU, runs those plain functions (``_shade_plain``, ``_gather_plain``),
-which kernel I matches bit for bit on the card.  :func:`vertex_routes`
-counts the vertex wavefronts each route shaded.
+On a CUDA device, for scenes of any BSDF families, triangles and spheres,
+under directional, point, spot and area lights (``_takes_vertex_kernel``),
+kernel I (``ops/csrc/shade.cu``) shades each vertex in two launches, in
+place of the plain vertex functions' ~300 PyTorch ops; scenes with an
+environment map, ``-H`` or other light types, a recorded gradient, and the
+CPU run those plain functions (``_shade_plain``, ``_gather_plain``), which
+kernel I matches bit for bit on the card.  :func:`vertex_routes` counts the
+vertex wavefronts each route shaded.
 
 Every BSDF family and light type of the JAX package is ported.  The
 sample loops are Python loops; on a CUDA device the Renderer captures one
@@ -51,7 +52,7 @@ import torch
 from .. import _rng
 from ..ops.intersect import Hit, SceneArrays, finalize_hit
 from ..ops.intersect_cuda import BVH_INF, KERNELS, BvhArrays, CudaScene, bvh_walk, walk_slots
-from ..scene.build import LT_DIRECTIONAL, LT_POINT
+from ..scene.build import LT_AREA, LT_DIRECTIONAL, LT_POINT, LT_SPOT
 from ..scene.camera import CameraParams, generate_rays, generate_rays_bokeh, generate_rays_thin_lens
 from ..scene.collada import BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET, BSDF_REFRACTION
 from .envlight import EnvLightArrays, sample_dir
@@ -456,6 +457,7 @@ def _nee_gather(bundle: SceneBundle, settings: RenderSettings, nee: _Nee, result
 # ---------------------------------------------------------------------------
 
 VERTEX_MAX_SLOTS = 16  # kernel I's light slots (csrc/shade.cu MAX_SLOTS)
+_KERNEL_LIGHTS = (LT_DIRECTIONAL, LT_POINT, LT_SPOT, LT_AREA)  # the light types kernel I samples
 
 
 def vertex_routes() -> dict:
@@ -467,22 +469,28 @@ def vertex_routes() -> dict:
 def _takes_vertex_kernel(bundle: SceneBundle, settings: RenderSettings, o, d) -> bool:
     """Whether kernel I shades this sample's vertices, decided from the scene and the settings.
 
-    It takes CUDA lanes of diffuse and emissive BSDFs under directional and
-    point lights (at most ``VERTEX_MAX_SLOTS`` slots), with the light-sample
-    NEE (no ``-H``), no environment map and no spheres, while no gradient is
-    recorded; everything else runs the plain vertex functions.
+    It takes CUDA lanes of any BSDF families, on triangles and spheres, under
+    directional, point, spot and area lights (at most ``VERTEX_MAX_SLOTS``
+    slots), with the light-sample NEE (no ``-H``) and no environment map,
+    while no gradient is recorded; everything else (the sky, ``-H``,
+    hemisphere, sphere and mesh lights) runs the plain vertex functions.
     """
     if o.device.type != "cuda" or settings.direct_hemisphere_sample or bundle.env is not None:
         return False
-    if settings.bsdf_families is None or not set(settings.bsdf_families) <= {BSDF_DIFFUSE, BSDF_EMISSION}:
-        return False
     if len(settings.light_slots) > VERTEX_MAX_SLOTS:
         return False
-    if any(code not in (LT_DIRECTIONAL, LT_POINT) for code in settings.light_slot_types):
-        return False
-    if bundle.scene.sph_center.shape[0] > 0:
+    if any(code not in _KERNEL_LIGHTS for code in settings.light_slot_types):
         return False
     return not (torch.is_grad_enabled() and any(x.requires_grad for x in (*bundle.bsdfs, *bundle.lights, o, d)))
+
+
+def _general_vertex_kernel(bundle: SceneBundle, settings: RenderSettings) -> bool:
+    """Whether kernel I-a runs its general instance: BSDF families beyond diffuse and emission (or
+    unknown ones), spot or area slots, or spheres; else the instance that holds none of their code."""
+    families = settings.bsdf_families
+    return (families is None or not set(families) <= {BSDF_DIFFUSE, BSDF_EMISSION}
+            or any(code in (LT_SPOT, LT_AREA) for code in settings.light_slot_types)
+            or bundle.scene.sph_center.shape[0] > 0)
 
 
 class _PlainPath(NamedTuple):
@@ -583,18 +591,25 @@ def _finish_plain(bundle: SceneBundle, path: _PlainPath, d):
     return torch.where(path.hit0[:, None], L, L_miss), stats
 
 
+# the tables only I-a's general instance reads, in ShadeArgs' order
+_GENERAL_TABLES = ("reflectance", "transmittance", "eta", "k", "alpha", "ior", "light_dim_x", "light_dim_y",
+                   "light_area", "sph_center", "sph_bsdf")
+
+
 class _ShadeArgs(ctypes.Structure):
     """``ShadeArgs`` of ``csrc/shade.cu``: the same fields in the same order."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "t", "hit_id", "smap", "found", "b1", "b2", "tests", "rows", "base", "dir", "ray_thi", "tape", "valid",
-            "tri_shade", "bsdf_type", "albedo", "emit", "light_rad", "light_pos", "light_dir", "fstate", "istate",
-            "so", "sd", "stlo", "sthi", "contrib", "bo", "bd", "btlo", "bthi", "pb",
+            "t", "hit_id", "smap", "found", "b1", "b2", "tests", "rows", "base", "org", "dir", "ray_thi", "tape",
+            "valid", "tri_shade", "bsdf_type", "albedo", "emit", "light_rad", "light_pos", "light_dir",
+            *_GENERAL_TABLES, "fstate", "istate", "so", "sd", "stlo", "sthi", "contrib", "bo", "bd", "btlo", "bthi",
+            "pb",
         )
     ] + [(name, ctypes.c_longlong) for name in ("n", "tape_u", "bstride")] + [
-        (name, ctypes.c_int) for name in ("num_tris", "vertex", "sample_bounce", "s_tape", "emission_family", "n_slots")
+        (name, ctypes.c_int)
+        for name in ("num_tris", "n_sph", "vertex", "sample_bounce", "s_tape", "emission_family", "general", "n_slots")
     ] + [("slot_row", ctypes.c_int * VERTEX_MAX_SLOTS), ("slot_code", ctypes.c_int * VERTEX_MAX_SLOTS)]
 
 
@@ -660,21 +675,27 @@ def _shade_kernel(bundle: SceneBundle, settings: RenderSettings, tape, k, n_vert
             (lanes(n_slots * n, 3), lanes(n_slots * n, 3), lanes(n_slots * n), lanes(n_slots * n)),
             lanes(n_slots * n, 3), lanes(n, 3),
         )
-        base, dirn, thi = ray[0], ray[1], ray[3]
+        base, org, dirn, thi = ray[0], ray[0], ray[1], ray[3]
     else:
-        base, dirn, thi = path.pb, path.bounce[1], path.bounce[3]
+        base, org, dirn, thi = path.pb, path.bounce[0], path.bounce[1], path.bounce[3]
     bsdfs, lights, scene = bundle.bsdfs, bundle.lights, bundle.scene
-    n_lights, n_tris = lights.light_type.shape[0], scene.tri_shade.shape[0]
+    n_lights, n_tris, n_bsdfs = lights.light_type.shape[0], scene.tri_shade.shape[0], bsdfs.bsdf_type.shape[0]
+    n_sph = scene.sph_center.shape[0]
+    general = _general_vertex_kernel(bundle, settings)
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    tables = ((bsdfs.reflectance, bsdfs.transmittance, bsdfs.eta, bsdfs.k, bsdfs.alpha, bsdfs.ior, lights.dim_x,
+               lights.dim_y, lights.area, scene.sph_center, scene.sph_bsdf) if general else (None,) * 11)
+    shapes = ((n_bsdfs, 3),) * 4 + ((n_bsdfs,),) * 2 + ((n_lights, 3),) * 2 + ((n_lights,), (n_sph, 3), (n_sph,))
     _check_lanes(
         dev, ("t", w.t, (n,), f32), ("hit_id", w.hit_id, (n,), i32), ("found", w.found, (n,), u8),
         ("tests", w.tests, (n,), i32), ("rows", w.rows, (n, 10), f32), ("base", base, (n, 3), f32),
-        ("dir", dirn, (n, 3), f32), ("t_hi", thi, (n,), f32), ("valid", valid, (n,), u8),
+        ("org", org, (n, 3), f32), ("dir", dirn, (n, 3), f32), ("t_hi", thi, (n,), f32), ("valid", valid, (n,), u8),
         ("tape", tape, (n, tape_size(settings)), f32), ("tri_shade", scene.tri_shade, (n_tris, 10), f32),
         ("bsdf_type", bsdfs.bsdf_type, bsdfs.bsdf_type.shape, i32),
-        ("albedo", bsdfs.albedo, (bsdfs.bsdf_type.shape[0], 3), f32),
-        ("radiance", bsdfs.radiance, (bsdfs.bsdf_type.shape[0], 3), f32),
+        ("albedo", bsdfs.albedo, (n_bsdfs, 3), f32), ("radiance", bsdfs.radiance, (n_bsdfs, 3), f32),
         *((name, getattr(lights, name), (n_lights, 3), f32) for name in ("radiance", "position", "direction")),
+        *((name, x, shape, i32 if name == "sph_bsdf" else f32)
+          for name, x, shape in zip(_GENERAL_TABLES, tables, shapes)),
     )
     bstride = w.b1.stride(0)
     if w.b1.dtype != f32 or w.b2.stride(0) != bstride or w.b1.shape != (n,) or w.b1.device != dev:
@@ -683,15 +704,17 @@ def _shade_kernel(bundle: SceneBundle, settings: RenderSettings, tape, k, n_vert
         raise ValueError("smap: want contiguous int32")
     if any(not 0 <= row < n_lights for row in settings.light_slots):
         raise ValueError(f"light slots {settings.light_slots} past the table's {n_lights} rows")
+    if any(code not in _KERNEL_LIGHTS for code in settings.light_slot_types):
+        raise ValueError(f"light slot types {settings.light_slot_types}: kernel I samples only {_KERNEL_LIGHTS}")
     bo, bd, btlo, bthi = path.bounce
     so, sd, stlo, sthi = path.shadow
     args = _ShadeArgs(
-        *map(_ptr, (w.t, w.hit_id, w.smap, w.found, w.b1, w.b2, w.tests, w.rows, base, dirn, thi, tape, valid,
+        *map(_ptr, (w.t, w.hit_id, w.smap, w.found, w.b1, w.b2, w.tests, w.rows, base, org, dirn, thi, tape, valid,
                     scene.tri_shade, bsdfs.bsdf_type, bsdfs.albedo, bsdfs.radiance, lights.radiance,
-                    lights.position, lights.direction, path.fstate, path.istate, so, sd, stlo, sthi, path.contrib,
-                    bo, bd, btlo, bthi, path.pb)),
-        n, tape.shape[1], bstride, n_tris, k, int(k < n_vertices - 1), max(settings.total_light_samples, 1),
-        int(BSDF_EMISSION in settings.bsdf_families), n_slots,
+                    lights.position, lights.direction, *tables, path.fstate, path.istate, so, sd, stlo, sthi,
+                    path.contrib, bo, bd, btlo, bthi, path.pb)),
+        n, tape.shape[1], bstride, n_tris, n_sph, k, int(k < n_vertices - 1), max(settings.total_light_samples, 1),
+        int(settings.bsdf_families is None or BSDF_EMISSION in settings.bsdf_families), int(general), n_slots,
         (ctypes.c_int * VERTEX_MAX_SLOTS)(*settings.light_slots),
         (ctypes.c_int * VERTEX_MAX_SLOTS)(*settings.light_slot_types),
     )

@@ -634,8 +634,9 @@ def test_replay_equals_eager_on_card(case, cuda_device, tmp_path):
         assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
         assert a[2] == want[2] and a[3] == want[3] and a[4] == want[4], (a[2:], want[2:])
     assert sum(want[3].values()) > 0
-    # kernel I shades the diffuse, sun-and-point-lit terrains; the sky and the Cornell box's area light stay plain
-    kernel = case in ("terrain8_A_C", "terrain40_D_B_adaptive", "terrain40_G", "terrain40_bokeh_adaptive")
+    # kernel I shades the terrains and the Cornell box's lights, spheres and families; the sky and -H stay plain
+    kernel = case in ("terrain8_A_C", "terrain40_D_B_adaptive", "terrain40_G", "terrain40_bokeh_adaptive",
+                      "cornell_lights")
     assert (want[4]["kernel"] > 0, want[4]["plain"] > 0) == (kernel, not kernel), want[4]
     assert want[3]["I"] == 2 * want[4]["kernel"]
 

@@ -2,32 +2,40 @@
 
 A sample is one loop over its path's vertices: the closest-hit walk, the
 vertex's shading, the NEE rays' walk, the NEE gather.  On a CUDA device,
-for scenes of diffuse and emissive BSDFs under directional and point lights,
-kernel I shades each vertex (``lf_shade_vertex``, ``lf_gather_vertex``);
-everything else runs the plain vertex functions.  On the CPU:
+for scenes of any BSDF families, triangles and spheres under directional,
+point, spot and area lights, kernel I shades each vertex
+(``lf_shade_vertex``, ``lf_gather_vertex``); everything else runs the plain
+vertex functions.  On the CPU:
 
 - the route chooser: the terrain cells' scene and settings take the kernel on
-  a CUDA device, and each thing the kernel does not do (config 3's BSDF
-  families, an area light, the sky, ``-H``, a table that records a gradient,
-  spheres, more slots than the kernel holds, the CPU) takes the plain route;
+  a CUDA device, in I-a's diffuse instance; config 3's BSDF families, every
+  family, spot and area lights and spheres take it in the general instance;
+  each thing the kernel does not do (the sky, also with a spot or an area
+  light, ``-H``, hemisphere, sphere and mesh lights, a table that records a
+  gradient, more slots than the kernel holds, the CPU) takes the plain route;
 - the plain vertex loop against the JAX integrator on one tape, with padded
   lanes (t_hi = 0), camera misses and light samples of pdf 0 (an area light
   of infinite area), at the tolerances of ``tests/test_torch_integrator.py``;
 - ``shade.cu`` itself, built by g++ behind a shim header (launches rewritten
   to loops over blocks and threads, ``__ldg`` a load), on CPU tensors through
   the kernel route's own wrappers, against the plain route: every frame of
-  the tiled, adaptive, thin-lens bokeh, binary-BVH and single-vertex routes.
+  the tiled, adaptive, thin-lens bokeh, binary-BVH and single-vertex routes,
+  and a 32x32 2-spp depth-5 frame of the Cornell box (mirror and glass
+  spheres, a microfacet block, an emitter; area, spot, point and sun).
   Counts, rays, tests and skipped lanes are equal; the film agrees to a few
   float32 roundings, because PyTorch's CPU kernels divide by a Python number
   (``x / pi``) where its CUDA kernels, and so the kernel, multiply by the
-  reciprocal, and its CPU ``sqrt`` and ``sin`` are not glibc's.
+  reciprocal, and its CPU ``sqrt``, ``sin``, ``exp``, ``log``, ``atan`` and
+  ``pow`` are not glibc's.
 
 On the card (``-m gpu``; the CPU cases are the same functions): the kernel
 route against the plain route (``_takes_vertex_kernel`` patched to False),
 bit for bit in film, counts, s1, s2 and stats, on a 65,536-lane tile of
-terrain 512 (pinhole, depth 4) and of terrain 256 with the thin lens and the
-octagon bokeh (adaptive stages 4, 4, 8), and on the viewer's 800x600 frame;
-the route counters and ``KERNELS["I"]`` counting what a frame ran.
+terrain 512 (pinhole, depth 4), of terrain 256 with the thin lens and the
+octagon bokeh (adaptive stages 4, 4, 8) and of the Cornell box at the
+``cornell_256_16spp`` cell's size (256x256, 16 spp, depth 5), and on the
+viewer's 800x600 frame; the route counters and ``KERNELS["I"]`` counting
+what a frame ran.
 """
 
 import contextlib
@@ -61,10 +69,13 @@ from lens_flare_tpu_torch.lens.aperture import ApertureTexture, polygon_mask
 from lens_flare_tpu_torch.ops import _build
 from lens_flare_tpu_torch.ops import intersect_cuda as ic
 from lens_flare_tpu_torch.renderer import Renderer
-from lens_flare_tpu_torch.scene.build import LT_AREA, LT_DIRECTIONAL, LT_POINT
+from lens_flare_tpu_torch.scene.build import (
+    LT_AREA, LT_DIRECTIONAL, LT_HEMISPHERE, LT_MESH, LT_POINT, LT_SPHERE, LT_SPOT,
+)
 from lens_flare_tpu_torch.scene.camera import camera_params, generate_rays
 from lens_flare_tpu_torch.scene.collada import BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET
 from lens_flare_tpu_torch.scene.procedural import make_terrain_scene
+from lens_flare_tpu_torch.scene.writer import cornell_box
 
 needs_jax = pytest.mark.skipif(jpath is None, reason="needs the JAX package (the reference)")
 
@@ -107,23 +118,23 @@ def test_terrain_on_cuda_takes_the_kernel(terrain):
         assert path._takes_vertex_kernel(b, s, _cuda_lanes(), _cuda_lanes())
 
 
-PLAIN_CASES = ("config3_families", "every_family", "area_light", "sky", "hemisphere_H", "grad_table",
-               "grad_rays", "spheres", "too_many_slots")
-
-
-@pytest.mark.parametrize("case", PLAIN_CASES)
-def test_what_the_kernel_does_not_do_takes_the_plain_route(case, terrain):
+def _case(case, terrain):
+    """The terrain's (bundle, settings, lanes) changed as ``case`` names."""
     b, s = terrain.bundle, terrain.settings
     lanes = _cuda_lanes(requires_grad=case == "grad_rays")
     many = (0,) * (path.VERTEX_MAX_SLOTS + 1)
+    sky = case == "sky" or case.endswith("_with_sky")
+    case = case.removesuffix("_with_sky")
+    if sky:
+        b = b._replace(env=object())
     if case == "config3_families":
         s = s._replace(bsdf_families=(BSDF_DIFFUSE, BSDF_MICROFACET, BSDF_GLASS))
     elif case == "every_family":
         s = s._replace(bsdf_families=None)
-    elif case == "area_light":
-        s = s._replace(light_slot_types=(LT_DIRECTIONAL, LT_AREA))
-    elif case == "sky":
-        b = b._replace(env=object())
+    elif case in ("area_light", "spot_light", "hemisphere_light", "sphere_light", "mesh_light"):
+        code = {"area_light": LT_AREA, "spot_light": LT_SPOT, "hemisphere_light": LT_HEMISPHERE,
+                "sphere_light": LT_SPHERE, "mesh_light": LT_MESH}[case]
+        s = s._replace(light_slot_types=(LT_DIRECTIONAL, code))
     elif case == "hemisphere_H":
         s = s._replace(direct_hemisphere_sample=True)
     elif case == "grad_table":
@@ -133,6 +144,25 @@ def test_what_the_kernel_does_not_do_takes_the_plain_route(case, terrain):
                                               sph_bsdf=torch.zeros(1, dtype=torch.int32)))
     elif case == "too_many_slots":
         s = s._replace(light_slots=many, light_slot_types=(LT_DIRECTIONAL,) * len(many))
+    return b, s, lanes
+
+
+@pytest.mark.parametrize("case", ["config3_families", "every_family", "area_light", "spot_light", "spheres"])
+def test_what_the_general_kernel_does_takes_the_kernel(case, terrain):
+    """Every BSDF family, spot and area slots and spheres take kernel I, in I-a's general instance; the
+    terrain's diffuse scene under sun and point lights takes the instance that holds none of them."""
+    b, s, lanes = _case(case, terrain)
+    assert path._takes_vertex_kernel(b, s, lanes, lanes)
+    assert path._general_vertex_kernel(b, s) and not path._general_vertex_kernel(terrain.bundle, terrain.settings)
+
+
+PLAIN_CASES = ("sky", "hemisphere_H", "grad_table", "grad_rays", "too_many_slots", "spot_light_with_sky",
+               "area_light_with_sky", "hemisphere_light", "sphere_light", "mesh_light")
+
+
+@pytest.mark.parametrize("case", PLAIN_CASES)
+def test_what_the_kernel_does_not_do_takes_the_plain_route(case, terrain):
+    b, s, lanes = _case(case, terrain)
     assert not path._takes_vertex_kernel(b, s, lanes, lanes)
 
 
@@ -269,17 +299,25 @@ FRAMES = {
     "terrain40_G": dict(scene=40, use_wide_tree=False),
     "terrain40_bokeh_adaptive": dict(scene=40, bokeh=True, ns_aa=8, samples_per_batch=2),
     "terrain40_depth1": dict(scene=40, max_ray_depth=1),
+    # config 1's scene (scene/writer.py:cornell_box with its default lights and spheres: mirror, glass,
+    # microfacet and emission; area, spot, point and sun): I-a's general instance
+    "cornell_32_2spp": dict(scene="cornell", width=32, height=32, ns_aa=2, max_ray_depth=5),
 }
 
 
-def frame_renderer(case, device, width=64, height=48, tile=1024):
-    kw = dict(FRAMES[case])
+def frame_renderer(case, device, tmp_path, width=None, height=None, tile=1024):
+    """The case's renderer: its film is ``width`` x ``height`` if given, else the case's, else 64 x 48."""
+    kw = {"width": 64, "height": 48, **FRAMES[case]}
     scene = kw.pop("scene")
     if kw.pop("bokeh", False):
         kw.update(lens_radius=0.05, focal_distance=1.5, bokeh=ApertureTexture.from_array(polygon_mask(32, 8)))
     kw.setdefault("max_ray_depth", 4)
-    r = Renderer(device=device, width=width, height=height, seed=0, tile_pixels=tile, **kw)
-    r.load_flat_scene(make_terrain_scene(scene))
+    kw.update({k: v for k, v in (("width", width), ("height", height)) if v is not None})
+    r = Renderer(device=device, seed=0, tile_pixels=tile, **kw)
+    if scene == "cornell":
+        r.load(cornell_box().write(tmp_path / "cornell.dae"))
+    else:
+        r.load_flat_scene(make_terrain_scene(scene))
     return r
 
 
@@ -292,8 +330,8 @@ def _frame(r):
 
 
 @pytest.mark.parametrize("case", list(FRAMES))
-def test_kernel_source_equals_plain_on_the_cpu(case, route):
-    r = frame_renderer(case, "cpu")
+def test_kernel_source_equals_plain_on_the_cpu(case, route, tmp_path):
+    r = frame_renderer(case, "cpu", tmp_path)
     route(True)
     got = _frame(r)
     route(False)
@@ -313,14 +351,18 @@ VERTEX_OUTPUTS[1] = VERTEX_OUTPUTS[0]
 EXACT_OUTPUTS = ("alive", "camera_hit", "bounce", "shadow_t_lo", "bounce_t_lo", "stats")
 
 
-@pytest.mark.parametrize("case", ["terrain40_D_B_adaptive", "terrain40_G", "terrain40_bokeh_adaptive"])
-def test_vertex_errors_compare_every_output_on_the_cpu(case, route):
+@pytest.mark.parametrize("case", ["terrain40_D_B_adaptive", "terrain40_G", "terrain40_bokeh_adaptive",
+                                  "cornell_32_2spp"])
+def test_vertex_errors_compare_every_output_on_the_cpu(case, route, tmp_path):
     """``bench_kernels.vertex_errors``, the card's check of kernel I on vertices 0 and 1, through the CPU
     build: it names every output of I-a and I-b, finds the flags, counts and stats equal and the floats
     within a few roundings (the CPU's ``x / pi`` and ``sin``, see above), and sees a bounce direction that
     one lane of the kernel's output gets wrong."""
-    r = frame_renderer(case, "cpu")
-    tape, ray = bk.vertex_wavefront(r, 1024, blocked=True)
+    # the Cornell box on a 128 x 128 film: its 16,384 lanes meet the glass sphere often enough that a wrong
+    # Schlick term turns some coins
+    side = 128 if case.startswith("cornell") else None
+    r = frame_renderer(case, "cpu", tmp_path, width=side, height=side)
+    tape, ray = bk.vertex_wavefront(r, r.width * r.height if side else 1024, blocked=True)
     errs = bk.vertex_errors(r.bundle, r.settings, tape, ray)
     assert sorted(errs) == sorted(f"v{k}.{name}" for k, names in VERTEX_OUTPUTS.items() for name in names)
     # a bounce that misses puts the next vertex 1e30 away: its shadow rays trace nothing, and one rounding
@@ -355,6 +397,9 @@ def test_kernel_wrappers_refuse_what_the_kernel_cannot_read(route, terrain):
         path._shade_kernel(terrain.bundle, s, tape, 0, 4, walk, ray, None, torch.ones(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="light slots"):
         path._shade_kernel(terrain.bundle, s._replace(light_slots=(0, 7)), tape, 0, 4, walk, ray, None, None)
+    with pytest.raises(ValueError, match="light slot types"):
+        hemi = s._replace(light_slot_types=(LT_DIRECTIONAL, LT_HEMISPHERE))
+        path._shade_kernel(terrain.bundle, hemi, tape, 0, 4, walk, ray, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +434,20 @@ def _same_bits(a, b):
 
 CARD_TILES = {
     # terrain 512 (the orbit's scene: a stream tree, kernel A, then B), pinhole, depth 4
-    "terrain512_pinhole": lambda dev: _card_renderer(512, dev),
+    "terrain512_pinhole": lambda dev, tmp: _card_renderer(512, dev),
     # terrain 256 (config 2's scene: kernels D and B), thin lens, octagon bokeh
-    "terrain256_bokeh": lambda dev: _card_renderer(256, dev, bokeh=True),
+    "terrain256_bokeh": lambda dev, tmp: _card_renderer(256, dev, bokeh=True),
+    # the cornell_256_16spp cell's size: the Cornell box (kernels A and C; I-a's general instance), 16 spp,
+    # depth 5
+    "cornell_256_16spp": lambda dev, tmp: _card_cornell(dev, tmp),
 }
+
+
+def _card_cornell(dev, tmp_path):
+    r = Renderer(device=dev, width=256, height=256, ns_aa=16, max_ray_depth=5, ns_area_light=1, indirect=True,
+                 seed=0, tile_pixels=65_536)
+    r.load(cornell_box().write(tmp_path / "cornell.dae"))
+    return r
 
 
 def _card_renderer(nq, dev, bokeh=False):
@@ -412,10 +467,11 @@ def _card_renderer(nq, dev, bokeh=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CARD_TILES))
-def test_kernel_equals_plain_on_card(case, cuda_device, monkeypatch):
+def test_kernel_equals_plain_on_card(case, cuda_device, monkeypatch, tmp_path):
     """A 65,536-lane tile, 4 samples through render_batch, and the whole 256x256 frame (one tile: the
-    bokeh case's adaptive stages 4, 4, 8), both eagerly, by the kernel and by the plain route."""
-    r = CARD_TILES[case](cuda_device)
+    bokeh case's adaptive stages 4, 4, 8; the Cornell box's 16 samples summed), both eagerly, by the kernel
+    and by the plain route."""
+    r = CARD_TILES[case](cuda_device, tmp_path)
     got = _tile_sums(r, 4, True, monkeypatch)
     want = _tile_sums(r, 4, False, monkeypatch)
     for a, b in zip(got, want):
@@ -451,7 +507,7 @@ def test_viewer_frame_equals_plain_on_card(cuda_device, monkeypatch):
 @pytest.mark.gpu
 def test_route_counters_count_what_a_frame_ran_on_card(cuda_device):
     """A replayed 4-sample frame in two tiles at depth 4: 32 vertex wavefronts by the kernel, each an I-a
-    and an I-b launch (the plain route of the sky and the Cornell box: ``test_torch_compiled.py``)."""
+    and an I-b launch (the routes of the sky, -H and the Cornell box: ``test_torch_compiled.py``)."""
     r = Renderer(device=cuda_device, width=16, height=12, tile_pixels=128, ns_aa=4, max_ray_depth=4, seed=0)
     r.load_flat_scene(make_terrain_scene(8))
     r.render(progress=False)  # captures
